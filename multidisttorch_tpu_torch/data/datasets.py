@@ -1,0 +1,119 @@
+"""MNIST from local IDX files, with a deterministic synthetic fallback.
+
+A copy of ``Dataset``, ``_read_idx``, ``synthetic_mnist`` and ``load_mnist``
+from ``multidisttorch_tpu/data/datasets.py`` (numpy only, so the port
+imports none of the JAX package). One difference: the port never
+downloads. ``load_mnist`` reads IDX files under ``data_dir`` or, failing
+that, returns the labelled synthetic stand-in (``Dataset.synthetic`` is
+True), so every result says which data it came from.
+"""
+
+from __future__ import annotations
+
+import gzip
+import os
+import struct
+import warnings
+from dataclasses import dataclass
+
+import numpy as np
+
+
+@dataclass(frozen=True)
+class Dataset:
+    """Host-resident split: images in [0,1] float32, labels int32."""
+
+    images: np.ndarray  # (N, H*W*C) flattened
+    labels: np.ndarray  # (N,)
+    name: str
+    synthetic: bool = False
+
+    def __len__(self) -> int:
+        return self.images.shape[0]
+
+
+_MNIST_FILES = {
+    True: ("train-images-idx3-ubyte", "train-labels-idx1-ubyte"),
+    False: ("t10k-images-idx3-ubyte", "t10k-labels-idx1-ubyte"),
+}
+
+
+def _read_idx(path: str) -> np.ndarray:
+    """Parse an IDX-format file (optionally gzipped)."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        zero, dtype_code, ndim = struct.unpack(">HBB", f.read(4))
+        if zero != 0:
+            raise ValueError(f"{path}: not an IDX file")
+        dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+        dtypes = {0x08: np.uint8, 0x09: np.int8, 0x0B: np.int16,
+                  0x0C: np.int32, 0x0D: np.float32, 0x0E: np.float64}
+        data = np.frombuffer(f.read(), dtype=dtypes[dtype_code])
+        return data.reshape(dims)
+
+
+def _find_idx_file(data_dir: str, basename: str) -> str | None:
+    for sub in ("", "MNIST/raw", "mnist"):
+        for ext in ("", ".gz"):
+            p = os.path.join(data_dir, sub, basename + ext)
+            if os.path.exists(p):
+                return p
+    return None
+
+
+def synthetic_mnist(n: int, seed: int = 0, image_hw: int = 28) -> Dataset:
+    """Deterministic MNIST-shaped stand-in: 10 classes of oriented
+    Gaussian strokes. The same rows as the JAX package's for the same
+    ``(n, seed)``."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 10, size=n).astype(np.int32)
+    yy, xx = np.mgrid[0:image_hw, 0:image_hw].astype(np.float32)
+    imgs = np.zeros((n, image_hw, image_hw), np.float32)
+    for cls in range(10):
+        idx = np.where(labels == cls)[0]
+        if idx.size == 0:
+            continue
+        angle = cls * np.pi / 10.0
+        cy = 14 + 6 * np.sin(angle) + rng.normal(0, 1.2, idx.size)
+        cx = 14 + 6 * np.cos(angle) + rng.normal(0, 1.2, idx.size)
+        sy = 2.0 + 1.5 * (cls % 3)
+        sx = 2.0 + 1.5 * ((cls + 1) % 3)
+        d = np.exp(
+            -((yy[None] - cy[:, None, None]) ** 2 / (2 * sy**2)
+              + (xx[None] - cx[:, None, None]) ** 2 / (2 * sx**2))
+        )
+        imgs[idx] = d
+    imgs += rng.normal(0, 0.02, imgs.shape).astype(np.float32)
+    imgs = np.clip(imgs, 0.0, 1.0)
+    return Dataset(
+        images=imgs.reshape(n, -1), labels=labels,
+        name="synthetic-mnist", synthetic=True,
+    )
+
+
+def load_mnist(
+    train: bool = True,
+    data_dir: str = "data",
+    *,
+    allow_synthetic: bool = True,
+    synthetic_size: int | None = None,
+) -> Dataset:
+    """Load MNIST from IDX files under ``data_dir``; else the synthetic
+    stand-in (MNIST-sized unless ``synthetic_size``), or raise when
+    ``allow_synthetic=False``. Never downloads."""
+    img_base, lbl_base = _MNIST_FILES[train]
+    img_path = _find_idx_file(data_dir, img_base)
+    lbl_path = _find_idx_file(data_dir, lbl_base)
+    if img_path and lbl_path:
+        imgs = _read_idx(img_path).astype(np.float32) / 255.0
+        labels = _read_idx(lbl_path).astype(np.int32)
+        return Dataset(imgs.reshape(len(imgs), -1), labels, "mnist")
+
+    if not allow_synthetic:
+        raise FileNotFoundError(
+            f"MNIST not found under {data_dir!r}; pass allow_synthetic=True "
+            "for the deterministic stand-in"
+        )
+    n = synthetic_size if synthetic_size is not None else (60000 if train else 10000)
+    warnings.warn("Using synthetic MNIST stand-in (no local data)")
+    return synthetic_mnist(n, seed=0 if train else 1)
