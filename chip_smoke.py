@@ -5,7 +5,8 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit; TF32 off for matmuls and cuDNN;
-2. build the CUDA kernels from ``multidisttorch_tpu_torch/ops/csrc``;
+2. build the CUDA kernels from ``multidisttorch_tpu_torch/ops/csrc``, one
+   ``nvcc`` per source, all started together;
 3. each ELBO kernel against its plain PyTorch version (value, the three
    gradients, identical bits on a rerun) at four timed shapes, with the
    kernel's, the plain version's and a library call's device time and
@@ -14,10 +15,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernels' scalar tails and scalar path;
 4. one full-width train step (784-400-20, batch 128) through the fused
    kernels against the plain loss, from the same weights and noise;
-5. the slice: ``run_hpo`` with two trials (1 and 2 epochs) queued on one
+5. the VAE slice: ``run_hpo`` with two trials (1 and 2 epochs) queued on one
    group on ``cuda:0``, MNIST-sized synthetic data, batch 128; the kernels
    must have launched once per train step and the losses must fall;
-6. a ``kernels`` JSON line, then the result line.
+6. each flash-attention kernel (forward, dQ, dK/dV) against its plain
+   version (o, lse, dq, dk, dv with an lse cotangent, identical bits on a
+   rerun) at the LM's full width (BH 128, T 512, D 64: causal bf16 and f32,
+   non-causal f32), timed beside the plain version, the byte/FLOP bound and
+   ``scaled_dot_product_attention``; then untimed at T 64, T 96 with D 20,
+   bf16 at T 200, the padded causal T 1300 (D 32) and the non-causal T 1300
+   that must raise, and the autograd path with its lse gradient;
+7. the LM slice at full width (vocab 32768, d 512, 8 heads, 8 layers, T 512,
+   batch 16, bf16 compute): ``make_lm_multi_step`` runs 10 steps through the
+   flash kernels and, from the same weights, through the dense attention;
+   the losses agree and fall and each kernel launches 8 times a step; then
+   the eval step, and the f32 KV-cache greedy decode (prompt 256) with the
+   flash prefill and with the dense prefill, which must give the same
+   tokens; then the step time of both, in four alternating rounds, with the
+   device's busy time by kernel;
+8. a ``kernels`` JSON line, then the result line.
 
 Exits 1 without a result when CUDA is unavailable or the port is not
 beside this script.
@@ -30,6 +46,7 @@ import logging
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -37,10 +54,11 @@ import time
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and f32
-# non-tensor-core FLOP/s.
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32
+# non-tensor-core FLOP/s and dense bf16 tensor-core FLOP/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 # Work per element, counted from the kernels' arithmetic: forward
 # BCE (max, mul, sub, abs, exp, log1p, add, accumulate) and KL summand (add,
 # sub, mul, sub, exp, accumulate); backward sigmoid-minus-x times g (exp,
@@ -126,9 +144,9 @@ def device_time(fn, name: str = "") -> tuple[float, str]:
     return graph_ms(fn), "CUDA-graph replay"
 
 
-def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
+def bound_ms(n_bytes: int, n_ops: int, peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    t_ops = n_ops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -283,6 +301,324 @@ def train_step_fused_vs_plain(group) -> None:
     print(f"train step 784-400-20 batch 128 plain: {timing[False]}")
 
 
+# Flash kernels against their plain versions: the JAX tests' own tolerances
+# for f32 (test_pallas_attention.py:28-62); bf16 outputs within one bf16 ulp
+# of the plain value, plus the f32 gradient atol for values near zero.
+FLASH_TOL = {"fwd": (2e-5, 2e-6), "bwd": (5e-5, 5e-6)}
+
+
+def _flash_close(what: str, got, ref, kind: str) -> float:
+    diff = (got.float() - ref.float()).abs()
+    if got.dtype == torch.float32:
+        rtol, atol = FLASH_TOL[kind]
+        ok = bool(torch.all(diff <= atol + rtol * ref.float().abs()))
+        tol = f"rtol {rtol} / atol {atol}"
+    else:
+        ok = bool(torch.all(diff <= bf16_ulp(ref) + FLASH_TOL["bwd"][1]))
+        tol = "one bf16 ulp + 5e-6"
+    check(bool(torch.isfinite(got.float()).all()), f"{what}: non-finite values")
+    check(ok, f"{what}: differs from plain beyond {tol} (max {float(diff.max()):.3e})")
+    return float(diff.max())
+
+
+def flash_vs_plain(A, F, bh: int, t: int, d: int, dtype, causal: bool, *, timed: bool = True) -> dict:
+    """Phase 6 at one flat shape: the three kernels against the plain
+    versions on the same inputs (the backward with a random lse cotangent
+    folded into delta), identical bits on a rerun and, if ``timed``, times."""
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device="cpu").manual_seed(t * 31 + d + int(causal))
+    q, k, v, do = (torch.randn(bh, t, d, generator=gen).to(dev, dtype) for _ in range(4))
+    g_lse = torch.randn(bh, t, generator=gen).to(dev)
+    scale = 1.0 / math.sqrt(d)
+    tag = f"({bh}, {t}, {d}) {'causal' if causal else 'non-causal'} {str(dtype).replace('torch.', '')}"
+
+    o1, l1 = A.flash_fwd_cuda(q, k, v, scale, causal)
+    o2, l2 = A.flash_fwd_cuda(q, k, v, scale, causal)
+    op, lp = A.flash_fwd_plain(q, k, v, scale, causal)
+    delta = ((do.float() * op.float()).sum(-1) - g_lse).contiguous()
+    g1 = A.flash_bwd_cuda(q, k, v, do, lp, delta, scale, causal)
+    g2 = A.flash_bwd_cuda(q, k, v, do, lp, delta, scale, causal)
+    gp = A.flash_bwd_plain(q, k, v, do, lp, delta, scale, causal)
+    torch.cuda.synchronize()
+    check(o1.dtype == dtype and l1.dtype == torch.float32, f"flash_fwd {tag}: o {o1.dtype}, lse {l1.dtype}")
+    errs = {
+        "flash_fwd": max(_flash_close(f"flash_fwd {tag} o", o1, op, "fwd"),
+                         _flash_close(f"flash_fwd {tag} lse", l1, lp, "fwd")),
+        "flash_bwd_dq": _flash_close(f"flash_bwd_dq {tag} dq", g1[0], gp[0], "bwd"),
+        "flash_bwd_dkv": max(_flash_close(f"flash_bwd_dkv {tag} dk", g1[1], gp[1], "bwd"),
+                             _flash_close(f"flash_bwd_dkv {tag} dv", g1[2], gp[2], "bwd")),
+    }
+    check(torch.equal(o1, o2) and torch.equal(l1, l2), f"flash_fwd {tag}: two runs gave different bits")
+    for name, a, b in zip(("dq", "dk", "dv"), g1, g2):
+        check(torch.equal(a, b), f"flash backward {tag}: two runs gave different bits in {name}")
+    if not timed:
+        print(f"flash {tag}: max_abs_err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + " | bit-identical reruns (not timed)")
+        return {}
+
+    io = q.numel() * q.element_size()
+    rows = bh * t * 4
+    pairs = bh * (t * (t + 1) // 2 if causal else t * t)  # score entries the mask keeps
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    # Bytes: each input read once, each output written once. Operations:
+    # 2 FLOPs per multiply-add of the products over the kept score entries
+    # (forward QK^T and PV; dQ adds dO V^T and dS K; dK/dV QK^T, dO V^T,
+    # P^T dO and dS^T Q).
+    bounds = {
+        "flash_fwd": bound_ms(4 * io + rows, 4 * d * pairs, peak),
+        "flash_bwd_dq": bound_ms(5 * io + 2 * rows, 6 * d * pairs, peak),
+        "flash_bwd_dkv": bound_ms(6 * io + 2 * rows, 8 * d * pairs, peak),
+    }
+    # The yardstick: one PyTorch call for the same function, timed here and
+    # never called by the port. (1, BH, T, D) is the same problem.
+    ql, kl, vl = (x.view(1, bh, t, d).detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+    dol = do.view(1, bh, t, d)
+    calls = {
+        "flash_fwd": (lambda: A.flash_fwd_cuda(q, k, v, scale, causal), "flash_fwd_kernel"),
+        "flash_bwd_dq": (lambda: A.flash_bwd_dq_cuda(q, k, v, do, lp, delta, scale, causal), "flash_bwd_dq_kernel"),
+        "flash_bwd_dkv": (lambda: A.flash_bwd_dkv_cuda(q, k, v, do, lp, delta, scale, causal), "flash_bwd_dkv_kernel"),
+        "fwd_plain": (lambda: A.flash_fwd_plain(q, k, v, scale, causal), ""),
+        "bwd_plain": (lambda: A.flash_bwd_plain(q, k, v, do, lp, delta, scale, causal), ""),
+        "fwd_library": (lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal), ""),
+        "bwd_library": (lambda: torch.autograd.grad(out, (ql, kl, vl), dol, retain_graph=True), ""),
+    }
+    times = {}
+    with torch.no_grad():
+        for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fwd_plain", "bwd_plain", "fwd_library"):
+            fn, name = calls[key]
+            times[f"{key}_call_ms"] = time_ms(fn, iters=50)
+            times[f"{key}_ms"], times[f"{key}_from"] = device_time(fn, name)
+    # The kernels replayed from a CUDA graph (their launches are capturable).
+    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        times[f"{key}_graph_ms"] = graph_ms(calls[key][0])
+    fn, _ = calls["bwd_library"]
+    times["bwd_library_call_ms"] = time_ms(fn, iters=50)
+    times["bwd_library_ms"], times["bwd_library_from"] = device_ms(fn), "torch.profiler kernel time"
+    res = {}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        kind = "fwd" if name == "flash_fwd" else "bwd"
+        res[name] = {
+            "ms": times[f"{name}_ms"], "call_ms": times[f"{name}_call_ms"], "ms_from": times[f"{name}_from"],
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "max_abs_err": errs[name],
+            "plain_ms": times[f"{kind}_plain_ms"], "plain_call_ms": times[f"{kind}_plain_call_ms"],
+            "plain_ms_from": times[f"{kind}_plain_from"],
+            "library_ms": times[f"{kind}_library_ms"], "library_call_ms": times[f"{kind}_library_call_ms"],
+            "library_ms_from": times[f"{kind}_library_from"], "graph_ms": times[f"{name}_graph_ms"],
+        }
+        r = res[name]
+        print(f"flash {tag}: {name} kernel_ms={r['ms']:.6f} call_ms={r['call_ms']:.6f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) plain_ms={r['plain_ms']:.6f} "
+              f"library_ms={r['library_ms']} graph_ms={r['graph_ms']:.6f} "
+              f"max_abs_err={r['max_abs_err']:.3e} ({r['ms_from']})")
+    print(f"flash {tag}: plain_ms of the backward rows is one plain backward (dq, dk and dv); "
+          "library_ms is scaled_dot_product_attention's forward, or its autograd backward "
+          "(dq, dk and dv); bit-identical reruns")
+    return res
+
+
+def flash_autograd_check(A, bh: int, t: int, d: int, causal: bool) -> None:
+    """The autograd path on the card: (o, lse) through the kernels,
+    differentiated through both outputs, against torch autograd through
+    the plain forward (f32)."""
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device="cpu").manual_seed(17 + t)
+    base = [torch.randn(bh, t, d, generator=gen).to(dev) for _ in range(3)]
+    do = torch.randn(bh, t, d, generator=gen).to(dev)
+    g_lse = torch.randn(bh, t, generator=gen).to(dev)
+    scale = 1.0 / math.sqrt(d)
+    q, k, v = (x.clone().requires_grad_() for x in base)
+    o, lse = A.flash_flat_lse(q, k, v, scale, causal)
+    got = torch.autograd.grad([o, lse], [q, k, v], [do, g_lse])
+    qr, kr, vr = (x.clone().requires_grad_() for x in base)
+    op, lp = A.flash_fwd_plain(qr, kr, vr, scale, causal)
+    ref = torch.autograd.grad([op, lp], [qr, kr, vr], [do, g_lse])
+    tag = f"flash_flat_lse autograd ({bh}, {t}, {d}) {'causal' if causal else 'non-causal'} f32"
+    _flash_close(f"{tag} o", o.detach(), op.detach(), "fwd")
+    errs = [_flash_close(f"{tag} d{n}", a, b, "bwd") for n, a, b in zip("qkv", got, ref)]
+    print(f"{tag}: grads with the lse cotangent max_abs_err {max(errs):.3e}")
+
+
+def flash_padding_check(A) -> None:
+    """The (B, T, H, D) entry at T 1300: causal pads to 1408 and slices back
+    (against the plain versions on the unpadded sequence); non-causal raises."""
+    dev = torch.device("cuda:0")
+    b, t, h, d = 1, 1300, 2, 32
+    gen = torch.Generator(device="cpu").manual_seed(1300)
+    base = [torch.randn(b, t, h, d, generator=gen).to(dev) for _ in range(3)]
+    cot = torch.randn(b, t, h, d, generator=gen).to(dev)
+    q, k, v = (x.clone().requires_grad_() for x in base)
+    o = A.flash_attention(q, k, v, causal=True)
+    check(o.shape == q.shape, f"padded flash_attention: shape {tuple(o.shape)}")
+    got = torch.autograd.grad(o, [q, k, v], cot)
+    flat = lambda x: x.transpose(1, 2).reshape(b * h, t, d)
+    qr, kr, vr = (flat(x).clone().requires_grad_() for x in base)
+    op, _ = A.flash_fwd_plain(qr, kr, vr, 1.0 / math.sqrt(d), True)
+    ref = torch.autograd.grad(op, [qr, kr, vr], flat(cot))
+    unflat = lambda x: x.reshape(b, h, t, d).transpose(1, 2)
+    tag = "flash_attention (1, 1300, 2, 32) causal f32, padded to 1408"
+    err = _flash_close(f"{tag} o", o.detach(), unflat(op.detach()), "fwd")
+    for n, a, r in zip("qkv", got, ref):
+        err = max(err, _flash_close(f"{tag} d{n}", a, unflat(r), "bwd"))
+    print(f"{tag}: max_abs_err {err:.3e}")
+    try:
+        A.flash_attention(*base, causal=False)
+    except ValueError as e:
+        check("multiple of 128" in str(e), f"non-causal T 1300 raised the wrong error: {e}")
+        print("flash_attention (1, 1300, 2, 32) non-causal: raises ValueError as in the JAX package")
+    else:
+        fail("flash_attention: non-causal T 1300 did not raise")
+
+
+LM = dict(vocab_size=32768, d_model=512, num_heads=8, num_layers=8, max_len=512)
+LM_BATCH, LM_STEPS, LM_PROMPT = 16, 10, 256
+# Largest gap between two f32 logits that counts as a tie in the decode check.
+DECODE_TIE = 1e-3
+LM_TIMING_ROUNDS = 4
+
+
+def lm_slice(A, group, smi: str) -> dict:
+    """Phase 7: the LM path at full width. Returns each flash kernel's
+    launches over the path (train, eval and decode prefill)."""
+    import numpy as np
+
+    from multidisttorch_tpu_torch.data.datasets import synthetic_corpus
+    from multidisttorch_tpu_torch.models.transformer import TransformerLM, init_lm_params
+    from multidisttorch_tpu_torch.train.lm import create_lm_state, make_lm_eval_step, make_lm_multi_step
+    from multidisttorch_tpu_torch.train.lm_decode import make_cached_lm_sample
+    from multidisttorch_tpu_torch.train.steps import TrainState
+
+    dev = group.device
+    t = LM["max_len"]
+    corpus = synthetic_corpus(n=max(65536, 4 * t), vocab_size=LM["vocab_size"], period=16)
+    rng = np.random.default_rng(0)
+    chunks = torch.from_numpy(np.stack([corpus.batch(rng, LM_BATCH, t) for _ in range(LM_STEPS)])).to(dev)
+    flash_model = init_lm_params(
+        TransformerLM(**LM, attention=A.make_flash_attention(causal=True), dtype=torch.bfloat16), seed=0
+    )
+    plain_model = TransformerLM(**LM, dtype=torch.bfloat16)
+    plain_model.load_state_dict(flash_model.state_dict())
+    n_params = sum(p.numel() for p in flash_model.parameters())
+    states = {"flash": create_lm_state(group, flash_model, 1e-3), "plain": create_lm_state(group, plain_model, 1e-3)}
+    multi = make_lm_multi_step(group)
+
+    def reset():
+        for key in A.LAUNCHES:
+            A.LAUNCHES[key] = 0
+
+    # The main path, counts set to 0 just before each part and read just after.
+    reset()
+    states["flash"], m_flash = multi(states["flash"], chunks)
+    torch.cuda.synchronize()
+    train_launches = dict(A.LAUNCHES)
+    states["plain"], m_plain = multi(states["plain"], chunks)
+    lf, lp = m_flash["loss"].tolist(), m_plain["loss"].tolist()
+    for key in A.LAUNCHES:
+        check(train_launches[key] == 8 * LM_STEPS,
+              f"LM train: {key} launched {train_launches[key]} times in {LM_STEPS} steps of 8 layers")
+    check(all(math.isfinite(x) for x in lf + lp), f"LM train: non-finite loss {lf} / {lp}")
+    # bf16 compute: the dense path rounds scores and probabilities to bf16,
+    # the flash kernels keep them in f32, so the two trajectories agree to
+    # bf16 precision only.
+    worst = max(abs(a - b) / abs(b) for a, b in zip(lf, lp))
+    check(worst <= 2e-2, f"LM train: flash losses {lf} vs dense {lp} (worst rel {worst:.3e} > 2e-2)")
+    check(lf[-1] < lf[0], f"LM train: loss did not fall ({lf[0]} -> {lf[-1]})")
+    print(f"LM train ({n_params:,} params, bf16 compute, batch {LM_BATCH} x {t}): flash losses "
+          + ", ".join(f"{x:.4f}" for x in lf) + " | dense " + ", ".join(f"{x:.4f}" for x in lp)
+          + f" | worst rel {worst:.3e} (limit 2e-2) | launches {train_launches}")
+
+    reset()
+    ev = make_lm_eval_step(group)(states["flash"], chunks[0])
+    torch.cuda.synchronize()
+    eval_launches = dict(A.LAUNCHES)
+    check(eval_launches == {"flash_fwd": 8, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+          f"LM eval: launches {eval_launches}")
+    check(math.isfinite(float(ev["loss"])), f"LM eval: non-finite loss {float(ev['loss'])}")
+    print(f"LM eval: loss {float(ev['loss']):.4f}, perplexity {float(ev['perplexity']):.2f}; launches {eval_launches}")
+
+    # The f32 cached decode from the trained weights: the flash prefill,
+    # then the dense one, on the same state.
+    dec = TransformerLM(**LM).to(dev)
+    dec.load_state_dict(states["flash"].model.state_dict())
+    dec_state = TrainState(model=dec, optimizer=None)
+    window = torch.from_numpy(corpus.batch(np.random.default_rng(1), LM_BATCH, t)).to(dev)
+    samplers = {
+        "flash": make_cached_lm_sample(group, TransformerLM(**LM, attention=A.make_flash_attention(causal=True))),
+        "dense": make_cached_lm_sample(group, TransformerLM(**LM)),
+    }
+    outs, per_token = {}, {}
+    reset()
+    for name, sample in samplers.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = sample(dec_state, window, LM_PROMPT)
+        torch.cuda.synchronize()
+        per_token[name] = (time.perf_counter() - t0) / (t - LM_PROMPT) * 1e3
+        if name == "flash":
+            decode_launches = dict(A.LAUNCHES)
+    check(decode_launches == {"flash_fwd": 8, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+          f"LM decode: flash prefill launches {decode_launches}")
+    out = outs["flash"]
+    check(out.shape == window.shape and bool(torch.equal(out[:, :LM_PROMPT], window[:, :LM_PROMPT])),
+          "LM decode: the prompt region changed")
+    check(bool(((out >= 0) & (out < LM["vocab_size"])).all()), "LM decode: token out of the vocab")
+    # The two prefills differ only in f32 rounding inside the attention, so
+    # the greedy tokens are equal wherever the top logit is not a tie at f32
+    # precision. A barely trained 32768-way head has such ties: where a row
+    # splits, the two tokens chosen at its first split must be tied within
+    # DECODE_TIE in the dense model's logits at that position (rows are
+    # compared only up to their first split: after it the contexts differ).
+    splits = []
+    for r in (outs["flash"] != outs["dense"]).any(dim=1).nonzero()[:, 0].tolist():
+        i = int((outs["flash"][r] != outs["dense"][r]).nonzero()[0, 0])
+        with torch.no_grad():
+            logits = dec(outs["dense"][r : r + 1, :i])[0, -1]
+        a, b = int(outs["flash"][r, i]), int(outs["dense"][r, i])
+        gap = abs(float(logits[a] - logits[b]))
+        check(gap <= DECODE_TIE, f"LM decode: row {r} splits at {i} between tokens {a} and {b}, "
+              f"whose logits differ by {gap:.3e} > {DECODE_TIE}: not a tie")
+        splits.append(f"row {r} at {i}, logits {float(logits[a]):.6f} vs {float(logits[b]):.6f}")
+    same = "equal" if not splits else (
+        f"equal except {len(splits)} row(s) split at an f32 tie ({'; '.join(splits)})")
+    match = float((out[:, LM_PROMPT:] == window[:, LM_PROMPT:]).float().mean())
+    print(f"LM decode (f32, batch {LM_BATCH}, prompt {LM_PROMPT}, {t - LM_PROMPT} generated): greedy tokens "
+          f"{same} with flash and dense prefill; matches the true continuation at {100 * match:.1f}%; "
+          f"ms per generated token: flash prefill {per_token['flash']:.3f}, dense prefill "
+          f"{per_token['dense']:.3f} ({smi}); launches {decode_launches}")
+
+    # Step time and device share, after the counted runs. Host-bound times
+    # spread between runs, so each mode is timed LM_TIMING_ROUNDS times, in
+    # turns (flash, dense, dense, flash, ...); the idle share uses the median.
+    from torch.profiler import ProfilerActivity, profile
+
+    step_ms = {"flash": [], "plain": []}
+    for r in range(LM_TIMING_ROUNDS):
+        for name in ("flash", "plain") if r % 2 == 0 else ("plain", "flash"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[name], _ = multi(states[name], chunks)
+            torch.cuda.synchronize()
+            step_ms[name].append((time.perf_counter() - t0) / LM_STEPS * 1e3)
+    for name in ("flash", "plain"):
+        ms = statistics.median(step_ms[name])
+        # One more multi-step under the profiler: device busy time, and the
+        # kernels that take it, by name, per step.
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            states[name], _ = multi(states[name], chunks)
+            torch.cuda.synchronize()
+        by_kernel = sorted(((e.device_time_total / LM_STEPS / 1e3, e.key) for e in prof.key_averages()
+                            if e.device_time_total > 0), reverse=True)
+        busy = sum(ms_k for ms_k, _ in by_kernel)
+        busy_s = ("device busy not measured, idle share not measured" if busy == 0 else
+                  f"device busy {busy * 1e3:.3f} us/step, idle share {1 - busy / ms:.3f}")
+        label = "flash kernels" if name == "flash" else "dense attention"
+        print(f"LM train step ({label}): median {ms:.6f} ms/step of "
+              + ", ".join(f"{x:.6f}" for x in step_ms[name]) + f"; {busy_s} ({smi})")
+        print(f"LM train step ({label}) device ms per step by kernel, top 10: "
+              + "; ".join(f"{ms_k:.3f} {key[:70]}" for ms_k, key in by_kernel[:10]))
+    return {key: train_launches[key] + eval_launches[key] + decode_launches[key] for key in A.LAUNCHES}
+
+
 class _Lines(logging.Handler):
     def __init__(self):
         super().__init__()
@@ -298,6 +634,7 @@ def main() -> None:
     sys.path.insert(0, HERE)
     try:
         from multidisttorch_tpu_torch.ops import _build
+        from multidisttorch_tpu_torch.ops import attention as A
         from multidisttorch_tpu_torch.ops import elbo as E
     except ImportError as e:
         fail(f"the port is not importable beside this script ({e})")
@@ -319,9 +656,9 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     print("set: torch.backends.cuda.matmul.allow_tf32 = False, torch.backends.cudnn.allow_tf32 = False")
 
-    # Phase 2: build.
+    # Phase 2: build, one nvcc per source, all started together.
     t0 = time.time()
-    built = [_build.build(name) for name in _build.SOURCES]
+    built = _build.build_all()
     print(f"built {[p.name for p in built]} in {time.time() - t0:.1f} s")
     for name, log in _build.ptxas_reports.items():
         regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", log)})
@@ -396,7 +733,27 @@ def main() -> None:
         )
     print(f"slice: {steps} train steps in {sweep_s:.3f} s; launches {launches}")
 
-    # Phase 6: the kernels line, then the result.
+    # Phase 6: each flash kernel against its plain version. Timed at the
+    # LM's full width; the first is the training path's shape and dtype.
+    flash_main = flash_vs_plain(A, F, 128, 512, 64, torch.bfloat16, True)
+    flash_vs_plain(A, F, 128, 512, 64, torch.float32, True)
+    flash_vs_plain(A, F, 128, 512, 64, torch.float32, False)
+    flash_vs_plain(A, F, 4, 64, 64, torch.float32, True, timed=False)
+    flash_vs_plain(A, F, 4, 64, 64, torch.float32, False, timed=False)
+    flash_vs_plain(A, F, 4, 96, 20, torch.float32, True, timed=False)
+    flash_vs_plain(A, F, 4, 96, 20, torch.float32, False, timed=False)
+    flash_vs_plain(A, F, 4, 200, 64, torch.bfloat16, True, timed=False)
+    flash_vs_plain(A, F, 4, 200, 16, torch.bfloat16, False, timed=False)
+    flash_vs_plain(A, F, 2, 130, 256, torch.float32, True, timed=False)
+    flash_vs_plain(A, F, 2, 77, 128, torch.bfloat16, False, timed=False)
+    flash_autograd_check(A, 128, 512, 64, True)
+    flash_autograd_check(A, 4, 96, 20, False)
+    flash_padding_check(A)
+
+    # Phase 7: the LM slice; counts set to 0 inside, just before each part.
+    lm_launches = lm_slice(A, group, smi)
+
+    # Phase 8: the kernels line, then the result.
     # "ms", "plain_ms" and "library_ms" are device time per call at the
     # slice's shape (batch 128, f32); "*_call_ms" add the host's per-call
     # cost. "launches" counts wrapper calls: elbo_fwd is one logical kernel
@@ -421,6 +778,16 @@ def main() -> None:
             "ms_from": m[f"{key}_from"], "plain_ms_from": m[f"{key}_plain_from"],
             "library_ms_from": m[f"{lib}_from"] if lib else None,
             "grid_launches_per_call": grids,
+        })
+    # Flash rows: device time per call at the LM training path's shape
+    # ((128, 512, 64) causal bf16); "launches" counts the LM path's train
+    # steps, eval and decode prefill.
+    for name, line in (("flash_fwd", 160), ("flash_bwd_dq", 332), ("flash_bwd_dkv", 346)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "multidisttorch_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": f"multidisttorch_tpu/ops/pallas_attention.py:{line}",
+            "launches": lm_launches[name], **flash_main[name],
+            "grid_launches_per_call": 1,
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

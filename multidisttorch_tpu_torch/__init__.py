@@ -2,7 +2,10 @@
 
 Carves one job into N trial groups and trains one VAE trial per group,
 concurrently, with the fused ELBO loss as hand-written CUDA kernels
-(``ops/csrc/elbo.cu``). Imports torch and never jax: the JAX package
+(``ops/csrc/elbo.cu``). Trains and decodes the TransformerLM
+(``models/transformer.py``, ``train/lm.py``, ``train/lm_decode.py``) with
+flash attention as hand-written CUDA kernels
+(``ops/csrc/flash_attention.cu``). Imports torch and never jax: the JAX package
 ``multidisttorch_tpu`` stays in the repository as the reference. Entry
 points run on CUDA unless the caller passes ``device="cpu"``.
 """

@@ -1,8 +1,10 @@
-"""MNIST from local IDX files, with a deterministic synthetic fallback.
+"""MNIST from local IDX files, with a deterministic synthetic fallback, and
+token corpora for the LM.
 
-A copy of ``Dataset``, ``_read_idx``, ``synthetic_mnist`` and ``load_mnist``
-from ``multidisttorch_tpu/data/datasets.py`` (numpy only, so the port
-imports none of the JAX package). One difference: the port never
+A copy of ``Dataset``, ``_read_idx``, ``synthetic_mnist``, ``load_mnist``,
+``TokenCorpus``, ``byte_corpus`` and ``synthetic_corpus`` from
+``multidisttorch_tpu/data/datasets.py`` (numpy only, so the port imports
+none of the JAX package). One difference: the port never
 downloads. ``load_mnist`` reads IDX files under ``data_dir`` or, failing
 that, returns the labelled synthetic stand-in (``Dataset.synthetic`` is
 True), so every result says which data it came from.
@@ -117,3 +119,48 @@ def load_mnist(
     n = synthetic_size if synthetic_size is not None else (60000 if train else 10000)
     warnings.warn("Using synthetic MNIST stand-in (no local data)")
     return synthetic_mnist(n, seed=0 if train else 1)
+
+
+@dataclass(frozen=True)
+class TokenCorpus:
+    """Host-resident token stream for LM training: a local file read as
+    bytes (vocab 256) or a synthetic periodic stream. ``batch(rng, b, t)``
+    samples ``b`` random ``t``-token windows; the same ``np.random.Generator``
+    state gives the same windows as the JAX package's."""
+
+    tokens: np.ndarray  # (N,) int32
+    vocab_size: int
+    name: str
+    synthetic: bool = False
+
+    def __len__(self) -> int:
+        return self.tokens.shape[0]
+
+    def batch(self, rng: np.random.Generator, b: int, t: int) -> np.ndarray:
+        n = self.tokens.shape[0]
+        if n < t:
+            raise ValueError(f"corpus of {n} tokens cannot fill windows of {t}")
+        # inclusive upper start: the final token must be reachable
+        starts = rng.integers(0, n - t + 1, size=b)
+        return np.stack([self.tokens[s : s + t] for s in starts]).astype(np.int32)
+
+
+def byte_corpus(path: str, *, name: str | None = None) -> TokenCorpus:
+    """Byte-level tokens from any local file (vocab 256)."""
+    with open(path, "rb") as f:
+        raw = np.frombuffer(f.read(), dtype=np.uint8)
+    return TokenCorpus(tokens=raw.astype(np.int32), vocab_size=256, name=name or os.path.basename(path))
+
+
+def synthetic_corpus(
+    n: int = 65536, *, vocab_size: int = 32, period: int = 16, seed: int = 0
+) -> TokenCorpus:
+    """Perfectly learnable periodic stream: block ``i`` is
+    ``(arange(period) + seed + 5*i) % vocab_size``, so every token is a
+    deterministic function of its predecessors and the loss floor is zero."""
+    stride = 5  # coprime with common periods; any fixed value works
+    blocks = n // period + 2
+    phases = (seed + stride * np.arange(blocks)) % vocab_size
+    rows = [(np.arange(period) + p) % vocab_size for p in phases]
+    tokens = np.concatenate(rows)[:n].astype(np.int32)
+    return TokenCorpus(tokens=tokens, vocab_size=vocab_size, name="synthetic-periodic", synthetic=True)

@@ -5,10 +5,12 @@ its own into a shared library for ``sm_90a`` (Hopper). Nothing here includes
 PyTorch's headers, so a build takes seconds. The libraries go to
 ``build/torch_kernels/`` at the root of the checkout, named by a hash of the
 source and the flags, so an edited source is rebuilt and a stale library is
-never loaded. Builds happen at first use, never at import: :func:`build`
-runs ``nvcc`` on one source, and :func:`load` returns the loaded library.
+never loaded. Builds happen at first use, never at import: :func:`build_all`
+starts one ``nvcc`` per source, all together, and waits for them;
+:func:`build` builds one source, and :func:`load` returns the loaded library.
 
-The ``ctypes`` signatures live beside the kernels' wrappers (``ops/elbo.py``):
+The ``ctypes`` signatures live beside the kernels' wrappers (``ops/elbo.py``,
+``ops/attention.py``):
 every pointer and the stream as ``c_void_p``, and every entry returns
 ``cudaGetLastError()`` as an ``int``.
 """
@@ -26,7 +28,7 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 # Kernel library name -> its source under csrc/.
-SOURCES = {"elbo": "elbo.cu"}
+SOURCES = {"elbo": "elbo.cu", "flash_attention": "flash_attention.cu"}
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -62,24 +64,40 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{key[:16]}.so"
 
 
+def build_all(names=None) -> list[Path]:
+    """Build the kernel libraries ``names`` (all of :data:`SOURCES` by
+    default) that are not built yet, with one ``nvcc`` per source, all
+    started together; returns their paths in order."""
+    names = list(SOURCES) if names is None else list(names)
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        # A private output name, renamed into place: concurrent builders (two
+        # ranks of one group on one host) never load a half-written library.
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, out, tmp, cmd, proc))
+    failed = []
+    for name, out, tmp, cmd, proc in jobs:
+        ptxas_reports[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{' '.join(cmd)}\n{ptxas_reports[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return [library_path(name) for name in names]
+
+
 def build(name: str) -> Path:
     """Build kernel library ``name`` with ``nvcc`` unless it is built
     already; returns its path."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    # A private output name, renamed into place: concurrent builders (two
-    # ranks of one group on one host) never load a half-written library.
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    ptxas_reports[name] = proc.stdout
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"kernel build failed:\n{' '.join(cmd)}\n{proc.stdout}")
-    os.replace(tmp, out)
-    return out
+    return build_all([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:

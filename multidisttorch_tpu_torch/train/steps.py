@@ -36,7 +36,6 @@ import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
-from multidisttorch_tpu_torch.models.vae import VAE
 from multidisttorch_tpu_torch.ops.elbo import fused_elbo_loss_sum
 from multidisttorch_tpu_torch.ops.losses import elbo_loss_sum, elbo_loss_weighted_sum
 from multidisttorch_tpu_torch.parallel.mesh import TrialGroup
@@ -46,9 +45,10 @@ from multidisttorch_tpu_torch.parallel.mesh import TrialGroup
 class TrainState:
     """One trial's training state: the model (its parameters on the
     group's device), its Adam optimizer, and the optimizer-step count.
-    ``ddp`` is the DDP wrapper on a multi-rank group, else None."""
+    ``ddp`` is the DDP wrapper on a multi-rank group, else None. The LM's
+    steps (``train/lm.py``) use it too."""
 
-    model: VAE
+    model: torch.nn.Module
     optimizer: torch.optim.Adam
     step: int = 0
     ddp: Optional[DistributedDataParallel] = None
@@ -73,7 +73,7 @@ def _require_trainable(group: TrialGroup) -> None:
         )
 
 
-def create_train_state(group: TrialGroup, model: VAE, lr: float) -> TrainState:
+def create_train_state(group: TrialGroup, model: torch.nn.Module, lr: float) -> TrainState:
     """Place ``model`` (already initialised) on the group's device and give
     it an Adam optimizer; on a multi-rank group, wrap it in DDP, which
     broadcasts the group-rank-0 weights to every member."""
