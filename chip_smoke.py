@@ -22,15 +22,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    version (o, lse, dq, dk, dv with an lse cotangent, identical bits on a
    rerun) at the LM's full width (BH 128, T 512, D 64: causal bf16 and f32,
    non-causal f32), timed beside the plain version, the byte/FLOP bound and
-   ``scaled_dot_product_attention``; then untimed at T 64, T 96 with D 20,
-   bf16 at T 200, the padded causal T 1300 (D 32) and the non-causal T 1300
-   that must raise, and the autograd path with its lse gradient;
+   ``scaled_dot_product_attention``; at the bf16 shape, which takes the
+   tensor-core (``wgmma``) variants of the forward and dK/dV, the SIMT
+   kernels of the first port are forced and timed too, in turns with the
+   rest in two rounds, and each redesigned kernel once more with a cold L2
+   (64 MB written between launches); then untimed at T 1, 64, 77, 96 and
+   200 across head dims 16-256, bf16 and f32, an unaligned bf16 view (which
+   must take the SIMT kernels), the padded causal T 1300 (f32 D 32 and bf16
+   D 64) and the non-causal T 1300 that must raise, and the autograd path
+   with its lse gradient; every call checks which variant it launched;
 7. the LM slice at full width (vocab 32768, d 512, 8 heads, 8 layers, T 512,
    batch 16, bf16 compute): ``make_lm_multi_step`` runs 10 steps through the
    flash kernels and, from the same weights, through the dense attention;
-   the losses agree and fall and each kernel launches 8 times a step; then
-   the eval step, and the f32 KV-cache greedy decode (prompt 256) with the
-   flash prefill and with the dense prefill, which must give the same
+   the losses agree and fall and each kernel launches 8 times a step, the
+   forward and dK/dV as their tensor-core variants; then the eval step, and
+   the f32 KV-cache greedy decode (prompt 256) with the flash prefill (the
+   SIMT forward) and with the dense prefill, which must give the same
    tokens; then the step time of both, in four alternating rounds, with the
    device's busy time by kernel;
 8. a ``kernels`` JSON line, then the result line.
@@ -321,17 +328,51 @@ def _flash_close(what: str, got, ref, kind: str) -> float:
     return float(diff.max())
 
 
-def flash_vs_plain(A, F, bh: int, t: int, d: int, dtype, causal: bool, *, timed: bool = True) -> dict:
+def flash_variant(dtype, d: int, aligned: bool = True) -> str:
+    """The variant that the forward and dK/dV must launch, by this script's
+    own rule: the tensor-core one for aligned bf16 at head dim 64 or 128,
+    the SIMT kernels for every other input."""
+    return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) and aligned else "simt"
+
+
+def _kernel_name(name: str, variant: str) -> str:
+    """The CUDA kernel name of one variant, for the profiler's filter:
+    ``flash_fwd_kernel`` and ``flash_fwd_wgmma_kernel`` match only their own."""
+    return f"{name}_wgmma_kernel" if variant == "wgmma" else f"{name}_kernel"
+
+
+L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
+
+
+def flash_vs_plain(
+    A, F, bh: int, t: int, d: int, dtype, causal: bool, *, timed: bool = True, offset: int = 0
+) -> dict:
     """Phase 6 at one flat shape: the three kernels against the plain
     versions on the same inputs (the backward with a random lse cotangent
-    folded into delta), identical bits on a rerun and, if ``timed``, times."""
+    folded into delta), identical bits on a rerun, the variant each call
+    launched and, if ``timed``, times. ``offset`` > 0 places every operand
+    that many elements into a larger buffer: contiguous, not 16-byte
+    aligned."""
     dev = torch.device("cuda:0")
     gen = torch.Generator(device="cpu").manual_seed(t * 31 + d + int(causal))
-    q, k, v, do = (torch.randn(bh, t, d, generator=gen).to(dev, dtype) for _ in range(4))
+
+    def put(x):
+        x = x.to(dev, dtype)
+        if offset:
+            buf = torch.empty(x.numel() + offset, dtype=dtype, device=dev)
+            x = buf[offset:].view(x.shape).copy_(x)
+            check(x.is_contiguous() and x.data_ptr() % 16 != 0, "offset view is not unaligned")
+        return x
+
+    q, k, v, do = (put(torch.randn(bh, t, d, generator=gen)) for _ in range(4))
     g_lse = torch.randn(bh, t, generator=gen).to(dev)
     scale = 1.0 / math.sqrt(d)
+    want = flash_variant(dtype, d, aligned=not offset)
     tag = f"({bh}, {t}, {d}) {'causal' if causal else 'non-causal'} {str(dtype).replace('torch.', '')}"
+    if offset:
+        tag += f", operands {offset} element(s) off 16-byte alignment"
 
+    A.reset_launches()
     o1, l1 = A.flash_fwd_cuda(q, k, v, scale, causal)
     o2, l2 = A.flash_fwd_cuda(q, k, v, scale, causal)
     op, lp = A.flash_fwd_plain(q, k, v, scale, causal)
@@ -340,6 +381,9 @@ def flash_vs_plain(A, F, bh: int, t: int, d: int, dtype, causal: bool, *, timed:
     g2 = A.flash_bwd_cuda(q, k, v, do, lp, delta, scale, causal)
     gp = A.flash_bwd_plain(q, k, v, do, lp, delta, scale, causal)
     torch.cuda.synchronize()
+    variants = {key: n for key, n in A.LAUNCHES_BY_VARIANT.items() if n}
+    expected = {f"flash_fwd:{want}": 2, "flash_bwd_dq:simt": 2, f"flash_bwd_dkv:{want}": 2}
+    check(variants == expected, f"flash {tag}: launched {variants}, expected {expected}")
     check(o1.dtype == dtype and l1.dtype == torch.float32, f"flash_fwd {tag}: o {o1.dtype}, lse {l1.dtype}")
     errs = {
         "flash_fwd": max(_flash_close(f"flash_fwd {tag} o", o1, op, "fwd"),
@@ -353,7 +397,7 @@ def flash_vs_plain(A, F, bh: int, t: int, d: int, dtype, causal: bool, *, timed:
         check(torch.equal(a, b), f"flash backward {tag}: two runs gave different bits in {name}")
     if not timed:
         print(f"flash {tag}: max_abs_err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-              + " | bit-identical reruns (not timed)")
+              + f" | bit-identical reruns | forward and dK/dV ran {want} (not timed)")
         return {}
 
     io = q.numel() * q.element_size()
@@ -374,46 +418,77 @@ def flash_vs_plain(A, F, bh: int, t: int, d: int, dtype, causal: bool, *, timed:
     ql, kl, vl = (x.view(1, bh, t, d).detach().requires_grad_() for x in (q, k, v))
     out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
     dol = do.view(1, bh, t, d)
+    fwd = lambda **kw: A.flash_fwd_cuda(q, k, v, scale, causal, **kw)
+    dkv = lambda **kw: A.flash_bwd_dkv_cuda(q, k, v, do, lp, delta, scale, causal, **kw)
     calls = {
-        "flash_fwd": (lambda: A.flash_fwd_cuda(q, k, v, scale, causal), "flash_fwd_kernel"),
+        "flash_fwd": (fwd, _kernel_name("flash_fwd", want)),
         "flash_bwd_dq": (lambda: A.flash_bwd_dq_cuda(q, k, v, do, lp, delta, scale, causal), "flash_bwd_dq_kernel"),
-        "flash_bwd_dkv": (lambda: A.flash_bwd_dkv_cuda(q, k, v, do, lp, delta, scale, causal), "flash_bwd_dkv_kernel"),
+        "flash_bwd_dkv": (dkv, _kernel_name("flash_bwd_dkv", want)),
         "fwd_plain": (lambda: A.flash_fwd_plain(q, k, v, scale, causal), ""),
         "bwd_plain": (lambda: A.flash_bwd_plain(q, k, v, do, lp, delta, scale, causal), ""),
         "fwd_library": (lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal), ""),
-        "bwd_library": (lambda: torch.autograd.grad(out, (ql, kl, vl), dol, retain_graph=True), ""),
     }
-    times = {}
+    redesigned = ("flash_fwd", "flash_bwd_dkv") if want == "wgmma" else ()
+    for name in redesigned:
+        # The first port's SIMT kernel on the same operands, forced.
+        calls[f"{name}_simt"] = (lambda fn=calls[name][0]: fn(_force_simt=True), _kernel_name(name, "simt"))
+    # Two rounds in turns, the second in the reverse order; each time is the
+    # mean of the two.
+    rounds = {key: [] for key in calls}
     with torch.no_grad():
-        for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fwd_plain", "bwd_plain", "fwd_library"):
-            fn, name = calls[key]
-            times[f"{key}_call_ms"] = time_ms(fn, iters=50)
-            times[f"{key}_ms"], times[f"{key}_from"] = device_time(fn, name)
+        for r in range(2):
+            for key in list(calls) if r == 0 else list(reversed(calls)):
+                fn, name = calls[key]
+                rounds[key].append((time_ms(fn, iters=50), *device_time(fn, name)))
+    times = {}
+    for key, got in rounds.items():
+        times[f"{key}_call_ms"] = statistics.fmean(g[0] for g in got)
+        times[f"{key}_ms"] = statistics.fmean(g[1] for g in got)
+        times[f"{key}_ms_rounds"] = [g[1] for g in got]
+        times[f"{key}_from"] = got[0][2]
+    # Cold L2: 64 MB written before each launch; the profiler's filter keeps
+    # the write out of the kernel's time.
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    for name in redesigned:
+        fn, kname = calls[name]
+        times[f"{name}_cold_ms"] = device_ms(lambda fn=fn: (flush.zero_(), fn()), kname)
     # The kernels replayed from a CUDA graph (their launches are capturable).
     for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         times[f"{key}_graph_ms"] = graph_ms(calls[key][0])
-    fn, _ = calls["bwd_library"]
-    times["bwd_library_call_ms"] = time_ms(fn, iters=50)
-    times["bwd_library_ms"], times["bwd_library_from"] = device_ms(fn), "torch.profiler kernel time"
+    bwd_library = lambda: torch.autograd.grad(out, (ql, kl, vl), dol, retain_graph=True)
+    times["bwd_library_call_ms"] = time_ms(bwd_library, iters=50)
+    times["bwd_library_ms"], times["bwd_library_from"] = device_ms(bwd_library), "torch.profiler kernel time"
     res = {}
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         kind = "fwd" if name == "flash_fwd" else "bwd"
         res[name] = {
+            "variant": "simt" if name == "flash_bwd_dq" else want,
             "ms": times[f"{name}_ms"], "call_ms": times[f"{name}_call_ms"], "ms_from": times[f"{name}_from"],
+            "ms_rounds": times[f"{name}_ms_rounds"],
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "max_abs_err": errs[name],
             "plain_ms": times[f"{kind}_plain_ms"], "plain_call_ms": times[f"{kind}_plain_call_ms"],
             "plain_ms_from": times[f"{kind}_plain_from"],
             "library_ms": times[f"{kind}_library_ms"], "library_call_ms": times[f"{kind}_library_call_ms"],
             "library_ms_from": times[f"{kind}_library_from"], "graph_ms": times[f"{name}_graph_ms"],
         }
+        if name in redesigned:
+            res[name].update(
+                simt_ms=times[f"{name}_simt_ms"], simt_call_ms=times[f"{name}_simt_call_ms"],
+                simt_ms_rounds=times[f"{name}_simt_ms_rounds"], cold_ms=times[f"{name}_cold_ms"],
+            )
         r = res[name]
-        print(f"flash {tag}: {name} kernel_ms={r['ms']:.6f} call_ms={r['call_ms']:.6f} "
-              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) plain_ms={r['plain_ms']:.6f} "
-              f"library_ms={r['library_ms']} graph_ms={r['graph_ms']:.6f} "
-              f"max_abs_err={r['max_abs_err']:.3e} ({r['ms_from']})")
+        extra = ""
+        if name in redesigned:
+            extra = (f" simt_ms={r['simt_ms']:.6f} (rounds {r['simt_ms_rounds']}; x{r['simt_ms'] / r['ms']:.2f}) "
+                     f"cold_ms={r['cold_ms']} bound_share={r['bound_ms'] / r['ms']:.3f}")
+        print(f"flash {tag}: {name} [{r['variant']}] kernel_ms={r['ms']:.6f} (rounds {r['ms_rounds']}) "
+              f"call_ms={r['call_ms']:.6f} bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
+              f"plain_ms={r['plain_ms']:.6f} library_ms={r['library_ms']} graph_ms={r['graph_ms']:.6f}"
+              f"{extra} max_abs_err={r['max_abs_err']:.3e} ({r['ms_from']})")
     print(f"flash {tag}: plain_ms of the backward rows is one plain backward (dq, dk and dv); "
           "library_ms is scaled_dot_product_attention's forward, or its autograd backward "
-          "(dq, dk and dv); bit-identical reruns")
+          "(dq, dk and dv); simt_ms is the first port's SIMT kernel on the same operands; "
+          "times are means of two rounds in turns; bit-identical reruns")
     return res
 
 
@@ -439,33 +514,50 @@ def flash_autograd_check(A, bh: int, t: int, d: int, causal: bool) -> None:
     print(f"{tag}: grads with the lse cotangent max_abs_err {max(errs):.3e}")
 
 
-def flash_padding_check(A) -> None:
+def flash_padding_check(A, dtype=torch.float32, d: int = 32) -> None:
     """The (B, T, H, D) entry at T 1300: causal pads to 1408 and slices back
-    (against the plain versions on the unpadded sequence); non-causal raises."""
+    (against the plain versions on the unpadded sequence); non-causal raises.
+    The reference gradients come from autograd through the plain forward in
+    f32, and in bf16 from the plain backward fed the kernel path's own delta
+    (``rowsum(dO * o)`` of its bf16 o), as the autograd path forms it."""
     dev = torch.device("cuda:0")
-    b, t, h, d = 1, 1300, 2, 32
-    gen = torch.Generator(device="cpu").manual_seed(1300)
-    base = [torch.randn(b, t, h, d, generator=gen).to(dev) for _ in range(3)]
-    cot = torch.randn(b, t, h, d, generator=gen).to(dev)
+    b, t, h = 1, 1300, 2
+    gen = torch.Generator(device="cpu").manual_seed(1300 + d)
+    base = [torch.randn(b, t, h, d, generator=gen).to(dev, dtype) for _ in range(3)]
+    cot = torch.randn(b, t, h, d, generator=gen).to(dev, dtype)
+    scale = 1.0 / math.sqrt(d)
+    want = flash_variant(dtype, d)
     q, k, v = (x.clone().requires_grad_() for x in base)
+    A.reset_launches()
     o = A.flash_attention(q, k, v, causal=True)
     check(o.shape == q.shape, f"padded flash_attention: shape {tuple(o.shape)}")
     got = torch.autograd.grad(o, [q, k, v], cot)
+    torch.cuda.synchronize()
+    variants = {key: n for key, n in A.LAUNCHES_BY_VARIANT.items() if n}
+    expected = {f"flash_fwd:{want}": 1, "flash_bwd_dq:simt": 1, f"flash_bwd_dkv:{want}": 1}
+    check(variants == expected, f"padded flash_attention {dtype}: launched {variants}, expected {expected}")
     flat = lambda x: x.transpose(1, 2).reshape(b * h, t, d)
-    qr, kr, vr = (flat(x).clone().requires_grad_() for x in base)
-    op, _ = A.flash_fwd_plain(qr, kr, vr, 1.0 / math.sqrt(d), True)
-    ref = torch.autograd.grad(op, [qr, kr, vr], flat(cot))
     unflat = lambda x: x.reshape(b, h, t, d).transpose(1, 2)
-    tag = "flash_attention (1, 1300, 2, 32) causal f32, padded to 1408"
-    err = _flash_close(f"{tag} o", o.detach(), unflat(op.detach()), "fwd")
+    if dtype == torch.float32:
+        qr, kr, vr = (flat(x).clone().requires_grad_() for x in base)
+        op, _ = A.flash_fwd_plain(qr, kr, vr, scale, True)
+        ref = torch.autograd.grad(op, [qr, kr, vr], flat(cot))
+        op = op.detach()
+    else:
+        qf, kf, vf, cf = (flat(x).contiguous() for x in (*base, cot))
+        op, lp = A.flash_fwd_plain(qf, kf, vf, scale, True)
+        delta = (cf.float() * flat(o.detach()).float()).sum(-1)
+        ref = A.flash_bwd_plain(qf, kf, vf, cf, lp, delta, scale, True)
+    tag = f"flash_attention (1, 1300, 2, {d}) causal {str(dtype).replace('torch.', '')}, padded to 1408"
+    err = _flash_close(f"{tag} o", o.detach(), unflat(op), "fwd")
     for n, a, r in zip("qkv", got, ref):
         err = max(err, _flash_close(f"{tag} d{n}", a, unflat(r), "bwd"))
-    print(f"{tag}: max_abs_err {err:.3e}")
+    print(f"{tag}: max_abs_err {err:.3e}; forward and dK/dV ran {want}")
     try:
         A.flash_attention(*base, causal=False)
     except ValueError as e:
         check("multiple of 128" in str(e), f"non-causal T 1300 raised the wrong error: {e}")
-        print("flash_attention (1, 1300, 2, 32) non-causal: raises ValueError as in the JAX package")
+        print(f"flash_attention (1, 1300, 2, {d}) non-causal: raises ValueError as in the JAX package")
     else:
         fail("flash_attention: non-causal T 1300 did not raise")
 
@@ -479,7 +571,8 @@ LM_TIMING_ROUNDS = 4
 
 def lm_slice(A, group, smi: str) -> dict:
     """Phase 7: the LM path at full width. Returns each flash kernel's
-    launches over the path (train, eval and decode prefill)."""
+    launches over the path (train, eval and decode prefill), in total and
+    by variant."""
     import numpy as np
 
     from multidisttorch_tpu_torch.data.datasets import synthetic_corpus
@@ -502,20 +595,22 @@ def lm_slice(A, group, smi: str) -> dict:
     states = {"flash": create_lm_state(group, flash_model, 1e-3), "plain": create_lm_state(group, plain_model, 1e-3)}
     multi = make_lm_multi_step(group)
 
-    def reset():
-        for key in A.LAUNCHES:
-            A.LAUNCHES[key] = 0
-
     # The main path, counts set to 0 just before each part and read just after.
-    reset()
+    A.reset_launches()
     states["flash"], m_flash = multi(states["flash"], chunks)
     torch.cuda.synchronize()
     train_launches = dict(A.LAUNCHES)
+    train_variants = {key: n for key, n in A.LAUNCHES_BY_VARIANT.items() if n}
     states["plain"], m_plain = multi(states["plain"], chunks)
     lf, lp = m_flash["loss"].tolist(), m_plain["loss"].tolist()
     for key in A.LAUNCHES:
         check(train_launches[key] == 8 * LM_STEPS,
               f"LM train: {key} launched {train_launches[key]} times in {LM_STEPS} steps of 8 layers")
+    # bf16 activations at head dim 64: the forward and dK/dV take their
+    # tensor-core variants, dQ the SIMT kernel.
+    n = 8 * LM_STEPS
+    expected = {"flash_fwd:wgmma": n, "flash_bwd_dq:simt": n, "flash_bwd_dkv:wgmma": n}
+    check(train_variants == expected, f"LM train: launched {train_variants}, expected {expected}")
     check(all(math.isfinite(x) for x in lf + lp), f"LM train: non-finite loss {lf} / {lp}")
     # bf16 compute: the dense path rounds scores and probabilities to bf16,
     # the flash kernels keep them in f32, so the two trajectories agree to
@@ -525,16 +620,19 @@ def lm_slice(A, group, smi: str) -> dict:
     check(lf[-1] < lf[0], f"LM train: loss did not fall ({lf[0]} -> {lf[-1]})")
     print(f"LM train ({n_params:,} params, bf16 compute, batch {LM_BATCH} x {t}): flash losses "
           + ", ".join(f"{x:.4f}" for x in lf) + " | dense " + ", ".join(f"{x:.4f}" for x in lp)
-          + f" | worst rel {worst:.3e} (limit 2e-2) | launches {train_launches}")
+          + f" | worst rel {worst:.3e} (limit 2e-2) | launches {train_launches} {train_variants}")
 
-    reset()
+    A.reset_launches()
     ev = make_lm_eval_step(group)(states["flash"], chunks[0])
     torch.cuda.synchronize()
     eval_launches = dict(A.LAUNCHES)
+    eval_variants = {key: n for key, n in A.LAUNCHES_BY_VARIANT.items() if n}
     check(eval_launches == {"flash_fwd": 8, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
           f"LM eval: launches {eval_launches}")
+    check(eval_variants == {"flash_fwd:wgmma": 8}, f"LM eval: launched {eval_variants}")
     check(math.isfinite(float(ev["loss"])), f"LM eval: non-finite loss {float(ev['loss'])}")
-    print(f"LM eval: loss {float(ev['loss']):.4f}, perplexity {float(ev['perplexity']):.2f}; launches {eval_launches}")
+    print(f"LM eval: loss {float(ev['loss']):.4f}, perplexity {float(ev['perplexity']):.2f}; "
+          f"launches {eval_launches} {eval_variants}")
 
     # The f32 cached decode from the trained weights: the flash prefill,
     # then the dense one, on the same state.
@@ -547,7 +645,7 @@ def lm_slice(A, group, smi: str) -> dict:
         "dense": make_cached_lm_sample(group, TransformerLM(**LM)),
     }
     outs, per_token = {}, {}
-    reset()
+    A.reset_launches()
     for name, sample in samplers.items():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -556,8 +654,11 @@ def lm_slice(A, group, smi: str) -> dict:
         per_token[name] = (time.perf_counter() - t0) / (t - LM_PROMPT) * 1e3
         if name == "flash":
             decode_launches = dict(A.LAUNCHES)
+            decode_variants = {key: n for key, n in A.LAUNCHES_BY_VARIANT.items() if n}
     check(decode_launches == {"flash_fwd": 8, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
           f"LM decode: flash prefill launches {decode_launches}")
+    # The decode runs in f32: its prefill takes the SIMT forward.
+    check(decode_variants == {"flash_fwd:simt": 8}, f"LM decode: flash prefill launched {decode_variants}")
     out = outs["flash"]
     check(out.shape == window.shape and bool(torch.equal(out[:, :LM_PROMPT], window[:, :LM_PROMPT])),
           "LM decode: the prompt region changed")
@@ -584,7 +685,7 @@ def lm_slice(A, group, smi: str) -> dict:
     print(f"LM decode (f32, batch {LM_BATCH}, prompt {LM_PROMPT}, {t - LM_PROMPT} generated): greedy tokens "
           f"{same} with flash and dense prefill; matches the true continuation at {100 * match:.1f}%; "
           f"ms per generated token: flash prefill {per_token['flash']:.3f}, dense prefill "
-          f"{per_token['dense']:.3f} ({smi}); launches {decode_launches}")
+          f"{per_token['dense']:.3f} ({smi}); launches {decode_launches} {decode_variants}")
 
     # Step time and device share, after the counted runs. Host-bound times
     # spread between runs, so each mode is timed LM_TIMING_ROUNDS times, in
@@ -616,7 +717,10 @@ def lm_slice(A, group, smi: str) -> dict:
               + ", ".join(f"{x:.6f}" for x in step_ms[name]) + f"; {busy_s} ({smi})")
         print(f"LM train step ({label}) device ms per step by kernel, top 10: "
               + "; ".join(f"{ms_k:.3f} {key[:70]}" for ms_k, key in by_kernel[:10]))
-    return {key: train_launches[key] + eval_launches[key] + decode_launches[key] for key in A.LAUNCHES}
+    totals = {key: train_launches[key] + eval_launches[key] + decode_launches[key] for key in A.LAUNCHES}
+    by_variant = {key: sum(c.get(key, 0) for c in (train_variants, eval_variants, decode_variants))
+                  for key in A.LAUNCHES_BY_VARIANT}
+    return totals, by_variant
 
 
 class _Lines(logging.Handler):
@@ -664,6 +768,20 @@ def main() -> None:
         regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", log)})
         spills = sorted({int(s) for s in re.findall(r"(\d+) bytes spill stores", log)})
         print(f"ptxas {name}: registers per thread {regs}, spill-store bytes {spills}")
+    # The tensor-core kernels one by one: registers, spills, and the dynamic
+    # shared memory each launch asks for.
+    log = _build.ptxas_reports.get("flash_attention", "")
+    for line in log.splitlines():
+        if "warning" in line.lower():
+            print(f"ptxas flash_attention: {line.strip()}")
+    for entry in re.split(r"(?=ptxas info\s+: Compiling entry function)", log):
+        m = re.search(r"Compiling entry function '\S*(flash_(?:fwd|bwd_dkv)_wgmma_kernel)ILi(\d+)E", entry)
+        if m:
+            regs = re.search(r"Used (\d+) registers", entry)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+            smem = A.wgmma_smem_bytes("bwd" in m.group(1), int(m.group(2)))
+            print(f"ptxas {m.group(1)}<{m.group(2)}>: {regs.group(1) if regs else '?'} registers, "
+                  f"spill stores/loads {spill.groups() if spill else '?'} bytes, dynamic shared memory {smem} bytes")
 
     # Phase 3: each kernel against its plain version. The timed shapes
     # take the 8-wide vector loop only (784 and 20*B are multiples of 8 for
@@ -746,12 +864,21 @@ def main() -> None:
     flash_vs_plain(A, F, 4, 200, 16, torch.bfloat16, False, timed=False)
     flash_vs_plain(A, F, 2, 130, 256, torch.float32, True, timed=False)
     flash_vs_plain(A, F, 2, 77, 128, torch.bfloat16, False, timed=False)
+    # The tensor-core variants' edges: one row, one whole tile, both head
+    # dims, causal and not; an unaligned bf16 view goes to the SIMT kernels.
+    flash_vs_plain(A, F, 4, 1, 64, torch.bfloat16, True, timed=False)
+    flash_vs_plain(A, F, 2, 1, 128, torch.bfloat16, False, timed=False)
+    flash_vs_plain(A, F, 4, 64, 128, torch.bfloat16, True, timed=False)
+    flash_vs_plain(A, F, 4, 64, 64, torch.bfloat16, False, timed=False)
+    flash_vs_plain(A, F, 4, 512, 128, torch.bfloat16, True, timed=False)
+    flash_vs_plain(A, F, 4, 200, 64, torch.bfloat16, True, timed=False, offset=1)
     flash_autograd_check(A, 128, 512, 64, True)
     flash_autograd_check(A, 4, 96, 20, False)
     flash_padding_check(A)
+    flash_padding_check(A, torch.bfloat16, 64)
 
     # Phase 7: the LM slice; counts set to 0 inside, just before each part.
-    lm_launches = lm_slice(A, group, smi)
+    lm_launches, lm_variants = lm_slice(A, group, smi)
 
     # Phase 8: the kernels line, then the result.
     # "ms", "plain_ms" and "library_ms" are device time per call at the
@@ -780,13 +907,18 @@ def main() -> None:
             "grid_launches_per_call": grids,
         })
     # Flash rows: device time per call at the LM training path's shape
-    # ((128, 512, 64) causal bf16); "launches" counts the LM path's train
-    # steps, eval and decode prefill.
+    # ((128, 512, 64) causal bf16), whose variant "variant" names ("simt_ms":
+    # the first port's SIMT kernel on the same operands, same run);
+    # "launches" counts the LM path's train steps, eval and decode prefill,
+    # and "launches_by_variant" splits them.
     for name, line in (("flash_fwd", 160), ("flash_bwd_dq", 332), ("flash_bwd_dkv", 346)):
         kernels.append({
             "name": name, "route": "cuda", "source": "multidisttorch_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": f"multidisttorch_tpu/ops/pallas_attention.py:{line}",
-            "launches": lm_launches[name], **flash_main[name],
+            "launches": lm_launches[name],
+            "launches_by_variant": {key.split(":")[1]: n for key, n in lm_variants.items()
+                                    if key.startswith(f"{name}:")},
+            **flash_main[name],
             "grid_launches_per_call": 1,
         })
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,9 @@ Each source under ``ops/csrc/`` has a plain C interface and is compiled on
 its own into a shared library for ``sm_90a`` (Hopper). Nothing here includes
 PyTorch's headers, so a build takes seconds. The libraries go to
 ``build/torch_kernels/`` at the root of the checkout, named by a hash of the
-source and the flags, so an edited source is rebuilt and a stale library is
-never loaded. Builds happen at first use, never at import: :func:`build_all`
+source, of every header under ``csrc/`` that it includes, and of the flags,
+so an edited source or header is rebuilt and a stale library is never
+loaded. Builds happen at first use, never at import: :func:`build_all`
 starts one ``nvcc`` per source, all together, and waits for them;
 :func:`build` builds one source, and :func:`load` returns the loaded library.
 
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -58,10 +60,31 @@ def find_nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources_of(name: str) -> list[Path]:
+    """The source of library ``name`` and every file under ``csrc/`` that
+    it includes with ``#include "..."``, directly or through another."""
+    seen: list[Path] = []
+    todo = [CSRC_DIR / SOURCES[name]]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = CSRC_DIR / inc.decode()
+            if dep.is_file():
+                todo.append(dep)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / SOURCES[name]).read_bytes()
-    key = hashlib.sha256(src + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{key[:16]}.so"
+    digest = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    for path in _sources_of(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> list[Path]:

@@ -15,15 +15,23 @@ single-device half; ring-flash is ROADMAP A.15b). The three kernels in
 
 The kernels work on the flat ``(BH, T, D)`` layout, f32 or bf16, with f32
 math. What bounds them, and how they are laid out, is in the source's
-header. ``delta = rowsum(dO * O) - g_lse`` is computed outside the kernels
-in plain torch, as the JAX package computes it in XLA; that is how the
-cotangent of ``lse`` reaches the kernels.
+header. ``flash_fwd`` and ``flash_bwd_dkv`` come in two variants: a
+tensor-core one (TMA-fed ``wgmma`` products, ``"wgmma"``) for the inputs
+:func:`uses_tensor_cores` accepts, and the SIMT kernels of the first port
+(``"simt"``) for every other input, as ``flash_bwd_dq`` always runs. The
+choice is made here, before the launch, and each variant has its own C
+entry; nothing falls back from one to the other.
+
+``delta = rowsum(dO * O) - g_lse`` is computed outside the kernels in plain
+torch, as the JAX package computes it in XLA; that is how the cotangent of
+``lse`` reaches the kernels.
 
 On CUDA tensors :func:`flash_flat_lse` and :func:`flash_attention` launch
 the kernels, or raise. On CPU tensors, and only there, they run the plain
 versions (:func:`flash_fwd_plain`, :func:`flash_bwd_plain`), which compute
 the same function densely in plain PyTorch. ``LAUNCHES`` counts each
-kernel's launches, one per wrapper call.
+kernel's launches, one per wrapper call, and ``LAUNCHES_BY_VARIANT`` the
+same launches by ``"kernel:variant"``.
 """
 
 from __future__ import annotations
@@ -33,8 +41,16 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-# Kernel launches since the last reset, one per wrapper call.
+# Kernel launches since the last reset, one per wrapper call; then the same
+# launches by variant.
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+LAUNCHES_BY_VARIANT = {
+    "flash_fwd:wgmma": 0,
+    "flash_fwd:simt": 0,
+    "flash_bwd_dq:simt": 0,
+    "flash_bwd_dkv:wgmma": 0,
+    "flash_bwd_dkv:simt": 0,
+}
 
 _BLOCK = 128  # the TPU kernels' tile edge, which the padding rule keeps
 _NEG_INF = -1e30  # the TPU kernels' finite causal sentinel
@@ -43,6 +59,7 @@ _NEG_INF = -1e30  # the TPU kernels' finite causal sentinel
 # ones refused, as in the JAX package.
 _MAX_WHOLE_BLOCK = 1024
 MAX_HEAD_DIM = 256  # the largest head dim the kernels take
+TENSOR_CORE_HEAD_DIMS = (64, 128)  # the head dims of the tensor-core variants
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
@@ -61,6 +78,12 @@ def _kernels() -> ctypes.CDLL:
         lib.mdt_flash_bwd_dq.restype = i
         lib.mdt_flash_bwd_dkv.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, f, i, i, p]
         lib.mdt_flash_bwd_dkv.restype = i
+        lib.mdt_flash_fwd_wgmma.argtypes = [i, p, p, p, p, p, i, i, i, f, i, p]
+        lib.mdt_flash_fwd_wgmma.restype = i
+        lib.mdt_flash_bwd_dkv_wgmma.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, f, i, p]
+        lib.mdt_flash_bwd_dkv_wgmma.restype = i
+        lib.mdt_flash_wgmma_smem.argtypes = [i, i]
+        lib.mdt_flash_wgmma_smem.restype = i
         _lib = lib
     return _lib
 
@@ -89,6 +112,39 @@ def _check_kernel_operands(*tensors) -> None:
             raise TypeError(f"the flash kernels take float32 or bfloat16, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the flash kernels take contiguous tensors")
+
+
+def reset_launches() -> None:
+    """Set every count of ``LAUNCHES`` and ``LAUNCHES_BY_VARIANT`` to 0."""
+    for counts in (LAUNCHES, LAUNCHES_BY_VARIANT):
+        for key in counts:
+            counts[key] = 0
+
+
+def uses_tensor_cores(*tensors) -> bool:
+    """Whether the tensor-core variant takes these operands (q, k, v, and
+    dO for the backward): all bf16, head dim 64 or 128, every base pointer
+    16-byte aligned, as TMA needs. Decided from the tensors alone, before
+    any launch."""
+    return (
+        tensors[0].shape[-1] in TENSOR_CORE_HEAD_DIMS
+        and all(t.dtype == torch.bfloat16 for t in tensors)
+        and all(t.data_ptr() % 16 == 0 for t in tensors)
+    )
+
+
+def wgmma_smem_bytes(backward: bool, d: int) -> int:
+    """Dynamic shared memory, in bytes, of one launch of the tensor-core
+    forward (or, ``backward``, dK/dV) at head dim ``d``. Builds the kernels."""
+    n = _kernels().mdt_flash_wgmma_smem(int(backward), d)
+    if n < 0:
+        raise ValueError(f"no tensor-core variant at head dim {d}")
+    return n
+
+
+def _count(kernel: str, variant: str) -> None:
+    LAUNCHES[kernel] += 1
+    LAUNCHES_BY_VARIANT[f"{kernel}:{variant}"] += 1
 
 
 def _scores(q, k, scale: float, causal: bool) -> torch.Tensor:
@@ -130,22 +186,27 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def flash_fwd_cuda(q, k, v, scale: float, causal: bool):
-    """Launch ``flash_fwd`` on the current stream; returns ``(o, lse)``."""
+def flash_fwd_cuda(q, k, v, scale: float, causal: bool, *, _force_simt: bool = False):
+    """Launch ``flash_fwd`` on the current stream; returns ``(o, lse)``.
+    ``_force_simt`` runs the SIMT kernel whatever the operands (for timing
+    the two variants side by side)."""
     _check(q, k, v)
     _check_kernel_operands(q, k, v)
     bh, t, d = q.shape
     dev = q.device
     o = torch.empty_like(q)
     lse = torch.empty(bh, t, dtype=torch.float32, device=dev)
+    variant = "simt" if _force_simt or not uses_tensor_cores(q, k, v) else "wgmma"
+    args = (dev.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            bh, t, d, float(scale), int(causal))
     with torch.cuda.device(dev):
-        err = _kernels().mdt_flash_fwd(
-            dev.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            bh, t, d, float(scale), int(causal), _DTYPE_CODE[q.dtype], _stream(dev),
-        )
+        if variant == "wgmma":
+            err = _kernels().mdt_flash_fwd_wgmma(*args, _stream(dev))
+        else:
+            err = _kernels().mdt_flash_fwd(*args, _DTYPE_CODE[q.dtype], _stream(dev))
     if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed with CUDA error {err}")
-    LAUNCHES["flash_fwd"] += 1
+        raise RuntimeError(f"flash_fwd ({variant}) launch failed with CUDA error {err}")
+    _count("flash_fwd", variant)
     return o, lse
 
 
@@ -163,33 +224,40 @@ def _check_bwd_operands(q, k, v, do, lse, delta) -> None:
 def _bwd_args(q, k, v, do, lse, delta, scale, causal):
     bh, t, d = q.shape
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
-    common = (bh, t, d, float(scale), int(causal), _DTYPE_CODE[q.dtype], _stream(q.device))
-    return ptrs, common
+    return ptrs, (bh, t, d, float(scale), int(causal))
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool):
     """Launch ``flash_bwd_dq`` on the current stream; returns ``dq``."""
     _check_bwd_operands(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
-    ptrs, common = _bwd_args(q, k, v, do, lse, delta, scale, causal)
+    ptrs, dims = _bwd_args(q, k, v, do, lse, delta, scale, causal)
     with torch.cuda.device(q.device):
-        err = _kernels().mdt_flash_bwd_dq(q.device.index, *ptrs, dq.data_ptr(), *common)
+        err = _kernels().mdt_flash_bwd_dq(
+            q.device.index, *ptrs, dq.data_ptr(), *dims, _DTYPE_CODE[q.dtype], _stream(q.device)
+        )
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq launch failed with CUDA error {err}")
-    LAUNCHES["flash_bwd_dq"] += 1
+    _count("flash_bwd_dq", "simt")
     return dq
 
 
-def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, causal: bool):
-    """Launch ``flash_bwd_dkv`` on the current stream; returns ``(dk, dv)``."""
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, causal: bool, *, _force_simt: bool = False):
+    """Launch ``flash_bwd_dkv`` on the current stream; returns ``(dk, dv)``.
+    ``_force_simt`` as in :func:`flash_fwd_cuda`."""
     _check_bwd_operands(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    ptrs, common = _bwd_args(q, k, v, do, lse, delta, scale, causal)
+    ptrs, dims = _bwd_args(q, k, v, do, lse, delta, scale, causal)
+    variant = "simt" if _force_simt or not uses_tensor_cores(q, k, v, do) else "wgmma"
+    args = (q.device.index, *ptrs, dk.data_ptr(), dv.data_ptr(), *dims)
     with torch.cuda.device(q.device):
-        err = _kernels().mdt_flash_bwd_dkv(q.device.index, *ptrs, dk.data_ptr(), dv.data_ptr(), *common)
+        if variant == "wgmma":
+            err = _kernels().mdt_flash_bwd_dkv_wgmma(*args, _stream(q.device))
+        else:
+            err = _kernels().mdt_flash_bwd_dkv(*args, _DTYPE_CODE[q.dtype], _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"flash_bwd_dkv launch failed with CUDA error {err}")
-    LAUNCHES["flash_bwd_dkv"] += 1
+        raise RuntimeError(f"flash_bwd_dkv ({variant}) launch failed with CUDA error {err}")
+    _count("flash_bwd_dkv", variant)
     return dk, dv
 
 
