@@ -10,9 +10,10 @@ Phases, in order; any failure exits non-zero and prints no result:
 3. each ELBO kernel against its plain PyTorch version (value, the three
    gradients, identical bits on a rerun) at four timed shapes, with the
    kernel's, the plain version's and a library call's device time and
-   per-call time, and the least time the card could take; then at an odd
-   batch, a ragged width and unaligned views, untimed, which drive the
-   kernels' scalar tails and scalar path;
+   per-call time (the library calls: BCE-with-logits, and its autograd
+   backward with respect to the logits), and the least time the card
+   could take; then at an odd batch, a ragged width and unaligned views,
+   untimed, which drive the kernels' scalar tails and scalar path;
 4. one full-width train step (784-400-20, batch 128) through the fused
    kernels against the plain loss, from the same weights and noise;
 5. the VAE slice: ``run_hpo`` with two trials (1 and 2 epochs) queued on one
@@ -23,10 +24,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    rerun) at the LM's full width (BH 128, T 512, D 64: causal bf16 and f32,
    non-causal f32), timed beside the plain version, the byte/FLOP bound and
    ``scaled_dot_product_attention``; at the bf16 shape, which takes the
-   tensor-core (``wgmma``) variants of the forward and dK/dV, the SIMT
-   kernels of the first port are forced and timed too, in turns with the
-   rest in two rounds, and each redesigned kernel once more with a cold L2
-   (64 MB written between launches); then untimed at T 1, 64, 77, 96 and
+   tensor-core (``wgmma``) variants of all three kernels, the SIMT kernels
+   of the first port are forced and timed too, in turns with the rest in
+   two rounds, and each redesigned kernel once more with a cold L2 (64 MB
+   written between launches); then untimed at T 1, 64, 77, 96 and
    200 across head dims 16-256, bf16 and f32, an unaligned bf16 view (which
    must take the SIMT kernels), the padded causal T 1300 (f32 D 32 and bf16
    D 64) and the non-causal T 1300 that must raise, and the autograd path
@@ -34,8 +35,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 7. the LM slice at full width (vocab 32768, d 512, 8 heads, 8 layers, T 512,
    batch 16, bf16 compute): ``make_lm_multi_step`` runs 10 steps through the
    flash kernels and, from the same weights, through the dense attention;
-   the losses agree and fall and each kernel launches 8 times a step, the
-   forward and dK/dV as their tensor-core variants; then the eval step, and
+   the losses agree and fall and each kernel launches 8 times a step, as
+   its tensor-core variant; then the eval step, and
    the f32 KV-cache greedy decode (prompt 256) with the flash prefill (the
    SIMT forward) and with the dense prefill, which must give the same
    tokens; then the step time of both, in four alternating rounds, with the
@@ -227,6 +228,8 @@ def kernel_vs_plain(
     fwd_bound, fwd_by = bound_ms(fwd_bytes, FWD_OPS[0] * n_w + FWD_OPS[1] * n_n)
     bwd_bound, bwd_by = bound_ms(bwd_bytes, BWD_OPS[0] * n_w + BWD_OPS[1] * n_n)
     lf, xf = logits.float(), x
+    lg = lf.detach().requires_grad_()
+    bce = F.binary_cross_entropy_with_logits(lg, xf, reduction="sum")
     calls = {
         "fwd": (lambda: E.elbo_fwd_cuda(logits, x, mu, logvar, beta), "elbo_fwd"),
         "fwd_plain": (lambda: E.elbo_fwd_plain(logits, x, mu, logvar, beta), ""),
@@ -234,6 +237,9 @@ def kernel_vs_plain(
         "fwd_library": (lambda: F.binary_cross_entropy_with_logits(lf, xf, reduction="sum"), ""),
         "bwd": (lambda: E.elbo_bwd_cuda(logits, x, mu, logvar, beta, g), "elbo_bwd"),
         "bwd_plain": (lambda: E.elbo_bwd_plain(logits, x, mu, logvar, beta, g), ""),
+        # The same part of the backward: the gradient of that sum with
+        # respect to the logits, g times sigmoid(logits) - x.
+        "bwd_library": (lambda: torch.autograd.grad(bce, lg, g, retain_graph=True), ""),
     }
     # Two times per function: "_ms" is the device's (the kernels' own time,
     # both of elbo_fwd's stages; every kernel of a plain call), "_call_ms"
@@ -254,7 +260,9 @@ def kernel_vs_plain(
         f"BCE-with-logits sum, wide part) rel_err={rel:.3e} | "
         f"elbo_bwd kernel_ms={times['bwd_ms']:.6f} call_ms={times['bwd_call_ms']:.6f} "
         f"plain_ms={times['bwd_plain_ms']:.6f} (call {times['bwd_plain_call_ms']:.6f}) "
-        f"bound_us={bwd_bound * 1e3:.4f} ({bwd_by}) library_ms=none max_abs_err={bwd_err:.3e} "
+        f"bound_us={bwd_bound * 1e3:.4f} ({bwd_by}) "
+        f"library_ms={times['bwd_library_ms']:.6f} (call {times['bwd_library_call_ms']:.6f}; "
+        f"BCE-with-logits backward, wide part) max_abs_err={bwd_err:.3e} "
         f"| graph replay per call: elbo_fwd {times['fwd_graph_ms']:.6f} ms, "
         f"elbo_bwd {times['bwd_graph_ms']:.6f} ms "
         f"| bit-identical reruns | device ms from: "
@@ -329,7 +337,7 @@ def _flash_close(what: str, got, ref, kind: str) -> float:
 
 
 def flash_variant(dtype, d: int, aligned: bool = True) -> str:
-    """The variant that the forward and dK/dV must launch, by this script's
+    """The variant that each flash kernel must launch, by this script's
     own rule: the tensor-core one for aligned bf16 at head dim 64 or 128,
     the SIMT kernels for every other input."""
     return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) and aligned else "simt"
@@ -382,7 +390,7 @@ def flash_vs_plain(
     gp = A.flash_bwd_plain(q, k, v, do, lp, delta, scale, causal)
     torch.cuda.synchronize()
     variants = {key: n for key, n in A.LAUNCHES_BY_VARIANT.items() if n}
-    expected = {f"flash_fwd:{want}": 2, "flash_bwd_dq:simt": 2, f"flash_bwd_dkv:{want}": 2}
+    expected = {f"flash_fwd:{want}": 2, f"flash_bwd_dq:{want}": 2, f"flash_bwd_dkv:{want}": 2}
     check(variants == expected, f"flash {tag}: launched {variants}, expected {expected}")
     check(o1.dtype == dtype and l1.dtype == torch.float32, f"flash_fwd {tag}: o {o1.dtype}, lse {l1.dtype}")
     errs = {
@@ -397,7 +405,7 @@ def flash_vs_plain(
         check(torch.equal(a, b), f"flash backward {tag}: two runs gave different bits in {name}")
     if not timed:
         print(f"flash {tag}: max_abs_err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-              + f" | bit-identical reruns | forward and dK/dV ran {want} (not timed)")
+              + f" | bit-identical reruns | every kernel ran {want} (not timed)")
         return {}
 
     io = q.numel() * q.element_size()
@@ -419,16 +427,17 @@ def flash_vs_plain(
     out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
     dol = do.view(1, bh, t, d)
     fwd = lambda **kw: A.flash_fwd_cuda(q, k, v, scale, causal, **kw)
+    dq = lambda **kw: A.flash_bwd_dq_cuda(q, k, v, do, lp, delta, scale, causal, **kw)
     dkv = lambda **kw: A.flash_bwd_dkv_cuda(q, k, v, do, lp, delta, scale, causal, **kw)
     calls = {
         "flash_fwd": (fwd, _kernel_name("flash_fwd", want)),
-        "flash_bwd_dq": (lambda: A.flash_bwd_dq_cuda(q, k, v, do, lp, delta, scale, causal), "flash_bwd_dq_kernel"),
+        "flash_bwd_dq": (dq, _kernel_name("flash_bwd_dq", want)),
         "flash_bwd_dkv": (dkv, _kernel_name("flash_bwd_dkv", want)),
         "fwd_plain": (lambda: A.flash_fwd_plain(q, k, v, scale, causal), ""),
         "bwd_plain": (lambda: A.flash_bwd_plain(q, k, v, do, lp, delta, scale, causal), ""),
         "fwd_library": (lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal), ""),
     }
-    redesigned = ("flash_fwd", "flash_bwd_dkv") if want == "wgmma" else ()
+    redesigned = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if want == "wgmma" else ()
     for name in redesigned:
         # The first port's SIMT kernel on the same operands, forced.
         calls[f"{name}_simt"] = (lambda fn=calls[name][0]: fn(_force_simt=True), _kernel_name(name, "simt"))
@@ -462,7 +471,7 @@ def flash_vs_plain(
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         kind = "fwd" if name == "flash_fwd" else "bwd"
         res[name] = {
-            "variant": "simt" if name == "flash_bwd_dq" else want,
+            "variant": want,
             "ms": times[f"{name}_ms"], "call_ms": times[f"{name}_call_ms"], "ms_from": times[f"{name}_from"],
             "ms_rounds": times[f"{name}_ms_rounds"],
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "max_abs_err": errs[name],
@@ -534,7 +543,7 @@ def flash_padding_check(A, dtype=torch.float32, d: int = 32) -> None:
     got = torch.autograd.grad(o, [q, k, v], cot)
     torch.cuda.synchronize()
     variants = {key: n for key, n in A.LAUNCHES_BY_VARIANT.items() if n}
-    expected = {f"flash_fwd:{want}": 1, "flash_bwd_dq:simt": 1, f"flash_bwd_dkv:{want}": 1}
+    expected = {f"flash_fwd:{want}": 1, f"flash_bwd_dq:{want}": 1, f"flash_bwd_dkv:{want}": 1}
     check(variants == expected, f"padded flash_attention {dtype}: launched {variants}, expected {expected}")
     flat = lambda x: x.transpose(1, 2).reshape(b * h, t, d)
     unflat = lambda x: x.reshape(b, h, t, d).transpose(1, 2)
@@ -552,7 +561,7 @@ def flash_padding_check(A, dtype=torch.float32, d: int = 32) -> None:
     err = _flash_close(f"{tag} o", o.detach(), unflat(op), "fwd")
     for n, a, r in zip("qkv", got, ref):
         err = max(err, _flash_close(f"{tag} d{n}", a, unflat(r), "bwd"))
-    print(f"{tag}: max_abs_err {err:.3e}; forward and dK/dV ran {want}")
+    print(f"{tag}: max_abs_err {err:.3e}; every kernel ran {want}")
     try:
         A.flash_attention(*base, causal=False)
     except ValueError as e:
@@ -606,10 +615,10 @@ def lm_slice(A, group, smi: str) -> dict:
     for key in A.LAUNCHES:
         check(train_launches[key] == 8 * LM_STEPS,
               f"LM train: {key} launched {train_launches[key]} times in {LM_STEPS} steps of 8 layers")
-    # bf16 activations at head dim 64: the forward and dK/dV take their
-    # tensor-core variants, dQ the SIMT kernel.
+    # bf16 activations at head dim 64: every kernel takes its tensor-core
+    # variant.
     n = 8 * LM_STEPS
-    expected = {"flash_fwd:wgmma": n, "flash_bwd_dq:simt": n, "flash_bwd_dkv:wgmma": n}
+    expected = {"flash_fwd:wgmma": n, "flash_bwd_dq:wgmma": n, "flash_bwd_dkv:wgmma": n}
     check(train_variants == expected, f"LM train: launched {train_variants}, expected {expected}")
     check(all(math.isfinite(x) for x in lf + lp), f"LM train: non-finite loss {lf} / {lp}")
     # bf16 compute: the dense path rounds scores and probabilities to bf16,
@@ -775,11 +784,11 @@ def main() -> None:
         if "warning" in line.lower():
             print(f"ptxas flash_attention: {line.strip()}")
     for entry in re.split(r"(?=ptxas info\s+: Compiling entry function)", log):
-        m = re.search(r"Compiling entry function '\S*(flash_(?:fwd|bwd_dkv)_wgmma_kernel)ILi(\d+)E", entry)
+        m = re.search(r"Compiling entry function '\S*(flash_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel)ILi(\d+)E", entry)
         if m:
             regs = re.search(r"Used (\d+) registers", entry)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
-            smem = A.wgmma_smem_bytes("bwd" in m.group(1), int(m.group(2)))
+            smem = A.wgmma_smem_bytes(m.group(1).removesuffix("_wgmma_kernel"), int(m.group(2)))
             print(f"ptxas {m.group(1)}<{m.group(2)}>: {regs.group(1) if regs else '?'} registers, "
                   f"spill stores/loads {spill.groups() if spill else '?'} bytes, dynamic shared memory {smem} bytes")
 
@@ -888,22 +897,20 @@ def main() -> None:
     src = "multidisttorch_tpu_torch/ops/csrc/elbo.cu"
     m = main_shape
     kernels = []
-    for name, key, line, grids, lib in (
-        ("elbo_fwd", "fwd", 134, 2, "fwd_library"),
-        ("elbo_bwd", "bwd", 163, 1, None),
-    ):
+    for name, key, line, grids in (("elbo_fwd", "fwd", 134, 2), ("elbo_bwd", "bwd", 163, 1)):
+        lib = f"{key}_library"
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": f"multidisttorch_tpu/ops/pallas_elbo.py:{line}",
             "launches": launches[name], "max_abs_err": m[f"{key}_err"],
             "ms": m[f"{key}_ms"], "plain_ms": m[f"{key}_plain_ms"],
             "bound_ms": m[f"{key}_bound_ms"], "bound_by": m[f"{key}_bound_by"],
-            "library_ms": m[f"{lib}_ms"] if lib else None,
+            "library_ms": m[f"{lib}_ms"],
             "call_ms": m[f"{key}_call_ms"], "plain_call_ms": m[f"{key}_plain_call_ms"],
-            "library_call_ms": m[f"{lib}_call_ms"] if lib else None,
+            "library_call_ms": m[f"{lib}_call_ms"],
             "graph_ms": m[f"{key}_graph_ms"],
             "ms_from": m[f"{key}_from"], "plain_ms_from": m[f"{key}_plain_from"],
-            "library_ms_from": m[f"{lib}_from"] if lib else None,
+            "library_ms_from": m[f"{lib}_from"],
             "grid_launches_per_call": grids,
         })
     # Flash rows: device time per call at the LM training path's shape

@@ -15,12 +15,13 @@ single-device half; ring-flash is ROADMAP A.15b). The three kernels in
 
 The kernels work on the flat ``(BH, T, D)`` layout, f32 or bf16, with f32
 math. What bounds them, and how they are laid out, is in the source's
-header. ``flash_fwd`` and ``flash_bwd_dkv`` come in two variants: a
-tensor-core one (TMA-fed ``wgmma`` products, ``"wgmma"``) for the inputs
-:func:`uses_tensor_cores` accepts, and the SIMT kernels of the first port
-(``"simt"``) for every other input, as ``flash_bwd_dq`` always runs. The
-choice is made here, before the launch, and each variant has its own C
-entry; nothing falls back from one to the other.
+header. Each comes in two variants: a tensor-core one (TMA-fed ``wgmma``
+products, ``"wgmma"``) for the inputs :func:`uses_tensor_cores` accepts,
+and the SIMT kernels of the first port (``"simt"``) for every other input.
+The tensor-core variants split their f32 operand ``p`` or ``ds`` into bf16
+terms: two in the forward and in dQ, three in dK/dV. The choice is made
+here, before the launch, and each variant has its own C entry; nothing
+falls back from one to the other.
 
 ``delta = rowsum(dO * O) - g_lse`` is computed outside the kernels in plain
 torch, as the JAX package computes it in XLA; that is how the cotangent of
@@ -47,6 +48,7 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 LAUNCHES_BY_VARIANT = {
     "flash_fwd:wgmma": 0,
     "flash_fwd:simt": 0,
+    "flash_bwd_dq:wgmma": 0,
     "flash_bwd_dq:simt": 0,
     "flash_bwd_dkv:wgmma": 0,
     "flash_bwd_dkv:simt": 0,
@@ -80,6 +82,8 @@ def _kernels() -> ctypes.CDLL:
         lib.mdt_flash_bwd_dkv.restype = i
         lib.mdt_flash_fwd_wgmma.argtypes = [i, p, p, p, p, p, i, i, i, f, i, p]
         lib.mdt_flash_fwd_wgmma.restype = i
+        lib.mdt_flash_bwd_dq_wgmma.argtypes = [i, p, p, p, p, p, p, p, i, i, i, f, i, p]
+        lib.mdt_flash_bwd_dq_wgmma.restype = i
         lib.mdt_flash_bwd_dkv_wgmma.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, f, i, p]
         lib.mdt_flash_bwd_dkv_wgmma.restype = i
         lib.mdt_flash_wgmma_smem.argtypes = [i, i]
@@ -133,10 +137,13 @@ def uses_tensor_cores(*tensors) -> bool:
     )
 
 
-def wgmma_smem_bytes(backward: bool, d: int) -> int:
+def wgmma_smem_bytes(kernel: str, d: int) -> int:
     """Dynamic shared memory, in bytes, of one launch of the tensor-core
-    forward (or, ``backward``, dK/dV) at head dim ``d``. Builds the kernels."""
-    n = _kernels().mdt_flash_wgmma_smem(int(backward), d)
+    variant of ``kernel`` (a key of ``LAUNCHES``) at head dim ``d``. Builds
+    the kernels."""
+    if kernel not in LAUNCHES:
+        raise ValueError(f"no flash kernel {kernel!r}; the kernels are {list(LAUNCHES)}")
+    n = _kernels().mdt_flash_wgmma_smem(list(LAUNCHES).index(kernel), d)
     if n < 0:
         raise ValueError(f"no tensor-core variant at head dim {d}")
     return n
@@ -227,18 +234,22 @@ def _bwd_args(q, k, v, do, lse, delta, scale, causal):
     return ptrs, (bh, t, d, float(scale), int(causal))
 
 
-def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool):
-    """Launch ``flash_bwd_dq`` on the current stream; returns ``dq``."""
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool, *, _force_simt: bool = False):
+    """Launch ``flash_bwd_dq`` on the current stream; returns ``dq``.
+    ``_force_simt`` as in :func:`flash_fwd_cuda`."""
     _check_bwd_operands(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
     ptrs, dims = _bwd_args(q, k, v, do, lse, delta, scale, causal)
+    variant = "simt" if _force_simt or not uses_tensor_cores(q, k, v, do) else "wgmma"
+    args = (q.device.index, *ptrs, dq.data_ptr(), *dims)
     with torch.cuda.device(q.device):
-        err = _kernels().mdt_flash_bwd_dq(
-            q.device.index, *ptrs, dq.data_ptr(), *dims, _DTYPE_CODE[q.dtype], _stream(q.device)
-        )
+        if variant == "wgmma":
+            err = _kernels().mdt_flash_bwd_dq_wgmma(*args, _stream(q.device))
+        else:
+            err = _kernels().mdt_flash_bwd_dq(*args, _DTYPE_CODE[q.dtype], _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"flash_bwd_dq launch failed with CUDA error {err}")
-    _count("flash_bwd_dq", "simt")
+        raise RuntimeError(f"flash_bwd_dq ({variant}) launch failed with CUDA error {err}")
+    _count("flash_bwd_dq", variant)
     return dq
 
 

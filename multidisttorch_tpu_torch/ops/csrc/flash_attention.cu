@@ -9,13 +9,13 @@
 // dtype (float or __nv_bfloat16); lse and delta are (BH, T) float. All math
 // is f32; outputs are rounded once to the input dtype.
 //
-// Two variants. flash_fwd and flash_bwd_dkv have a tensor-core variant
-// (flash_fwd_wgmma_kernel, flash_bwd_dkv_wgmma_kernel, below the SIMT
+// Two variants. Each kernel has a tensor-core variant (flash_fwd_wgmma_kernel,
+// flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel, below the SIMT
 // kernels) for bf16 operands at head dim 64 or 128 on 16-byte-aligned
 // bases: TMA-fed wgmma products, described where they are defined, with the
-// pieces they share in hopper_tc.cuh. Every other input, and flash_bwd_dq,
-// runs the SIMT kernels described next. ops/attention.py picks the variant
-// before the launch; each has its own C entry.
+// pieces they share in hopper_tc.cuh. Every other input runs the SIMT
+// kernels described next. ops/attention.py picks the variant before the
+// launch; each has its own C entry.
 //
 // What bounds them on an H100: at the LM's full width (BH 128, T 512, D 64,
 // causal, bf16) the forward moves 33.8 MB (about 10 us at 3.35 TB/s) and does
@@ -490,10 +490,11 @@ int launch_dkv(int device, const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core variants of flash_fwd and flash_bwd_dkv: bf16 operands,
-// head dim 64 or 128, 16-byte-aligned bases (ops/attention.py chooses).
+// The tensor-core variants of flash_fwd, flash_bwd_dq and flash_bwd_dkv:
+// bf16 operands, head dim 64 or 128, 16-byte-aligned bases
+// (ops/attention.py chooses).
 //
-// A CTA is consumer warpgroups of 64 rows each (one in dK/dV; the
+// A CTA is consumer warpgroups of 64 rows each (one in dQ and dK/dV; the
 // forward's count is kFwdWarpgroups) and one producer warp after them. The
 // producer stages 64-row tiles by TMA into a two-stage ring; the consumers
 // run the products as wgmmas (bf16 in, f32 accumulate) and the softmax in
@@ -501,20 +502,24 @@ int launch_dkv(int device, const void* q, const void* k, const void* v,
 //
 // The second product of each kernel takes an f32 operand (p, or ds) split
 // into bf16 terms, each multiplied and all summed in f32: one rounding of p
-// or ds to bf16 would miss the port's f32 contract (o, dK and dV within one
-// bf16 ulp of the f32 math). The forward takes two terms (hi, lo): o is
+// or ds to bf16 would miss the port's f32 contract (o, dQ, dK and dV within
+// one bf16 ulp of the f32 math). The forward takes two terms (hi, lo): o is
 // normalised by the row sum, so the residual, 2^-17 of each p, stays
-// relative to o. dK and dV are not normalised and can cancel to far below
-// the terms they sum (a dV element of 2e-6 from terms near 1), so the
-// residual must be small against the tolerance's 5e-6 absolute floor:
+// relative to o. dQ takes two as well: it sums ds over a row of p, which
+// sums to 1, so the residual stays near 2^-17 of scale |dp - delta|.
+// dK and dV sum over a column of p, which does not, and can cancel to far
+// below the terms they sum (a dV element of 2e-6 from terms near 1), so
+// the residual must be small against the tolerance's 5e-6 absolute floor:
 // they take three terms (residual about 2^-25). Exponentials are exp2 with
-// log2(e) folded into the scale; lse stays the natural log. No atomics.
+// log2(e) folded into the scale; lse stays the natural log. No atomics:
+// each output row has one writer, so a rerun gives the same bits.
 // ---------------------------------------------------------------------------
 
 constexpr int kTcStages = 2;
 constexpr int kFwdTerms = 2;  // bf16 terms of p in O += P V
 constexpr int kBwdTerms = 3;  // of p and ds in dV += P^T dO, dK += dS^T Q
-constexpr int kTcConsumers = 128;  // dK/dV: one consumer warpgroup
+constexpr int kDqTerms = 2;   // of ds in dQ += dS K
+constexpr int kTcConsumers = 128;  // dQ, dK/dV: one consumer warpgroup
 constexpr int kTcThreads = kTcConsumers + 32;
 // The forward: consumer warpgroups of 64 query rows each, sharing every
 // K/V tile, plus the producer warp. One measured faster than two at the
@@ -534,6 +539,11 @@ template <int D>
 constexpr size_t fwd_wgmma_smem() {
   return 1024 + (size_t)(kFwdWarpgroups + 2 * kTcStages) * tc_tile_bytes<D>() +
          8 * (1 + 2 * kTcStages);
+}
+// Q and dO, then the ring's (K, V) stages, then the barriers.
+template <int D>
+constexpr size_t dq_wgmma_smem() {
+  return 1024 + (size_t)(2 + 2 * kTcStages) * tc_tile_bytes<D>() + 8 * (1 + 2 * kTcStages);
 }
 // K and V, then the ring's (Q, dO) stages, the stages' lse and delta rows,
 // then the barriers.
@@ -694,6 +704,147 @@ __global__ void __launch_bounds__(kFwdThreads, D == 64 ? 2 : 1)
           __floats2bfloat162_rn(acc[4 * jc + 2 * h] / denom, acc[4 * jc + 2 * h + 1] / denom);
     // The per-row logsumexp, natural log: the one residual the backward needs.
     if ((lane & 3) == 0) lse[(int64_t)bh * t + row] = m[h] * kLn2 + logf(denom);
+  }
+}
+
+// dQ for one 64-row Q tile: queries are the M rows of every product, so
+// S = Q K^T and dP = dO V^T come out with this thread's two query rows, whose
+// lse and delta it keeps in registers, and dS is already the register A
+// operand of dQ += dS K. The staged K tile is the K-major B operand of S and
+// the MN-major B operand of dQ.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              bf16* __restrict__ dq, int t, float scale, int causal) {
+  using namespace hopper;
+  using R = Ring<kTcStages>;
+  constexpr int kTile = tc_tile_bytes<D>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = align_1024(smem_raw);
+  uint8_t* do_s = q_s + kTile;
+  uint8_t* kv_s = do_s + kTile;  // stage s: K at kv_s + 2 s kTile, V after it
+  uint64_t* bars = reinterpret_cast<uint64_t*>(kv_s + 2 * kTcStages * kTile);
+  uint64_t* qdo_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kTcStages;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTileRows;  // the heaviest causal tiles first
+  const int nk = (t + kTileRows - 1) / kTileRows;
+  // Causal: K tiles strictly above the diagonal contribute nothing.
+  const int n_tiles = causal ? min(nk, q0 / kTileRows + 1) : nk;
+  const int64_t row_base = (int64_t)bh * t;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kTcConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kTcConsumers) {  // the producer warp; its first lane starts the copies
+    if (threadIdx.x == kTcConsumers) {
+      mbar_arrive_expect_tx(qdo_full, 2 * kTile);
+      tma_load_tile<D>(&tm_q, q_s, qdo_full, q0, bh);
+      tma_load_tile<D>(&tm_do, do_s, qdo_full, q0, bh);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = R::stage(j);
+        mbar_wait(&empty[s], R::empty_parity(j));
+        mbar_arrive_expect_tx(&full[s], 2 * kTile);
+        tma_load_tile<D>(&tm_k, kv_s + 2 * s * kTile, &full[s], j * kTileRows, bh);
+        tma_load_tile<D>(&tm_v, kv_s + (2 * s + 1) * kTile, &full[s], j * kTileRows, bh);
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = 16 * warp + (lane >> 2);  // query rows r0 and r0 + 8 of the tile
+  const int c2 = 2 * (lane & 3);           // key (or head) columns 8 j + c2, + 1
+  const float scale_log2 = scale * kLog2e;
+  // The two rows' lse in log2 units and delta; queries past the sequence
+  // get lse +inf (p = 0) and delta 0, and read nothing.
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + 8 * h;
+    lse2[h] = row < t ? lse[row_base + row] * kLog2e : INFINITY;
+    dl[h] = row < t ? delta[row_base + row] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const uint32_t q_addr = smem_u32(q_s), do_addr = smem_u32(do_s);
+  mbar_wait(qdo_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = R::stage(j);
+    const uint32_t k_addr = smem_u32(kv_s + 2 * s * kTile);
+    const uint32_t v_addr = k_addr + kTile;
+    mbar_wait(&full[s], R::full_parity(j));
+
+    // S = Q K^T and dP = dO V^T: rows are queries, columns keys.
+    float sc[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_m64n64k16(sc, kmajor_desc(q_addr, kk), kmajor_desc(k_addr, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_m64n64k16(dp, kmajor_desc(do_addr, kk), kmajor_desc(v_addr, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // P = exp(S scale - lse), dS = P (dP - delta) scale.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = exp2f(sc[i] * scale_log2 - lse2[(i >> 1) & 1]);
+    // Only the diagonal tile crosses the causal mask, only a ragged last
+    // tile the sequence's end, whose missing keys are zero rows of K: their
+    // score 0 gives p = exp(-lse), which must be cut to 0.
+    const int k0 = j * kTileRows;
+    const bool diag = causal && k0 == q0;
+    if (diag || k0 + kTileRows > t) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int row = q0 + r0 + (i & 2) * 4;
+        const int col = k0 + 8 * (i >> 2) + c2 + (i & 1);
+        if ((diag && col > row) || col >= t) sc[i] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dp[i] = sc[i] * (dp[i] - dl[(i >> 1) & 1]) * scale;
+
+    // dQ += dS K, dS as kDqTerms bf16 terms, K MN-major.
+    uint32_t ds_parts[kDqTerms][4][4];
+    split_fragment(dp, ds_parts);
+    fence_regs(acc);
+    fence_regs(ds_parts);
+    wgmma_fence();
+    wgmma_split_product(acc, ds_parts, k_addr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + 8 * h;
+    if (row >= t) continue;
+    bf16* dst = dq + (row_base + row) * D + c2;
+#pragma unroll
+    for (int jc = 0; jc < D / 8; ++jc)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jc) =
+          __floats2bfloat162_rn(acc[4 * jc + 2 * h], acc[4 * jc + 2 * h + 1]);
   }
 }
 
@@ -877,6 +1028,25 @@ int launch_fwd_wgmma(int device, const void* q, const void* k, const void* v, vo
 }
 
 template <int D>
+int launch_dq_wgmma(int device, const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, void* dq, int bh, int t, float scale,
+                    int causal, cudaStream_t stream) {
+  const int nq = (t + hopper::kTileRows - 1) / hopper::kTileRows;
+  if (nq > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mdo;
+  int err = tile_maps({{&mq, q}, {&mk, k}, {&mv, v}, {&mdo, dout}}, bh, t, D);
+  if (err) return err;
+  constexpr size_t smem = dq_wgmma_smem<D>();
+  static std::atomic<bool> ready[kMaxDevices];
+  err = (int)prepare(flash_bwd_dq_wgmma_kernel<D>, smem, device, ready);
+  if (err) return err;
+  flash_bwd_dq_wgmma_kernel<D><<<dim3(bh, nq), kTcThreads, smem, stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), t, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
 int launch_dkv_wgmma(int device, const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dk, void* dv, int bh, int t,
                      float scale, int causal, cudaStream_t stream) {
@@ -955,6 +1125,20 @@ extern "C" int mdt_flash_fwd_wgmma(int device, const void* q, const void* k, con
   return (int)cudaErrorInvalidValue;
 }
 
+extern "C" int mdt_flash_bwd_dq_wgmma(int device, const void* q, const void* k, const void* v,
+                                      const void* dout, const void* lse, const void* delta,
+                                      void* dq, int bh, int t, int d, float scale, int causal,
+                                      void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch_dq_wgmma<64>(device, q, k, v, dout, lse, delta, dq, bh, t, scale, causal, st);
+  if (d == 128)
+    return launch_dq_wgmma<128>(device, q, k, v, dout, lse, delta, dq, bh, t, scale, causal, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" int mdt_flash_bwd_dkv_wgmma(int device, const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        void* dk, void* dv, int bh, int t, int d, float scale,
@@ -969,10 +1153,21 @@ extern "C" int mdt_flash_bwd_dkv_wgmma(int device, const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// The dynamic shared memory a tensor-core launch asks for, in bytes (-1
-// for a head dim without a variant): flash_fwd (backward 0) or dK/dV (1).
-extern "C" int mdt_flash_wgmma_smem(int backward, int d) {
-  if (d == 64) return (int)(backward ? dkv_wgmma_smem<64>() : fwd_wgmma_smem<64>());
-  if (d == 128) return (int)(backward ? dkv_wgmma_smem<128>() : fwd_wgmma_smem<128>());
+template <int D>
+int wgmma_smem(int kernel) {
+  switch (kernel) {
+    case 0: return (int)fwd_wgmma_smem<D>();
+    case 1: return (int)dq_wgmma_smem<D>();
+    case 2: return (int)dkv_wgmma_smem<D>();
+    default: return -1;
+  }
+}
+
+// The dynamic shared memory a tensor-core launch asks for, in bytes, of
+// kernel 0 (flash_fwd), 1 (flash_bwd_dq) or 2 (flash_bwd_dkv); -1 for
+// another kernel or a head dim without a variant.
+extern "C" int mdt_flash_wgmma_smem(int kernel, int d) {
+  if (d == 64) return wgmma_smem<64>(kernel);
+  if (d == 128) return wgmma_smem<128>(kernel);
   return -1;
 }

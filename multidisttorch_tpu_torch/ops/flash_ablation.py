@@ -4,17 +4,19 @@
 
 Needs one CUDA card and ``nvcc``. Builds timing-only variants of
 ``ops/csrc/flash_attention.cu``, each with one part of the tensor-core
-forward and dK/dV changed, and times ``mdt_flash_fwd_wgmma`` and
-``mdt_flash_bwd_dkv_wgmma`` of every variant at the LM's full width
-((128, 512, 64), causal, bf16) by CUDA-graph replay, in two rounds in
-turns (the second in the reverse order). The variants compute wrong
-results on purpose and are never loaded by the port:
+kernels changed, and times ``mdt_flash_fwd_wgmma``,
+``mdt_flash_bwd_dq_wgmma`` and ``mdt_flash_bwd_dkv_wgmma`` of every
+variant at the LM's full width ((128, 512, 64), causal, bf16) by
+CUDA-graph replay, in two rounds in turns (the second in the reverse
+order). The variants compute wrong results on purpose and are never
+loaded by the port:
 
 - ``base``: the source as it is;
-- ``terms1``: ``p`` and ``ds`` rounded to bf16 once (no split);
-- ``bwd_terms2``: dK/dV with two bf16 terms, as the forward;
-- ``no_exp``: the exponentials of the forward and dK/dV left out;
-- ``stages3``: three-stage rings in both kernels;
+- ``terms1``: ``p`` and ``ds`` rounded to bf16 once (no split) in all three;
+- ``bwd_terms2``: dK/dV with two bf16 terms, as the forward and dQ;
+- ``dq_terms3``: dQ with three bf16 terms, as dK/dV;
+- ``no_exp``: the exponentials of all three left out;
+- ``stages3``: three-stage rings in all three;
 - ``fwd_wg2``: two consumer warpgroups (128 query rows) per forward CTA,
   sharing each K/V tile.
 
@@ -41,10 +43,13 @@ VARIANTS = {
     "terms1": [
         ("constexpr int kFwdTerms = 2;", "constexpr int kFwdTerms = 1;"),
         ("constexpr int kBwdTerms = 3;", "constexpr int kBwdTerms = 1;"),
+        ("constexpr int kDqTerms = 2;", "constexpr int kDqTerms = 1;"),
     ],
     "bwd_terms2": [("constexpr int kBwdTerms = 3;", "constexpr int kBwdTerms = 2;")],
+    "dq_terms3": [("constexpr int kDqTerms = 2;", "constexpr int kDqTerms = 3;")],
     "no_exp": [
         ("sc[i] = exp2f(sc[i] - m[h]);", "sc[i] = sc[i] - m[h];"),
+        ("sc[i] = exp2f(sc[i] * scale_log2 - lse2[(i >> 1) & 1]);", "sc[i] = sc[i] * scale_log2 - lse2[(i >> 1) & 1];"),
         ("float p = exp2f(st[i] * scale_log2 - lse2[col]);", "float p = st[i] * scale_log2 - lse2[col];"),
     ],
     "stages3": [("constexpr int kTcStages = 2;", "constexpr int kTcStages = 3;")],
@@ -76,6 +81,7 @@ def build_variants() -> dict[str, ctypes.CDLL]:
         lib = ctypes.CDLL(str(OUT_DIR / f"lib{name}.so"))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.mdt_flash_fwd_wgmma.argtypes = [i, p, p, p, p, p, i, i, i, f, i, p]
+        lib.mdt_flash_bwd_dq_wgmma.argtypes = [i, p, p, p, p, p, p, p, i, i, i, f, i, p]
         lib.mdt_flash_bwd_dkv_wgmma.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, f, i, p]
         libs[name] = lib
     return libs
@@ -117,19 +123,22 @@ def main() -> None:
     op, lse = A.flash_fwd_plain(q, k, v, scale, True)
     delta = (do.float() * op.float()).sum(-1).contiguous()
     o, lse_out = torch.empty_like(q), torch.empty_like(lse)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dq_out, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
     def calls(lib):
         stream = lambda: torch.cuda.current_stream().cuda_stream
         fwd = lambda: lib.mdt_flash_fwd_wgmma(
             0, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse_out.data_ptr(),
             bh, t, d, scale, 1, stream())
+        dq = lambda: lib.mdt_flash_bwd_dq_wgmma(
+            0, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq_out.data_ptr(), bh, t, d, scale, 1, stream())
         dkv = lambda: lib.mdt_flash_bwd_dkv_wgmma(
             0, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t, d, scale, 1, stream())
-        return {"flash_fwd": fwd, "flash_bwd_dkv": dkv}
+        return {"flash_fwd": fwd, "flash_bwd_dq": dq, "flash_bwd_dkv": dkv}
 
-    times = {name: {"flash_fwd": [], "flash_bwd_dkv": []} for name in libs}
+    times = {name: {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []} for name in libs}
     for r in range(2):
         for name in list(libs) if r == 0 else list(reversed(libs)):
             for kernel, fn in calls(libs[name]).items():
