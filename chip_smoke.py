@@ -8,18 +8,29 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. build the CUDA kernels from ``multidisttorch_tpu_torch/ops/csrc``, one
    ``nvcc`` per source, all started together;
 3. each ELBO kernel against its plain PyTorch version (value, the three
-   gradients, identical bits on a rerun) at four timed shapes, with the
-   kernel's, the plain version's and a library call's device time and
-   per-call time (the library calls: BCE-with-logits, and its autograd
-   backward with respect to the logits), and the least time the card
-   could take; then at an odd batch, a ragged width and unaligned views,
-   untimed, which drive the kernels' scalar tails and scalar path;
+   gradients, identical bits on a rerun and on 100 replays of one captured
+   call) at four timed shapes, with the kernel's, the plain version's and
+   a library call's device time and per-call time (the library calls:
+   BCE-with-logits, and its autograd backward with respect to the
+   logits), the CUDA-graph replay time, the cold-L2 time, the device
+   kernels one call launches (1 each at batch 128), the launch floor (the
+   same launch of a build whose kernels return at once, eager and in a
+   graph) and the least time the card could take; then at an odd batch, a
+   ragged width and unaligned views, untimed, which drive the kernels'
+   scalar tails and scalar path;
 4. one full-width train step (784-400-20, batch 128) through the fused
    kernels against the plain loss, from the same weights and noise;
-5. the VAE slice: ``run_hpo`` with two trials (1 and 2 epochs) queued on one
-   group on ``cuda:0``, MNIST-sized synthetic data, batch 128; the kernels
-   must have launched once per train step and the losses must fall;
-6. each flash-attention kernel (forward, dQ, dK/dV) against its plain
+5. ``make_multi_step`` as CUDA-graph replays against its eager loop at full
+   width, from the same weights, batches and generator seed, in chunks of
+   K 10 and 8: losses and parameters bit-identical, one launch of each
+   ELBO kernel per step; then ms per step of both, with the device's busy
+   time and idle share;
+6. the VAE slice: ``run_hpo`` with two trials (1 and 2 epochs) queued on one
+   group on ``cuda:0``, MNIST-sized synthetic data, batch 128, its train
+   chunks (10 steps) replayed from CUDA graphs; the kernels must have
+   launched once per train step, every chunk after a trial's first must
+   have been a replay, and the losses must fall;
+7. each flash-attention kernel (forward, dQ, dK/dV) against its plain
    version (o, lse, dq, dk, dv with an lse cotangent, identical bits on a
    rerun) at the LM's full width (BH 128, T 512, D 64: causal bf16 and f32,
    non-causal f32), timed beside the plain version, the byte/FLOP bound and
@@ -32,7 +43,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    must take the SIMT kernels), the padded causal T 1300 (f32 D 32 and bf16
    D 64) and the non-causal T 1300 that must raise, and the autograd path
    with its lse gradient; every call checks which variant it launched;
-7. the LM slice at full width (vocab 32768, d 512, 8 heads, 8 layers, T 512,
+8. the LM slice at full width (vocab 32768, d 512, 8 heads, 8 layers, T 512,
    batch 16, bf16 compute): ``make_lm_multi_step`` runs 10 steps through the
    flash kernels and, from the same weights, through the dense attention;
    the losses agree and fall and each kernel launches 8 times a step, as
@@ -41,7 +52,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    SIMT forward) and with the dense prefill, which must give the same
    tokens; then the step time of both, in four alternating rounds, with the
    device's busy time by kernel;
-8. a ``kernels`` JSON line, then the result line.
+9. a ``kernels`` JSON line, then the result line.
 
 Exits 1 without a result when CUDA is unavailable or the port is not
 beside this script.
@@ -119,19 +130,30 @@ def device_ms(fn, name: str = "", iters: int = 50) -> float | None:
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
-def graph_ms(fn, iters: int = 50) -> float:
-    """Device time per call, in ms, of ``iters`` calls captured in one CUDA
-    graph and replayed between CUDA events: no host cost per call, but the
-    gaps between the graph's kernels count."""
+def _capture(fn, graph) -> tuple:
+    """Run ``fn`` once eagerly on a side stream, then capture one call of
+    it into ``graph`` on that same stream, inside an ELBO capture scope (the
+    graph's own forward workspace; its launches are not counted); returns
+    what the captured call returned and the scope, to keep with the
+    graph."""
+    from multidisttorch_tpu_torch.ops import elbo as E
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
+    with E.capture_scope() as scope, torch.cuda.graph(graph, stream=side):
+        out = fn()
+    return out, scope
+
+
+def graph_ms(fn, iters: int = 50) -> float:
+    """Device time per call, in ms, of ``iters`` calls captured in one CUDA
+    graph and replayed between CUDA events: no host cost per call, but the
+    gaps between the graph's kernels count."""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+    _, _scope = _capture(lambda: [fn() for _ in range(iters)], graph)
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -152,6 +174,40 @@ def device_time(fn, name: str = "") -> tuple[float, str]:
     return graph_ms(fn), "CUDA-graph replay"
 
 
+def kernels_per_call(fn, iters: int = 20) -> float | None:
+    """Device kernels per call of ``fn``, from torch.profiler's CUDA
+    activity (copies and memsets left out); None if the profiler saw no
+    device activity in three tries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith(("Memcpy", "Memset")))
+        if n:
+            return n / iters
+    return None
+
+
+def replays_identical(fn, ref: tuple, replays: int = 100) -> None:
+    """Capture one call of ``fn`` in a CUDA graph and check that each of
+    ``replays`` replays writes exactly the bits of ``ref`` (the eager
+    call's outputs)."""
+    graph = torch.cuda.CUDAGraph()
+    out, _scope = _capture(fn, graph)
+    for r in range(replays):
+        for o in out:
+            o.zero_()
+        graph.replay()
+        for i, (a, b) in enumerate(zip(out, ref)):
+            check(bool(torch.equal(a, b)), f"graph replay {r}: output {i} differs from the eager call's bits")
+
+
 def bound_ms(n_bytes: int, n_ops: int, peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     t_ops = n_ops / peak_flops * 1e3
@@ -165,12 +221,14 @@ def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_vs_plain(
-    E, F, b: int, d: int, lat: int, act_dtype, beta: float = 1.0, *, offset: int = 0, timed: bool = True
+    E, F, b: int, d: int, lat: int, act_dtype, beta: float = 1.0, *, offset: int = 0, timed: bool = True,
+    smi: str = "", floor=None,
 ) -> dict:
     """Phase 3 at one shape: agreement, determinism and, if ``timed``, times.
     ``offset`` > 0 places every input that many elements into a larger
     buffer: contiguous, but not 16-byte aligned, so the kernels take their
-    scalar path."""
+    scalar path. ``floor``, needed when timed, is the ``empty`` build of
+    ``ops/elbo_ablation.py``: the same launches with no work."""
     dev = torch.device("cuda:0")
     gen = torch.Generator(device="cpu").manual_seed(b * 7 + d)
 
@@ -216,9 +274,14 @@ def kernel_vs_plain(
             ok = bool(torch.all(diff <= bf16_ulp(p)))
             tol = "one bf16 ulp"
         check(ok, f"elbo_bwd {tag}: {name} differs from plain beyond {tol} (max {float(diff.max()):.3e})")
+    # 100 replays of one captured call write the eager call's bits.
+    replays_identical(lambda: (E.elbo_fwd_cuda(logits, x, mu, logvar, beta),
+                               *E.elbo_bwd_cuda(logits, x, mu, logvar, beta, g)), (v1, *k1))
+    _, grid, bwd_grid = E._plan(logits, x, mu, logvar)
+    route = f"{grid} CTAs of 128"
     if not timed:
-        print(f"kernel {tag}: elbo_fwd rel_err={rel:.3e} | elbo_bwd max_abs_err={bwd_err:.3e} "
-              "| bit-identical reruns (not timed)")
+        print(f"kernel {tag}: elbo_fwd rel_err={rel:.3e} ({route}) | elbo_bwd max_abs_err={bwd_err:.3e} "
+              "| bit-identical reruns and 100 graph replays (not timed)")
         return {}
 
     sz = lambda t: t.numel() * t.element_size()
@@ -252,6 +315,25 @@ def kernel_vs_plain(
     # The kernels replayed from a CUDA graph: launch gaps included, host not.
     times["fwd_graph_ms"] = graph_ms(calls["fwd"][0])
     times["bwd_graph_ms"] = graph_ms(calls["bwd"][0])
+    # Device kernels per call: 1 each.
+    times["fwd_kernels_per_call"] = kernels_per_call(calls["fwd"][0])
+    times["bwd_kernels_per_call"] = kernels_per_call(calls["bwd"][0])
+    # Cold L2: 64 MB written before each call; the filter keeps it out.
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    times["fwd_cold_ms"] = device_ms(lambda: (flush.zero_(), E.elbo_fwd_cuda(logits, x, mu, logvar, beta)), "elbo_fwd")
+    times["bwd_cold_ms"] = device_ms(lambda: (flush.zero_(), E.elbo_bwd_cuda(logits, x, mu, logvar, beta, g)), "elbo_bwd")
+    del flush
+    # The launch floor: each launch as the wrapper makes it (entry, grid,
+    # arguments) of kernels that return at once, eager (profiler) and
+    # replayed from a graph.
+    from multidisttorch_tpu_torch.ops import elbo_ablation
+
+    floor_fwd, floor_bwd = elbo_ablation.launchers(floor, logits, x, mu, logvar, g, beta)
+    times["fwd_floor_ms"], times["fwd_floor_from"] = device_time(floor_fwd, "elbo_fwd")
+    times["bwd_floor_ms"], times["bwd_floor_from"] = device_time(floor_bwd, "elbo_bwd")
+    times["fwd_floor_graph_ms"] = graph_ms(floor_fwd)
+    times["bwd_floor_graph_ms"] = graph_ms(floor_bwd)
+    times["fwd_route"], times["bwd_grid"] = route, bwd_grid
     print(
         f"kernel {tag}: elbo_fwd kernel_ms={times['fwd_ms']:.6f} call_ms={times['fwd_call_ms']:.6f} "
         f"plain_ms={times['fwd_plain_ms']:.6f} (call {times['fwd_plain_call_ms']:.6f}) "
@@ -265,8 +347,14 @@ def kernel_vs_plain(
         f"BCE-with-logits backward, wide part) max_abs_err={bwd_err:.3e} "
         f"| graph replay per call: elbo_fwd {times['fwd_graph_ms']:.6f} ms, "
         f"elbo_bwd {times['bwd_graph_ms']:.6f} ms "
-        f"| bit-identical reruns | device ms from: "
-        + ", ".join(f"{k} {times[f'{k}_from']}" for k in calls)
+        f"| cold L2: elbo_fwd {times['fwd_cold_ms']} ms, elbo_bwd {times['bwd_cold_ms']} ms "
+        f"| launch floor (same launch, kernels that return at once): elbo_fwd {times['fwd_floor_ms']:.6f} ms eager, "
+        f"{times['fwd_floor_graph_ms']:.6f} ms in a graph; elbo_bwd {times['bwd_floor_ms']:.6f} ms eager, "
+        f"{times['bwd_floor_graph_ms']:.6f} ms in a graph "
+        f"| device kernels per call: elbo_fwd {times['fwd_kernels_per_call']} ({route}), "
+        f"elbo_bwd {times['bwd_kernels_per_call']} ({bwd_grid} CTAs of 256) "
+        f"| bit-identical reruns and 100 graph replays | device ms from: "
+        + ", ".join(f"{k} {times[f'{k}_from']}" for k in calls) + f" ({smi})"
     )
     return {
         **times,
@@ -276,7 +364,7 @@ def kernel_vs_plain(
     }
 
 
-def train_step_fused_vs_plain(group) -> None:
+def train_step_fused_vs_plain(group, smi: str) -> None:
     """Phase 4: one full-width step, fused kernels against the plain loss."""
     from multidisttorch_tpu_torch.data.datasets import synthetic_mnist
     from multidisttorch_tpu_torch.models.vae import VAE, init_vae_params
@@ -312,8 +400,109 @@ def train_step_fused_vs_plain(group) -> None:
         worst = max(worst, float(diff.max()))
     print(f"train step 784-400-20 batch 128: fused loss_sum {lf:.6f} plain {lp:.6f} "
           f"rel {rel:.3e}; params max |diff| {worst:.3e} (rtol 1e-4 / atol 1e-6)")
-    print(f"train step 784-400-20 batch 128 fused: {timing[True]}")
-    print(f"train step 784-400-20 batch 128 plain: {timing[False]}")
+    print(f"train step 784-400-20 batch 128 fused: {timing[True]} ({smi})")
+    print(f"train step 784-400-20 batch 128 plain: {timing[False]} ({smi})")
+
+
+GRAPH_CHUNKS = (10, 10, 8, 10, 8)  # K per chunk: replays at K 10 and K 8
+GRAPH_TIMING_CHUNKS = 20
+
+
+def graphed_vs_eager(E, group, smi: str) -> dict:
+    """Phase 5: ``make_multi_step`` as CUDA-graph replays against its eager
+    loop at full width (784-400-20, batch 128): the same initial weights,
+    batches and generator seed, chunks of K 10 and 8. The graphed run's
+    first chunk is its eager warm-up, its first K-10 and K-8 chunks are
+    captured, and the rest replay; losses and parameters must be equal to
+    the last bit, and each ELBO kernel must count one launch per step. Then
+    ms per step of both in turns, with the device's busy time per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multidisttorch_tpu_torch.data.datasets import synthetic_mnist
+    from multidisttorch_tpu_torch.models.vae import VAE, init_vae_params
+    from multidisttorch_tpu_torch.train.steps import EagerMultiStep, _build_body, create_train_state, make_multi_step
+
+    dev = group.device
+    images = torch.from_numpy(synthetic_mnist(128 * sum(GRAPH_CHUNKS), seed=7).images).to(dev)
+    chunks, i = [], 0
+    for k in GRAPH_CHUNKS:
+        chunks.append(images[128 * i : 128 * (i + k)].reshape(k, 128, *images.shape[1:]))
+        i += k
+    steps = sum(GRAPH_CHUNKS)
+    runs, multis = {}, {}
+    for mode in ("eager", "graph"):
+        state = create_train_state(group, init_vae_params(VAE(), seed=0), lr=1e-3)
+        # The eager loop is built from the step's body directly: the rule
+        # in make_multi_step graphs a one-rank group on a card.
+        multi = make_multi_step(group) if mode == "graph" else EagerMultiStep(_build_body(group, 1.0, True, 1))
+        check(multi.graphed == (mode == "graph"), f"make_multi_step {mode}: graphed is {multi.graphed}")
+        gen = torch.Generator(device=dev).manual_seed(1234)
+        for k in E.LAUNCHES:
+            E.LAUNCHES[k] = 0
+        losses = []
+        for c in chunks:
+            state, m = multi(state, c, generator=gen)
+            losses.append(m["loss_sum"])
+        torch.cuda.synchronize()
+        runs[mode] = (torch.cat(losses), {k: v.detach().clone() for k, v in state.params.items()},
+                      dict(E.LAUNCHES), multi.replays, state.step)
+        multis[mode] = (multi, state, gen)
+        check(state.step == steps, f"{mode}: state.step {state.step}, expected {steps}")
+        for k, n in E.LAUNCHES.items():
+            check(n == steps, f"{mode}: {k} counted {n} launches in {steps} steps")
+    (le, pe, _, _, _), (lg, pg, launches, replays, _) = runs["eager"], runs["graph"]
+    check(replays == len(GRAPH_CHUNKS) - 1, f"graph: {replays} replays, expected {len(GRAPH_CHUNKS) - 1}")
+    check(bool(torch.isfinite(lg).all()) and lg.shape == (steps,), f"graph: losses {lg}")
+    check(bool(torch.equal(le, lg)),
+          f"graph vs eager: losses differ (max rel {float(((le - lg).abs() / le.abs()).max()):.3e})")
+    for k in pe:
+        check(bool(torch.equal(pe[k], pg[k])),
+              f"graph vs eager: param {k} differs (max {float((pe[k] - pg[k]).abs().max()):.3e})")
+    print(f"graphed multi-step vs eager loop, 784-400-20 batch 128, chunks K {list(GRAPH_CHUNKS)}: "
+          f"{steps} losses and every parameter bit-identical; {replays} replays; launches {launches}")
+
+    # Time per step, K 10, in turns (eager, graph, graph, eager).
+    per = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        multi, state, gen = multis[mode]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_TIMING_CHUNKS):
+            state, _ = multi(state, chunks[0], generator=gen)
+        torch.cuda.synchronize()
+        per[mode].append((time.perf_counter() - t0) / (GRAPH_TIMING_CHUNKS * 10) * 1e3)
+    res = {}
+    for mode in ("eager", "graph"):
+        multi, state, gen = multis[mode]
+        # The profiler sometimes drops some of a replay's kernels: a trace
+        # counts only if it holds every step's elbo_fwd (one per step), in
+        # at most three tries.
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    state, _ = multi(state, chunks[0], generator=gen)
+                torch.cuda.synchronize()
+            seen = sum(e.count for e in prof.key_averages() if "elbo_fwd" in e.key and e.device_time_total > 0)
+            if seen == 50:
+                break
+        by_kernel = sorted(((e.device_time_total / 50 / 1e3, e.count / 50, e.key) for e in prof.key_averages()
+                            if e.device_time_total > 0), reverse=True)
+        busy = sum(k[0] for k in by_kernel) if seen == 50 else 0.0  # ms per step
+        ms = statistics.fmean(per[mode])
+        res[mode] = {"ms_per_step": ms, "rounds": per[mode], "busy_ms": busy or None,
+                     "idle": (1 - busy / ms) if busy else None}
+        busy_s = (f"device busy not measured, idle share not measured (the profiler saw {seen} of 50 "
+                  "elbo_fwd launches)" if not busy
+                  else f"device busy {busy * 1e3:.3f} us/step, idle share {1 - busy / ms:.3f}")
+        print(f"VAE train step ({mode}{', one CUDA graph per chunk of 10' if mode == 'graph' else ' loop'}): "
+              f"{ms:.6f} ms/step (rounds " + ", ".join(f"{v:.6f}" for v in per[mode]) + f"), {busy_s} ({smi})")
+        if mode == "graph":
+            print(f"VAE train step (graph): {sum(k[1] for k in by_kernel):.0f} device kernels per step; "
+                  "device us per step by kernel (launches per step), top 12: "
+                  + "; ".join(f"{t * 1e3:.3f} ({n:g}) {key[:60]}" for t, n, key in by_kernel[:12]))
+    print(f"VAE train step: graphed {res['eager']['ms_per_step'] / res['graph']['ms_per_step']:.2f}x "
+          f"the eager loop's steps per second ({smi})")
+    return res
 
 
 # Flash kernels against their plain versions: the JAX tests' own tolerances
@@ -769,10 +958,18 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     print("set: torch.backends.cuda.matmul.allow_tf32 = False, torch.backends.cudnn.allow_tf32 = False")
 
-    # Phase 2: build, one nvcc per source, all started together.
+    # Phase 2: build, one nvcc per source, all started together, with the
+    # ELBO kernels' launch-floor build (kernels that return at once).
+    from concurrent.futures import ThreadPoolExecutor
+
+    from multidisttorch_tpu_torch.ops import elbo_ablation
+
     t0 = time.time()
-    built = _build.build_all()
-    print(f"built {[p.name for p in built]} in {time.time() - t0:.1f} s")
+    with ThreadPoolExecutor(1) as pool:
+        floor_job = pool.submit(elbo_ablation.build_variants, ["empty"])
+        built = _build.build_all()
+        floor = floor_job.result()["empty"]
+    print(f"built {[p.name for p in built]} and the ELBO launch-floor build in {time.time() - t0:.1f} s")
     for name, log in _build.ptxas_reports.items():
         regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", log)})
         spills = sorted({int(s) for s in re.findall(r"(\d+) bytes spill stores", log)})
@@ -803,19 +1000,27 @@ def main() -> None:
         (128, 784, 20, torch.bfloat16),
         (8192, 784, 20, torch.float32),
     ):
-        r = kernel_vs_plain(E, F, b, d, lat, dt)
+        r = kernel_vs_plain(E, F, b, d, lat, dt, smi=smi, floor=floor)
         if main_shape is None:
             main_shape = r
     kernel_vs_plain(E, F, 127, 784, 20, torch.float32, timed=False)
     kernel_vs_plain(E, F, 33, 783, 5, torch.bfloat16, timed=False)
     kernel_vs_plain(E, F, 128, 784, 20, torch.float32, offset=1, timed=False)
     kernel_vs_plain(E, F, 127, 784, 20, torch.bfloat16, offset=3, timed=False)
+    check(main_shape["fwd_kernels_per_call"] == 1,
+          f"elbo_fwd at (128, 784, 20) f32: {main_shape['fwd_kernels_per_call']} device kernels per call, expected 1")
+    check(main_shape["bwd_kernels_per_call"] == 1,
+          f"elbo_bwd at (128, 784, 20) f32: {main_shape['bwd_kernels_per_call']} device kernels per call, expected 1")
 
     # Phase 4: one train step, fused against plain.
     group = setup_groups(1, device="cuda:0")[0]
-    train_step_fused_vs_plain(group)
+    train_step_fused_vs_plain(group, smi)
 
-    # Phase 5: the slice, through run_hpo. Counts reset just before.
+    # Phase 5: the multi-step as CUDA graphs against its eager loop.
+    graphed_vs_eager(E, group, smi)
+
+    # Phase 6: the slice, through run_hpo (graph replays). Counts reset
+    # just before.
     train = synthetic_mnist(60000, seed=0)
     test = synthetic_mnist(10000, seed=1)
     configs = [
@@ -851,16 +1056,21 @@ def main() -> None:
     check(len(per_trial) == 2, f"expected log lines of 2 trials, got {len(per_trial)}")
     for r, losses in zip(results, per_trial):
         check(r.status == "completed", f"trial {r.trial_id}: {r.status} {r.error}")
+        # Each trial's chunks: its first is the eager warm-up, every other
+        # one a replay (47 chunks per epoch: 46 of 10 steps and one of 8).
+        want = 47 * len(r.history) - 1
+        check(r.graph_replays == want, f"trial {r.trial_id}: {r.graph_replays} graph replays, expected {want}")
         check(all(math.isfinite(v) for v in losses), f"trial {r.trial_id}: non-finite logged loss")
         check(losses[-1] < losses[0], f"trial {r.trial_id}: loss did not fall ({losses[0]} -> {losses[-1]})")
         check(math.isfinite(r.final_test_loss), f"trial {r.trial_id}: non-finite test loss")
         print(
             f"trial {r.trial_id}: {r.steps} steps, {len(r.history)} epochs, loss {losses[0]:.4f} -> {losses[-1]:.4f}, test {r.final_test_loss:.4f}, "
-            f"wall {r.wall_s:.3f} s, samples/s {r.steps * 128 / r.wall_s:.1f} ({smi})"
+            f"{r.graph_replays} graph replays, wall {r.wall_s:.3f} s (eval and epoch ends included), "
+            f"samples/s {r.steps * 128 / r.wall_s:.1f} ({smi})"
         )
     print(f"slice: {steps} train steps in {sweep_s:.3f} s; launches {launches}")
 
-    # Phase 6: each flash kernel against its plain version. Timed at the
+    # Phase 7: each flash kernel against its plain version. Timed at the
     # LM's full width; the first is the training path's shape and dtype.
     flash_main = flash_vs_plain(A, F, 128, 512, 64, torch.bfloat16, True)
     flash_vs_plain(A, F, 128, 512, 64, torch.float32, True)
@@ -886,18 +1096,20 @@ def main() -> None:
     flash_padding_check(A)
     flash_padding_check(A, torch.bfloat16, 64)
 
-    # Phase 7: the LM slice; counts set to 0 inside, just before each part.
+    # Phase 8: the LM slice; counts set to 0 inside, just before each part.
     lm_launches, lm_variants = lm_slice(A, group, smi)
 
-    # Phase 8: the kernels line, then the result.
+    # Phase 9: the kernels line, then the result.
     # "ms", "plain_ms" and "library_ms" are device time per call at the
     # slice's shape (batch 128, f32); "*_call_ms" add the host's per-call
-    # cost. "launches" counts wrapper calls: elbo_fwd is one logical kernel
-    # of two grid launches (partials, then the fixed-order sum).
+    # cost; "graph_ms" is per call replayed from a CUDA graph, "cold_ms"
+    # with a cold L2, "floor_ms" / "floor_graph_ms" the same launch of
+    # kernels that return at once. "launches" counts the launches the slice's
+    # train steps ran (graph replays included), one per wrapper call.
     src = "multidisttorch_tpu_torch/ops/csrc/elbo.cu"
     m = main_shape
     kernels = []
-    for name, key, line, grids in (("elbo_fwd", "fwd", 134, 2), ("elbo_bwd", "bwd", 163, 1)):
+    for name, key, line in (("elbo_fwd", "fwd", 134), ("elbo_bwd", "bwd", 163)):
         lib = f"{key}_library"
         kernels.append({
             "name": name, "route": "cuda", "source": src,
@@ -911,7 +1123,10 @@ def main() -> None:
             "graph_ms": m[f"{key}_graph_ms"],
             "ms_from": m[f"{key}_from"], "plain_ms_from": m[f"{key}_plain_from"],
             "library_ms_from": m[f"{lib}_from"],
-            "grid_launches_per_call": grids,
+            "cold_ms": m[f"{key}_cold_ms"], "floor_ms": m[f"{key}_floor_ms"],
+            "floor_graph_ms": m[f"{key}_floor_graph_ms"],
+            "grid_launches_per_call": m[f"{key}_kernels_per_call"],
+            "launch": m["fwd_route"] if key == "fwd" else f"{m['bwd_grid']} CTAs of 256",
         })
     # Flash rows: device time per call at the LM training path's shape
     # ((128, 512, 64) causal bf16), whose variant "variant" names ("simt_ms":

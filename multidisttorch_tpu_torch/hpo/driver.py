@@ -103,6 +103,8 @@ class TrialResult:
     # Host-device round-trips paid for metric fetches: one per log line
     # plus two per epoch.
     host_syncs: int = 0
+    # Train chunks run as one CUDA-graph replay each (train/steps.py).
+    graph_replays: int = 0
     stacked: bool = False
     optimizer_state_bytes: int = 0
 
@@ -316,6 +318,7 @@ class _TrialRun:
         self.result.wall_s = time.time() - t0
         self.result.steps = self.state.step
         self.result.host_syncs = self._host_syncs
+        self.result.graph_replays = self.multi_step.replays
         if self._is_writer:
             os.makedirs(self.out_dir, exist_ok=True)
             with open(os.path.join(self.out_dir, "metrics.json"), "w") as f:

@@ -4,24 +4,35 @@
 //   elbo_fwd: _fwd_kernel, launched by _fwd (pallas_call at :134);
 //   elbo_bwd: _bwd_kernel, launched by _bwd (pallas_call at :163).
 //
-// What bounds them: bytes. At the flagship shape (batch 128, 784 pixels,
-// latent 20, f32) the forward reads 823,296 B, about 0.25 us at 3.35 TB/s,
-// and the backward reads the same and writes 421,888 B, about 0.37 us. A
-// kernel launch costs more than either, so at that shape both kernels are
-// launch-bound. The design therefore keeps each pass to one read of every
-// input and nothing more:
-//   - 16-byte vector loads and stores where the pointers are aligned, with a
-//     scalar tail for ragged lengths (and a scalar path for unaligned views);
+// What bounds them: the launch and the dependent chain, not bytes. At the
+// main path's shape (batch 128, 784 pixels, latent 20, f32) the forward
+// reads 823,296 B, about 0.25 us at 3.35 TB/s, and the backward reads the
+// same and writes 421,888 B, about 0.37 us; an empty launch alone takes
+// about 0.9 us on the device. So each call is one launch, with nothing that
+// a CUDA-graph replay would have to reset, and a short chain of dependent
+// steps inside it:
+//   - the work is one flat index space of 8-element vector steps: the wide
+//     (B*D) logits/x steps, then the narrow (B*L) mu/logvar steps. Thread t
+//     of S takes steps t, t+S, ... in rounds of kSteps, and issues every
+//     16-byte load of a round before any arithmetic or synchronisation;
+//     scalar tails cover ragged lengths, and a scalar path unaligned views;
 //   - f32 math whatever the storage type, accumulated in registers;
-//   - forward: a fixed grid of at most ~2 blocks per SM walks the flat wide
-//     (B*D) and narrow (B*L) arrays with a grid-stride loop, reduces with warp
-//     shuffles and shared memory, and writes one partial per block; a second
-//     one-block kernel sums the partials in a fixed order. No float atomics,
-//     so a rerun gives the same bits. (The TPU kernel carried its sum across
-//     a sequential grid in SMEM; Hopper's blocks run in no order.)
-//   - backward: one elementwise grid-stride kernel over the wide and narrow
-//     parts that reads the upstream cotangent g from device memory (no host
-//     sync) and folds it in before the single rounding to each primal's type.
+//   - forward: ONE grid launch, up to four CTAs of 128 threads per SM (one
+//     vector step per thread at the main path's shape). Each CTA reduces
+//     in-block with warp shuffles, writes its partial to a workspace, and
+//     takes a ticket on an integer counter there; the CTA that takes the
+//     last ticket sums the partials in index order and sets the counter
+//     back to 0. No float atomics, and the sum's order does not depend on
+//     which CTA is last, so a rerun and every replay give the same bits;
+//     the counter resets itself, so a replay needs no memset. (The TPU
+//     kernel carried its sum across a sequential grid in SMEM; Hopper's
+//     CTAs run in no order.) Two launches must never share a workspace at
+//     the same time: the wrapper gives each stream one, and each captured
+//     CUDA graph one of its own.
+//   - backward: one elementwise launch, sized for one vector step per
+//     thread at the main path's shape; it reads the upstream cotangent g
+//     from device memory (no host sync) after its other loads are issued,
+//     and folds it in before the single rounding to each primal's type.
 //
 // Plain C interface, loaded with ctypes (multidisttorch_tpu_torch/ops/_build.py).
 // Every entry takes the device index and a cudaStream_t, launches on that
@@ -35,9 +46,13 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+// Threads of a CTA: the forward's grid, the backward's.
+constexpr int kFwdThreads = 128;
+constexpr int kBwdThreads = 256;
 // Elements per vector step: one 16-byte load of bf16, two of f32.
 constexpr int kVec = 8;
+// Vector steps per thread whose loads are all issued before any arithmetic.
+constexpr int kSteps = 2;
 
 using f32 = float;
 using bf16 = __nv_bfloat16;
@@ -54,16 +69,32 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// Eight consecutive elements from a 16-byte aligned pointer, as f32.
-__device__ __forceinline__ void load8(const float* p, float (&v)[kVec]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+// One vector step of one operand in registers, as loaded: two 16-byte
+// loads of f32, one of bf16 (b unused). Wide and narrow steps share it.
+struct Raw {
+  uint4 a, b;
+};
+
+__device__ __forceinline__ void load_raw(const float* p, Raw& r) {
+  r.a = __ldg(reinterpret_cast<const uint4*>(p));
+  r.b = __ldg(reinterpret_cast<const uint4*>(p) + 1);
 }
-__device__ __forceinline__ void load8(const bf16* p, float (&v)[kVec]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+__device__ __forceinline__ void load_raw(const bf16* p, Raw& r) {
+  r.a = __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+template <typename T>
+__device__ __forceinline__ void unpack(const Raw& r, float (&v)[kVec]);
+template <>
+__device__ __forceinline__ void unpack<float>(const Raw& r, float (&v)[kVec]) {
+  v[0] = __uint_as_float(r.a.x); v[1] = __uint_as_float(r.a.y);
+  v[2] = __uint_as_float(r.a.z); v[3] = __uint_as_float(r.a.w);
+  v[4] = __uint_as_float(r.b.x); v[5] = __uint_as_float(r.b.y);
+  v[6] = __uint_as_float(r.b.z); v[7] = __uint_as_float(r.b.w);
+}
+template <>
+__device__ __forceinline__ void unpack<bf16>(const Raw& r, float (&v)[kVec]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r.a);
 #pragma unroll
   for (int i = 0; i < kVec / 2; ++i) {
     const float2 f = __bfloat1622float2(h[i]);
@@ -71,6 +102,7 @@ __device__ __forceinline__ void load8(const bf16* p, float (&v)[kVec]) {
     v[2 * i + 1] = f.y;
   }
 }
+
 __device__ __forceinline__ void store8(float* p, const float (&v)[kVec]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
@@ -84,95 +116,90 @@ __device__ __forceinline__ void store8(bf16* p, const float (&v)[kVec]) {
 }
 
 // Stable BCE from logits: max(l,0) - l*x + log1p(exp(-|l|)).
-struct BceTerm {
-  __device__ __forceinline__ float operator()(float l, float x) const {
-    return fmaxf(l, 0.f) - l * x + log1pf(expf(-fabsf(l)));
-  }
-};
+__device__ __forceinline__ float bce_term(float l, float x) {
+  return fmaxf(l, 0.f) - l * x + log1pf(expf(-fabsf(l)));
+}
 // The summand of the Gaussian KL: 1 + logvar - mu^2 - exp(logvar).
-struct KlTerm {
-  __device__ __forceinline__ float operator()(float m, float lv) const {
-    return 1.f + lv - m * m - expf(lv);
-  }
-};
-struct DLogits {
-  float g;
-  __device__ __forceinline__ float operator()(float l, float x) const {
-    return g * (1.f / (1.f + expf(-l)) - x);
-  }
-};
-struct DMu {
-  float gb;  // g * beta
-  __device__ __forceinline__ float operator()(float m) const { return gb * m; }
-};
-struct DLogvar {
-  float gb;  // g * beta
-  __device__ __forceinline__ float operator()(float lv) const {
-    return gb * 0.5f * (expf(lv) - 1.f);
-  }
-};
-
-// This thread's share of sum(op(a[i], b[i])) under a grid-stride loop.
-template <typename TA, typename TB, typename Op>
-__device__ __forceinline__ float pair_sum(const TA* a, const TB* b, int64_t n,
-                                          bool vec, Op op) {
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t n_vec = vec ? n / kVec : 0;
-  float acc = 0.f;
-  for (int64_t i = tid; i < n_vec; i += stride) {
-    float va[kVec], vb[kVec];
-    load8(a + i * kVec, va);
-    load8(b + i * kVec, vb);
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) acc += op(va[k], vb[k]);
-  }
-  for (int64_t j = n_vec * kVec + tid; j < n; j += stride)
-    acc += op(to_f32(a[j]), to_f32(b[j]));
-  return acc;
+__device__ __forceinline__ float kl_term(float m, float lv) {
+  return 1.f + lv - m * m - expf(lv);
 }
 
-// out[i] = op(a[i], b[i]) under a grid-stride loop.
-template <typename TA, typename TB, typename TO, typename Op>
-__device__ __forceinline__ void pair_map(const TA* a, const TB* b, TO* out,
-                                         int64_t n, bool vec, Op op) {
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t n_vec = vec ? n / kVec : 0;
-  for (int64_t i = tid; i < n_vec; i += stride) {
-    float va[kVec], vb[kVec], vo[kVec];
-    load8(a + i * kVec, va);
-    load8(b + i * kVec, vb);
+// The operands of one call, with the vector-step counts of the flat index
+// space: steps [0, n_vw) are wide, [n_vw, n_vw + n_vn) narrow.
+template <typename TL, typename TX, typename TM, typename TV>
+struct Operands {
+  const TL* logits;
+  const TX* x;
+  const TM* mu;
+  const TV* logvar;
+  int64_t n_wide, n_narrow;  // elements
+  int64_t n_vw, n_vn;        // vector steps (0 on the scalar path)
+};
+
+// The loads of one round: vector steps base, base+S, ..., (kSteps of them);
+// a wide step loads (logits, x), a narrow one (mu, logvar), one past the end
+// nothing.
+template <typename TL, typename TX, typename TM, typename TV>
+__device__ __forceinline__ void load_round(const Operands<TL, TX, TM, TV>& op, int64_t base,
+                                           int64_t S, Raw (&ra)[kSteps], Raw (&rb)[kSteps]) {
+  const int64_t n_steps = op.n_vw + op.n_vn;
 #pragma unroll
-    for (int k = 0; k < kVec; ++k) vo[k] = op(va[k], vb[k]);
-    store8(out + i * kVec, vo);
+  for (int s = 0; s < kSteps; ++s) {
+    const int64_t i = base + s * S;
+    if (i < op.n_vw) {
+      load_raw(op.logits + i * kVec, ra[s]);
+      load_raw(op.x + i * kVec, rb[s]);
+    } else if (i < n_steps) {
+      const int64_t j = i - op.n_vw;
+      load_raw(op.mu + j * kVec, ra[s]);
+      load_raw(op.logvar + j * kVec, rb[s]);
+    }
   }
-  for (int64_t j = n_vec * kVec + tid; j < n; j += stride)
-    out[j] = from_f32<TO>(op(to_f32(a[j]), to_f32(b[j])));
 }
 
-// out[i] = op(a[i]) under a grid-stride loop.
-template <typename TA, typename TO, typename Op>
-__device__ __forceinline__ void unary_map(const TA* a, TO* out, int64_t n,
-                                          bool vec, Op op) {
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t n_vec = vec ? n / kVec : 0;
-  for (int64_t i = tid; i < n_vec; i += stride) {
-    float va[kVec], vo[kVec];
-    load8(a + i * kVec, va);
+// Thread t of S's share of the forward: sum of the BCE terms and of the KL
+// summands over its vector steps t, t+S, ..., in that order, then over its
+// elements of the scalar tails; returns bce + beta * -0.5 * kl.
+template <typename TL, typename TX, typename TM, typename TV>
+__device__ __forceinline__ float fwd_thread_part(const Operands<TL, TX, TM, TV>& op,
+                                                 float beta, int64_t t, int64_t S) {
+  const int64_t n_steps = op.n_vw + op.n_vn;
+  float bce = 0.f, kl = 0.f;
+  for (int64_t base = t; base < n_steps; base += kSteps * S) {
+    // Every load of the round first: wide steps load (logits, x), narrow
+    // ones (mu, logvar), past the end nothing.
+    Raw ra[kSteps], rb[kSteps];
+    load_round(op, base, S, ra, rb);
 #pragma unroll
-    for (int k = 0; k < kVec; ++k) vo[k] = op(va[k]);
-    store8(out + i * kVec, vo);
+    for (int s = 0; s < kSteps; ++s) {
+      const int64_t i = base + s * S;
+      float a[kVec], b[kVec];
+      if (i < op.n_vw) {
+        unpack<TL>(ra[s], a);
+        unpack<TX>(rb[s], b);
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) bce += bce_term(a[k], b[k]);
+      } else if (i < n_steps) {
+        unpack<TM>(ra[s], a);
+        unpack<TV>(rb[s], b);
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) kl += kl_term(a[k], b[k]);
+      }
+    }
   }
-  for (int64_t j = n_vec * kVec + tid; j < n; j += stride)
-    out[j] = from_f32<TO>(op(to_f32(a[j])));
+  for (int64_t j = op.n_vw * kVec + t; j < op.n_wide; j += S)
+    bce += bce_term(to_f32(op.logits[j]), to_f32(op.x[j]));
+  for (int64_t j = op.n_vn * kVec + t; j < op.n_narrow; j += S)
+    kl += kl_term(to_f32(op.mu[j]), to_f32(op.logvar[j]));
+  return bce + beta * (-0.5f * kl);
 }
 
-// Sum of v over the block, in a fixed order; the result is valid in thread 0.
-// Called at most once per kernel (it owns one shared array).
-__device__ __forceinline__ float block_sum(float v) {
-  __shared__ float warp_sums[kThreads / 32];
+// Sum of v over a CTA of kBlock threads, in a fixed order (warp shuffles,
+// then warp 0 over the warps' sums in `warp_sums`, kBlock/32 floats of
+// shared memory); the result is valid in thread 0.
+template <int kBlock>
+__device__ __forceinline__ float block_sum(float v, float* warp_sums) {
+  static_assert(kBlock % 32 == 0 && kBlock <= 1024, "one warp sums the warps");
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   const int lane = threadIdx.x & 31;
@@ -180,119 +207,214 @@ __device__ __forceinline__ float block_sum(float v) {
   if (lane == 0) warp_sums[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    v = lane < kThreads / 32 ? warp_sums[lane] : 0.f;
+    v = lane < kBlock / 32 ? warp_sums[lane] : 0.f;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   }
   return v;
 }
 
+// The forward as one grid launch of kFwdThreads-thread CTAs. ws is the
+// stream's workspace: ws[0] the ticket counter (0 between launches), then
+// one float partial per CTA.
 template <typename TL, typename TX, typename TM, typename TV>
-__global__ void __launch_bounds__(kThreads)
-    elbo_fwd_partials(const TL* logits, const TX* x, int64_t n_wide, bool vec_wide,
-                      const TM* mu, const TV* logvar, int64_t n_narrow,
-                      bool vec_narrow, float beta, float* partials) {
-  const float bce = pair_sum(logits, x, n_wide, vec_wide, BceTerm{});
-  const float kl = pair_sum(mu, logvar, n_narrow, vec_narrow, KlTerm{});
-  const float part = block_sum(bce + beta * (-0.5f * kl));
-  if (threadIdx.x == 0) partials[blockIdx.x] = part;
-}
-
-__global__ void __launch_bounds__(kThreads)
-    elbo_fwd_finish(const float* partials, int n, float* out) {
+__global__ void __launch_bounds__(kFwdThreads)
+    elbo_fwd_kernel(Operands<TL, TX, TM, TV> op, float beta, unsigned* ws, float* out) {
+  __shared__ float warp_sums[kFwdThreads / 32];
+  __shared__ bool last;
+  const int64_t S = (int64_t)gridDim.x * kFwdThreads;
+  const int64_t t = (int64_t)blockIdx.x * kFwdThreads + threadIdx.x;
+  const float part = block_sum<kFwdThreads>(fwd_thread_part(op, beta, t, S), warp_sums);
+  float* partials = reinterpret_cast<float*>(ws + 1);
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = part;
+    __threadfence();  // the partial is visible before the ticket is
+    last = atomicAdd(ws, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // The last CTA: every other CTA's partial is visible from here. Sum them
+  // in index order (strided per thread, then the block's fixed tree).
+  __threadfence();
   float acc = 0.f;
-  for (int i = threadIdx.x; i < n; i += kThreads) acc += partials[i];
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) *out = acc;
+  for (unsigned i = threadIdx.x; i < gridDim.x; i += kFwdThreads) acc += __ldcg(partials + i);
+  __syncthreads();  // warp_sums is reused
+  acc = block_sum<kFwdThreads>(acc, warp_sums);
+  if (threadIdx.x == 0) {
+    *out = acc;
+    *ws = 0u;  // for the next launch on this workspace
+  }
 }
 
+template <typename TL, typename TM, typename TV>
+struct Cotangents {
+  TL* dlogits;
+  TM* dmu;
+  TV* dlogvar;
+};
+
+// The backward over the same flat index space; thread t of S takes vector
+// steps t, t+S, ... in rounds of kSteps: the round's loads, then g, then
+// arithmetic and stores.
 template <typename TL, typename TX, typename TM, typename TV>
-__global__ void __launch_bounds__(kThreads)
-    elbo_bwd_kernel(const TL* logits, const TX* x, TL* dlogits, int64_t n_wide,
-                    bool vec_wide, const TM* mu, TM* dmu, bool vec_mu,
-                    const TV* logvar, TV* dlogvar, bool vec_logvar,
-                    int64_t n_narrow, float beta, const float* g_ptr) {
-  const float g = *g_ptr;
-  pair_map(logits, x, dlogits, n_wide, vec_wide, DLogits{g});
-  unary_map(mu, dmu, n_narrow, vec_mu, DMu{g * beta});
-  unary_map(logvar, dlogvar, n_narrow, vec_logvar, DLogvar{g * beta});
+__global__ void __launch_bounds__(kBwdThreads)
+    elbo_bwd_kernel(Operands<TL, TX, TM, TV> op, Cotangents<TL, TM, TV> ct,
+                    float beta, const float* g_ptr) {
+  const int64_t S = (int64_t)gridDim.x * kBwdThreads;
+  const int64_t t = (int64_t)blockIdx.x * kBwdThreads + threadIdx.x;
+  const int64_t n_steps = op.n_vw + op.n_vn;
+  bool have_g = false;
+  float g = 0.f;
+  for (int64_t base = t; base < n_steps; base += kSteps * S) {
+    Raw ra[kSteps], rb[kSteps];
+    load_round(op, base, S, ra, rb);
+    if (!have_g) {
+      g = *g_ptr;
+      have_g = true;
+    }
+    const float gb = g * beta;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      const int64_t i = base + s * S;
+      float a[kVec], b[kVec], o[kVec];
+      if (i < op.n_vw) {
+        unpack<TL>(ra[s], a);
+        unpack<TX>(rb[s], b);
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) o[k] = g * (1.f / (1.f + expf(-a[k])) - b[k]);
+        store8(ct.dlogits + i * kVec, o);
+      } else if (i < n_steps) {
+        const int64_t j = i - op.n_vw;
+        unpack<TM>(ra[s], a);
+        unpack<TV>(rb[s], b);
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) o[k] = gb * a[k];
+        store8(ct.dmu + j * kVec, o);
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) o[k] = gb * 0.5f * (expf(b[k]) - 1.f);
+        store8(ct.dlogvar + j * kVec, o);
+      }
+    }
+  }
+  // Scalar tails (and the whole of an unaligned operand pair).
+  const int64_t w0 = op.n_vw * kVec + t, n0 = op.n_vn * kVec + t;
+  if (w0 >= op.n_wide && n0 >= op.n_narrow) return;
+  if (!have_g) g = *g_ptr;
+  const float gb = g * beta;
+  for (int64_t j = w0; j < op.n_wide; j += S) {
+    const float l = to_f32(op.logits[j]);
+    ct.dlogits[j] = from_f32<TL>(g * (1.f / (1.f + expf(-l)) - to_f32(op.x[j])));
+  }
+  for (int64_t j = n0; j < op.n_narrow; j += S) {
+    ct.dmu[j] = from_f32<TM>(gb * to_f32(op.mu[j]));
+    ct.dlogvar[j] = from_f32<TV>(gb * 0.5f * (expf(to_f32(op.logvar[j])) - 1.f));
+  }
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 template <typename TL, typename TX, typename TM, typename TV>
-void launch_fwd(const void* logits, const void* x, const void* mu,
-                const void* logvar, int64_t n_wide, int64_t n_narrow, float beta,
-                float* partials, int grid, float* out, cudaStream_t stream) {
-  elbo_fwd_partials<TL, TX, TM, TV><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TL*>(logits), static_cast<const TX*>(x), n_wide,
-      aligned16(logits) && aligned16(x), static_cast<const TM*>(mu),
-      static_cast<const TV*>(logvar), n_narrow, aligned16(mu) && aligned16(logvar),
-      beta, partials);
-  elbo_fwd_finish<<<1, kThreads, 0, stream>>>(partials, grid, out);
+Operands<TL, TX, TM, TV> operands(const void* logits, const void* x, const void* mu,
+                                  const void* logvar, int64_t n_wide, int64_t n_narrow,
+                                  bool vec_wide, bool vec_narrow) {
+  Operands<TL, TX, TM, TV> op;
+  op.logits = static_cast<const TL*>(logits);
+  op.x = static_cast<const TX*>(x);
+  op.mu = static_cast<const TM*>(mu);
+  op.logvar = static_cast<const TV*>(logvar);
+  op.n_wide = n_wide;
+  op.n_narrow = n_narrow;
+  op.n_vw = vec_wide ? n_wide / kVec : 0;
+  op.n_vn = vec_narrow ? n_narrow / kVec : 0;
+  return op;
 }
 
 template <typename TL, typename TX, typename TM, typename TV>
-void launch_bwd(const void* logits, const void* x, const void* mu,
-                const void* logvar, int64_t n_wide, int64_t n_narrow, float beta,
-                const float* g, void* dlogits, void* dmu, void* dlogvar, int grid,
+void launch_fwd(const void* logits, const void* x, const void* mu, const void* logvar,
+                int64_t n_wide, int64_t n_narrow, float beta, int grid, unsigned* ws, float* out,
                 cudaStream_t stream) {
-  elbo_bwd_kernel<TL, TX, TM, TV><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TL*>(logits), static_cast<const TX*>(x),
-      static_cast<TL*>(dlogits), n_wide,
-      aligned16(logits) && aligned16(x) && aligned16(dlogits),
-      static_cast<const TM*>(mu), static_cast<TM*>(dmu),
-      aligned16(mu) && aligned16(dmu), static_cast<const TV*>(logvar),
-      static_cast<TV*>(dlogvar), aligned16(logvar) && aligned16(dlogvar),
-      n_narrow, beta, g);
+  const auto op = operands<TL, TX, TM, TV>(logits, x, mu, logvar, n_wide, n_narrow,
+                                           aligned16(logits) && aligned16(x),
+                                           aligned16(mu) && aligned16(logvar));
+  elbo_fwd_kernel<TL, TX, TM, TV><<<grid, kFwdThreads, 0, stream>>>(op, beta, ws, out);
 }
+
+template <typename TL, typename TX, typename TM, typename TV>
+void launch_bwd(const void* logits, const void* x, const void* mu, const void* logvar,
+                int64_t n_wide, int64_t n_narrow, float beta, const float* g, void* dlogits,
+                void* dmu, void* dlogvar, int grid, cudaStream_t stream) {
+  const auto op = operands<TL, TX, TM, TV>(
+      logits, x, mu, logvar, n_wide, n_narrow,
+      aligned16(logits) && aligned16(x) && aligned16(dlogits),
+      aligned16(mu) && aligned16(logvar) && aligned16(dmu) && aligned16(dlogvar));
+  Cotangents<TL, TM, TV> ct{static_cast<TL*>(dlogits), static_cast<TM*>(dmu),
+                            static_cast<TV*>(dlogvar)};
+  elbo_bwd_kernel<TL, TX, TM, TV><<<grid, kBwdThreads, 0, stream>>>(op, ct, beta, g);
+}
+
+// Selects `device` for the launch if it is not current, and puts the
+// caller's device back when it goes out of scope.
+struct DeviceGuard {
+  int prev = -1;
+  cudaError_t err = cudaSuccess;
+  explicit DeviceGuard(int device) {
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+    else prev = -1;
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
 
 }  // namespace
 
 // One case per dtype code (bit 0 logits, bit 1 x, bit 2 mu, bit 3 logvar).
-#define MDT_ELBO_DISPATCH(FN, ...)                              \
-  switch (dtypes) {                                             \
-    case 0: FN<f32, f32, f32, f32>(__VA_ARGS__); break;         \
-    case 1: FN<bf16, f32, f32, f32>(__VA_ARGS__); break;        \
-    case 2: FN<f32, bf16, f32, f32>(__VA_ARGS__); break;        \
-    case 3: FN<bf16, bf16, f32, f32>(__VA_ARGS__); break;       \
-    case 4: FN<f32, f32, bf16, f32>(__VA_ARGS__); break;        \
-    case 5: FN<bf16, f32, bf16, f32>(__VA_ARGS__); break;       \
-    case 6: FN<f32, bf16, bf16, f32>(__VA_ARGS__); break;       \
-    case 7: FN<bf16, bf16, bf16, f32>(__VA_ARGS__); break;      \
-    case 8: FN<f32, f32, f32, bf16>(__VA_ARGS__); break;        \
-    case 9: FN<bf16, f32, f32, bf16>(__VA_ARGS__); break;       \
-    case 10: FN<f32, bf16, f32, bf16>(__VA_ARGS__); break;      \
-    case 11: FN<bf16, bf16, f32, bf16>(__VA_ARGS__); break;     \
-    case 12: FN<f32, f32, bf16, bf16>(__VA_ARGS__); break;      \
-    case 13: FN<bf16, f32, bf16, bf16>(__VA_ARGS__); break;     \
-    case 14: FN<f32, bf16, bf16, bf16>(__VA_ARGS__); break;     \
-    case 15: FN<bf16, bf16, bf16, bf16>(__VA_ARGS__); break;    \
-    default: return (int)cudaErrorInvalidValue;                 \
+#define MDT_ELBO_DISPATCH(FN, ...)                            \
+  switch (dtypes) {                                           \
+    case 0: FN<f32, f32, f32, f32>(__VA_ARGS__); break;       \
+    case 1: FN<bf16, f32, f32, f32>(__VA_ARGS__); break;      \
+    case 2: FN<f32, bf16, f32, f32>(__VA_ARGS__); break;      \
+    case 3: FN<bf16, bf16, f32, f32>(__VA_ARGS__); break;     \
+    case 4: FN<f32, f32, bf16, f32>(__VA_ARGS__); break;      \
+    case 5: FN<bf16, f32, bf16, f32>(__VA_ARGS__); break;     \
+    case 6: FN<f32, bf16, bf16, f32>(__VA_ARGS__); break;     \
+    case 7: FN<bf16, bf16, bf16, f32>(__VA_ARGS__); break;    \
+    case 8: FN<f32, f32, f32, bf16>(__VA_ARGS__); break;      \
+    case 9: FN<bf16, f32, f32, bf16>(__VA_ARGS__); break;     \
+    case 10: FN<f32, bf16, f32, bf16>(__VA_ARGS__); break;    \
+    case 11: FN<bf16, bf16, f32, bf16>(__VA_ARGS__); break;   \
+    case 12: FN<f32, f32, bf16, bf16>(__VA_ARGS__); break;    \
+    case 13: FN<bf16, f32, bf16, bf16>(__VA_ARGS__); break;   \
+    case 14: FN<f32, bf16, bf16, bf16>(__VA_ARGS__); break;   \
+    case 15: FN<bf16, bf16, bf16, bf16>(__VA_ARGS__); break;  \
+    default: return (int)cudaErrorInvalidValue;               \
   }
 
-// Summed negative ELBO into out (one f32). partials holds `grid` floats.
+// Summed negative ELBO into out (one f32): `grid` CTAs of 128 threads with
+// the workspace `ws` (a zero counter, then `grid` floats), which no other
+// launch uses until this one has finished.
 extern "C" int mdt_elbo_fwd(int device, const void* logits, const void* x,
                             const void* mu, const void* logvar, int64_t n_wide,
-                            int64_t n_narrow, int dtypes, float beta,
-                            void* partials, int grid, void* out, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  MDT_ELBO_DISPATCH(launch_fwd, logits, x, mu, logvar, n_wide, n_narrow, beta,
-                    static_cast<float*>(partials), grid, static_cast<float*>(out),
+                            int64_t n_narrow, int dtypes, float beta, int grid, void* ws,
+                            void* out, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  MDT_ELBO_DISPATCH(launch_fwd, logits, x, mu, logvar, n_wide, n_narrow, beta, grid,
+                    static_cast<unsigned*>(ws), static_cast<float*>(out),
                     static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 
 // Cotangents of the summed negative ELBO, scaled by the f32 cotangent at g,
-// each written in its primal's dtype.
+// each written in its primal's dtype; `grid` CTAs of 256 threads.
 extern "C" int mdt_elbo_bwd(int device, const void* logits, const void* x,
                             const void* mu, const void* logvar, int64_t n_wide,
-                            int64_t n_narrow, int dtypes, float beta,
-                            const void* g, void* dlogits, void* dmu,
-                            void* dlogvar, int grid, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+                            int64_t n_narrow, int dtypes, float beta, const void* g,
+                            void* dlogits, void* dmu, void* dlogvar, int grid,
+                            void* stream) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   MDT_ELBO_DISPATCH(launch_bwd, logits, x, mu, logvar, n_wide, n_narrow, beta,
                     static_cast<const float*>(g), dlogits, dmu, dlogvar, grid,
                     static_cast<cudaStream_t>(stream));

@@ -12,45 +12,82 @@ in ``ops/csrc/elbo.cu`` replace its Pallas TPU kernels:
   ``g*beta*mu`` and ``g*beta*0.5*(exp(lv) - 1)``, each in its primal's
   dtype.
 
-What bounds them on an H100 is bytes. At the flagship shape (batch 128,
-784 pixels, latent 20, f32) the forward reads 823,296 B, about 0.25 us at
-3.35 TB/s, and the backward reads as much and writes 421,888 B, about
-0.37 us; one launch costs more than either, so at that shape both are
-launch-bound. The design keeps each pass to one read of each input and one
-write of each output: 16-byte vector loads, f32 math in registers, a
-fixed grid of at most two blocks per SM. The forward's blocks each write
-one partial sum and a second one-block kernel adds the partials in a fixed
-order, so there are no float atomics and a rerun gives the same bits (the
-TPU kernel carried its sum across a sequential grid; Hopper's blocks run in
-no order). The backward reads the upstream cotangent from device memory,
-so there is no host sync.
+What bounds them on an H100 is the launch and the dependent chain inside
+it, not bytes. At the main path's shape (batch 128, 784 pixels, latent
+20, f32) the forward reads 823,296 B, about 0.25 us at 3.35 TB/s, and the
+backward reads as much and writes 421,888 B, about 0.37 us; an empty
+launch alone takes about 0.9 us on the device. So each call is one launch
+that a CUDA graph can replay as it is. The forward is one grid of
+128-thread CTAs (one vector step per thread at the main shape, at most
+four CTAs per SM): each CTA sums in-block, writes its partial to a
+workspace and takes a ticket on an integer counter there; the CTA with the
+last ticket adds the partials in index order and sets the counter back to
+0. No float atomics, and the order of the sum does not depend on which CTA
+finishes last, so a rerun and every replay give the same bits (the TPU
+kernel carried its sum across a sequential grid). The backward is one
+elementwise launch that reads the upstream cotangent from device memory
+after its other loads are issued, so there is no host sync. Both issue
+every 16-byte load of a round before any arithmetic. The launch plan
+(dtype code and grids) is cached per (device, shapes, dtypes).
+
+**No two launches share a workspace at the same time.** An eager call
+uses the workspace of its (device, stream): calls on one stream are
+ordered, and calls on two streams (two trials) use two. A CUDA graph gets
+workspaces of its own: the kernels are captured only inside
+:func:`capture_scope`, which gives the graph one workspace per capture
+stream, zeroed by a fill that the graph replays before its first forward.
+So a graph and eager calls never share a ticket counter, whatever streams
+they run on. Only two replays of one graph at the same time would, as they
+would share every other buffer of the graph. Capturing the kernels outside
+a scope raises.
 
 On CUDA tensors :func:`fused_elbo_loss_sum` launches the kernels, or
 raises. On CPU tensors, and only there, it runs the plain versions below
 (:func:`elbo_fwd_plain`, :func:`elbo_bwd_plain`), which compute the same
 function in plain PyTorch: f32 math whatever the input dtype, cotangents in
-each primal's dtype. ``LAUNCHES`` counts each kernel's launches, one per
-wrapper call that launched it; ``elbo_fwd`` is one logical kernel of two
-grid launches (the partials, then their fixed-order sum).
+each primal's dtype.
+
+``LAUNCHES`` counts the launches the card ran, one per wrapper call. An
+eager call counts at once. A call recorded into a CUDA graph counts
+nothing while it is captured: its :func:`capture_scope` tallies it, and
+whoever replays the graph adds the tally with :func:`count_replay` after
+each replay (``train/steps.py::make_multi_step`` does).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
 
-# Kernel launches since the last reset, one per wrapper call that launched
-# (elbo_fwd's call is two grid launches, counted as one).
+# Launches the card ran since the last reset, one per wrapper call.
 LAUNCHES = {"elbo_fwd": 0, "elbo_bwd": 0}
 
-_THREADS = 256  # kThreads in elbo.cu
+_FWD_THREADS = 128  # kFwdThreads in elbo.cu
+_BWD_THREADS = 256  # kBwdThreads
 _VEC = 8  # kVec in elbo.cu
 # Bit per operand in the kernels' dtype code: set = bfloat16, clear = float32.
 _DTYPE_BIT = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
 _sm_count: dict[int, int] = {}
+# (device index, logits shape, mu shape, dtypes) -> (code, forward grid, backward grid)
+_plans: dict[tuple, tuple[int, int, int]] = {}
+# (device index, stream) -> the forward's workspace for eager calls: a
+# zero int32 counter, then one f32 partial per CTA of the largest grid.
+_workspaces: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Give ``lib``'s C entries (``elbo.cu`` or a variant of it) their
+    ``ctypes`` signatures."""
+    p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    lib.mdt_elbo_fwd.argtypes = [i, p, p, p, p, i64, i64, i, f, i, p, p, p]
+    lib.mdt_elbo_fwd.restype = i
+    lib.mdt_elbo_bwd.argtypes = [i, p, p, p, p, i64, i64, i, f, p, p, p, p, i, p]
+    lib.mdt_elbo_bwd.restype = i
+    return lib
 
 
 def _kernels() -> ctypes.CDLL:
@@ -58,14 +95,64 @@ def _kernels() -> ctypes.CDLL:
     if _lib is None:
         from multidisttorch_tpu_torch.ops import _build
 
-        lib = _build.load("elbo")
-        p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-        lib.mdt_elbo_fwd.argtypes = [i, p, p, p, p, i64, i64, i, f, p, i, p, p]
-        lib.mdt_elbo_fwd.restype = i
-        lib.mdt_elbo_bwd.argtypes = [i, p, p, p, p, i64, i64, i, f, p, p, p, p, i, p]
-        lib.mdt_elbo_bwd.restype = i
-        _lib = lib
+        _lib = bind(_build.load("elbo"))
     return _lib
+
+
+class CaptureScope:
+    """What the ELBO kernels captured into one CUDA graph need: the
+    launches the graph holds, by kernel, and the forward's workspaces of
+    its own, by (device, capture stream)."""
+
+    def __init__(self):
+        self.launches = {name: 0 for name in LAUNCHES}
+        self.workspaces: dict[tuple[int, int], torch.Tensor] = {}
+
+
+# Open capture scopes, innermost last.
+_scopes: list[CaptureScope] = []
+
+
+@contextlib.contextmanager
+def capture_scope():
+    """Open around the capture of a CUDA graph that holds the ELBO kernels;
+    yields the graph's :class:`CaptureScope`, which its owner keeps as long
+    as the graph and passes to :func:`count_replay` after each replay."""
+    scope = CaptureScope()
+    _scopes.append(scope)
+    try:
+        yield scope
+    finally:
+        _scopes.pop()  # blocks nest, so this one is innermost
+
+
+def count_replay(scope: CaptureScope) -> None:
+    """Add one replay's launches, those of a :func:`capture_scope`, to
+    ``LAUNCHES``."""
+    for name, n in scope.launches.items():
+        LAUNCHES[name] += n
+
+
+def _capture() -> CaptureScope | None:
+    """None for an eager call; in a CUDA-graph capture, the innermost
+    :func:`capture_scope`, and without one an error, before anything is
+    launched."""
+    if not torch.cuda.is_current_stream_capturing():
+        return None
+    if not _scopes:
+        raise RuntimeError(
+            "the ELBO kernels are being captured into a CUDA graph outside "
+            "elbo.capture_scope(): open one around the capture, keep it with the graph, "
+            "and pass it to elbo.count_replay() after each replay"
+        )
+    return _scopes[-1]
+
+
+def _count(name: str, scope: CaptureScope | None) -> None:
+    if scope is None:
+        LAUNCHES[name] += 1
+    else:
+        scope.launches[name] += 1
 
 
 def _check(logits, x, mu, logvar) -> None:
@@ -105,13 +192,60 @@ def _dtype_code(logits, x, mu, logvar) -> int:
     )
 
 
-def _grid(n: int, device: torch.device) -> int:
-    """Blocks for a grid-stride pass over ``n`` elements: enough for one
-    vector step per thread, at most two blocks per SM."""
-    idx = device.index
+def _vector_steps(n_wide: int, n_narrow: int) -> int:
+    return -(-n_wide // _VEC) + -(-n_narrow // _VEC)
+
+
+def fwd_grid(n_wide: int, n_narrow: int, sm_count: int) -> int:
+    """CTAs of the forward: one vector step per thread, at most four CTAs
+    per SM (beyond that each thread loops)."""
+    return max(1, min(4 * sm_count, -(-_vector_steps(n_wide, n_narrow) // _FWD_THREADS)))
+
+
+def bwd_grid(n_wide: int, n_narrow: int, sm_count: int) -> int:
+    """CTAs of the backward: one vector step per thread, at most 16 CTAs
+    per SM (beyond that each thread loops)."""
+    return max(1, min(16 * sm_count, -(-_vector_steps(n_wide, n_narrow) // _BWD_THREADS)))
+
+
+def _sms(idx: int) -> int:
     if idx not in _sm_count:
         _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return max(1, min(2 * _sm_count[idx], -(-n // (_THREADS * _VEC))))
+    return _sm_count[idx]
+
+
+def _plan(logits, x, mu, logvar) -> tuple[int, int, int]:
+    """(dtype code, forward grid, backward grid) for these operands, cached
+    per (device, shapes, dtypes)."""
+    idx = logits.device.index
+    key = (idx, logits.shape, mu.shape, logits.dtype, x.dtype, mu.dtype, logvar.dtype)
+    plan = _plans.get(key)
+    if plan is None:
+        n_wide, n_narrow, sms = logits.numel(), mu.numel(), _sms(idx)
+        plan = _plans[key] = (
+            _dtype_code(logits, x, mu, logvar),
+            fwd_grid(n_wide, n_narrow, sms),
+            bwd_grid(n_wide, n_narrow, sms),
+        )
+    return plan
+
+
+def _stream(dev: torch.device) -> int:
+    """The current CUDA stream of ``dev``, as the C entries take it."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def _workspace(dev: torch.device, stream: int, scope: CaptureScope | None) -> torch.Tensor:
+    """The forward's workspace for a call on ``stream``: the stream's own
+    for an eager call, else the capture scope's for that stream. It is made
+    at first use by a zero fill on the stream: run at once, or, in a
+    capture, replayed by the graph before its first forward."""
+    key = (dev.index, stream)
+    table = _workspaces if scope is None else scope.workspaces
+    ws = table.get(key)
+    if ws is None:
+        ws = table[key] = torch.zeros(1 + 4 * _sms(dev.index), dtype=torch.int32, device=dev)
+    return ws
 
 
 def elbo_fwd_plain(logits, x, mu, logvar, beta: float) -> torch.Tensor:
@@ -139,22 +273,19 @@ def elbo_fwd_cuda(logits, x, mu, logvar, beta: float) -> torch.Tensor:
     """Launch ``elbo_fwd`` on the current stream; returns a 0-d f32 tensor."""
     _check(logits, x, mu, logvar)
     _check_kernel_operands(logits, x, mu, logvar)
+    scope = _capture()
+    code, grid, _ = _plan(logits, x, mu, logvar)
     dev = logits.device
-    lib = _kernels()
-    n_wide, n_narrow = logits.numel(), mu.numel()
-    grid = _grid(max(n_wide, n_narrow), dev)
-    partials = torch.empty(grid, dtype=torch.float32, device=dev)
+    stream = _stream(dev)
+    ws = _workspace(dev, stream, scope)
     out = torch.empty((), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.mdt_elbo_fwd(
-            dev.index, logits.data_ptr(), x.data_ptr(), mu.data_ptr(), logvar.data_ptr(),
-            n_wide, n_narrow, _dtype_code(logits, x, mu, logvar), float(beta),
-            partials.data_ptr(), grid, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    err = _kernels().mdt_elbo_fwd(
+        dev.index, logits.data_ptr(), x.data_ptr(), mu.data_ptr(), logvar.data_ptr(),
+        logits.numel(), mu.numel(), code, float(beta), grid, ws.data_ptr(), out.data_ptr(), stream,
+    )
     if err != 0:
         raise RuntimeError(f"elbo_fwd launch failed with CUDA error {err}")
-    LAUNCHES["elbo_fwd"] += 1
+    _count("elbo_fwd", scope)
     return out
 
 
@@ -163,24 +294,21 @@ def elbo_bwd_cuda(logits, x, mu, logvar, beta: float, g: torch.Tensor):
     cotangent, read on the device. Returns ``(dlogits, dmu, dlogvar)``."""
     _check(logits, x, mu, logvar)
     _check_kernel_operands(logits, x, mu, logvar)
+    scope = _capture()
+    code, _, grid = _plan(logits, x, mu, logvar)
     dev = logits.device
     g = g.detach().to(device=dev, dtype=torch.float32).reshape(()).contiguous()
-    lib = _kernels()
     dlogits = torch.empty_like(logits, memory_format=torch.contiguous_format)
     dmu = torch.empty_like(mu, memory_format=torch.contiguous_format)
     dlogvar = torch.empty_like(logvar, memory_format=torch.contiguous_format)
-    n_wide, n_narrow = logits.numel(), mu.numel()
-    grid = _grid(max(n_wide, n_narrow), dev)
-    with torch.cuda.device(dev):
-        err = lib.mdt_elbo_bwd(
-            dev.index, logits.data_ptr(), x.data_ptr(), mu.data_ptr(), logvar.data_ptr(),
-            n_wide, n_narrow, _dtype_code(logits, x, mu, logvar), float(beta),
-            g.data_ptr(), dlogits.data_ptr(), dmu.data_ptr(), dlogvar.data_ptr(), grid,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    err = _kernels().mdt_elbo_bwd(
+        dev.index, logits.data_ptr(), x.data_ptr(), mu.data_ptr(), logvar.data_ptr(),
+        logits.numel(), mu.numel(), code, float(beta), g.data_ptr(), dlogits.data_ptr(),
+        dmu.data_ptr(), dlogvar.data_ptr(), grid, _stream(dev),
+    )
     if err != 0:
         raise RuntimeError(f"elbo_bwd launch failed with CUDA error {err}")
-    LAUNCHES["elbo_bwd"] += 1
+    _count("elbo_bwd", scope)
     return dlogits, dmu, dlogvar
 
 

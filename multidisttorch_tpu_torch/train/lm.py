@@ -109,8 +109,10 @@ def _group_mean(group: TrialGroup, value: torch.Tensor) -> torch.Tensor:
 def create_lm_state(group: TrialGroup, model: torch.nn.Module, lr: float) -> TrainState:
     """Place ``model`` (already initialised, e.g. by
     :func:`models.transformer.init_lm_params`) on the group's device with
-    an Adam optimizer; on a multi-rank group, wrap it in DDP."""
-    return create_train_state(group, model, lr)
+    an Adam optimizer; on a multi-rank group, wrap it in DDP. The LM's
+    steps stay eager, so its optimizer is torch's default (not capturable)
+    on every device."""
+    return create_train_state(group, model, lr, capturable=False)
 
 
 def _build_lm_step_fn(group: TrialGroup, sequence_parallel: bool) -> Callable:

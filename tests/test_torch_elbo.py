@@ -11,7 +11,22 @@ gradients, the JAX package's own for its kernel against its plain loss
 (f32 sums taken in another order). bf16 gradients within one bf16 ulp: the
 JAX backward rounds ``sigmoid(l) - x`` to bf16 before scaling by the
 cotangent and rounds again, the port scales first and rounds once.
+
+The forward kernel's partition of the work and its fixed-order combine
+(each thread's vector steps, warp shuffles, CTA sums, then the last CTA's
+order over the partials) are emulated in numpy f32 and held to the plain
+version at rel 1e-6, with the same bits on a second run. So is its
+cross-CTA ticket, under launches one after the other and interleaved:
+two launches at a time on one workspace corrupt it, which is why the
+wrapper never lets them share one. The launch counter's contract (eager
+launches count at once, captured ones per replay) and the workspaces (one
+per stream, and each captured graph its own) are checked against a
+stand-in for the kernel library.
 """
+
+import contextlib
+import itertools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -141,7 +156,42 @@ def test_x_gradient_only_when_asked():
     assert tx.grad is None and tl.grad is not None
 
 
-def test_non_cpu_tensors_launch_the_kernel_or_raise():
+class _FakeKernels:
+    """Stands in for the kernel library: records the C entry each launch
+    reaches, with its arguments, and returns ``err`` from it."""
+
+    def __init__(self):
+        self.calls, self.args, self.err = [], [], 0
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append(name)
+            self.args.append(args)
+            return self.err
+
+        return entry
+
+
+@contextlib.contextmanager
+def _stand_in_kernels(monkeypatch):
+    """The wrappers against a stand-in library on an H100-like card (132
+    SMs), CPU tensors let through to the launch; yields the library and
+    switches: ``capturing`` (whether a CUDA-graph capture is under way) and
+    ``stream`` (the current stream's handle)."""
+    lib, now = _FakeKernels(), types.SimpleNamespace(capturing=False, stream=0)
+    with monkeypatch.context() as mp:
+        mp.setattr(port_elbo, "_kernels", lambda: lib)
+        mp.setattr(port_elbo, "_check_kernel_operands", lambda *tensors: None)
+        mp.setattr(port_elbo, "_sms", lambda idx: 132)
+        mp.setattr(port_elbo, "_stream", lambda dev: now.stream)
+        mp.setattr(port_elbo, "_plans", {})
+        mp.setattr(port_elbo, "_workspaces", {})
+        mp.setattr(port_elbo, "LAUNCHES", {"elbo_fwd": 0, "elbo_bwd": 0})
+        mp.setattr(torch.cuda, "is_current_stream_capturing", lambda: now.capturing)
+        yield lib, now
+
+
+def test_non_cpu_tensors_launch_the_kernel_or_raise(monkeypatch):
     # A tensor that is not on the CPU never takes the plain version: on this
     # machine (no CUDA) the kernel path raises instead of falling back.
     before = dict(port_elbo.LAUNCHES)
@@ -156,6 +206,244 @@ def test_non_cpu_tensors_launch_the_kernel_or_raise():
         port_elbo.elbo_bwd_cuda(*cpu, 1.0, torch.tensor(1.0))
     assert port_elbo.LAUNCHES == before
 
+    # The counter's contract: LAUNCHES counts the launches the card ran.
+    ops = [torch.zeros(128, 784), torch.zeros(128, 784), torch.zeros(128, 20), torch.zeros(128, 20)]
+    g = torch.tensor(1.0)
+    with _stand_in_kernels(monkeypatch) as (lib, now):
+        # An eager call counts at once, one per wrapper call.
+        port_elbo.elbo_fwd_cuda(*ops, 1.0)
+        port_elbo.elbo_bwd_cuda(*ops, 1.0, g)
+        assert lib.calls == ["mdt_elbo_fwd", "mdt_elbo_bwd"]
+        assert port_elbo.LAUNCHES == {"elbo_fwd": 1, "elbo_bwd": 1}
+        # A call recorded into a CUDA graph counts nothing at capture; its
+        # capture scope tallies it, and each replay adds the tally.
+        now.capturing = True
+        with port_elbo.capture_scope() as scope:
+            port_elbo.elbo_fwd_cuda(*ops, 1.0)
+            port_elbo.elbo_bwd_cuda(*ops, 1.0, g)
+            port_elbo.elbo_bwd_cuda(*ops, 1.0, g)
+        assert scope.launches == {"elbo_fwd": 1, "elbo_bwd": 2}
+        assert port_elbo.LAUNCHES == {"elbo_fwd": 1, "elbo_bwd": 1}
+        for _ in range(3):
+            port_elbo.count_replay(scope)
+        assert port_elbo.LAUNCHES == {"elbo_fwd": 4, "elbo_bwd": 7}
+        # A capture outside any scope would be counted by no one and share
+        # the stream's workspace: it raises, and launches nothing.
+        for call in (lambda: port_elbo.elbo_fwd_cuda(*ops, 1.0),
+                     lambda: port_elbo.elbo_bwd_cuda(*ops, 1.0, g)):
+            with pytest.raises(RuntimeError, match="outside elbo.capture_scope"):
+                call()
+        assert lib.calls.count("mdt_elbo_fwd") == 2 and lib.calls.count("mdt_elbo_bwd") == 3
+        assert port_elbo.LAUNCHES == {"elbo_fwd": 4, "elbo_bwd": 7}
+        # A launch that fails raises and counts nothing.
+        now.capturing = False
+        lib.err = 700
+        with pytest.raises(RuntimeError, match="elbo_fwd launch failed with CUDA error 700"):
+            port_elbo.elbo_fwd_cuda(*ops, 1.0)
+        with pytest.raises(RuntimeError, match="elbo_bwd launch failed with CUDA error 700"):
+            port_elbo.elbo_bwd_cuda(*ops, 1.0, g)
+        assert port_elbo.LAUNCHES == {"elbo_fwd": 4, "elbo_bwd": 7}
+
+
+@pytest.mark.parametrize(
+    "shape, fwd, bwd",
+    [
+        # The main path: 12,544 wide + 320 narrow vector steps.
+        ((128, 784, 20), 101, 51),
+        ((33, 783, 5), 26, 13),
+        ((1000, 784, 20), 528, 393),
+        ((8192, 784, 20), 528, 2112),
+    ],
+)
+def test_launch_plan(shape, fwd, bwd):
+    # On 132 SMs: one vector step per thread, the forward capped at four
+    # CTAs per SM, the backward at 16.
+    b, d, lat = shape
+    assert port_elbo.fwd_grid(b * d, b * lat, 132) == fwd
+    assert port_elbo.bwd_grid(b * d, b * lat, 132) == bwd
+
+
+def test_the_launch_plan_reaches_the_c_entries(monkeypatch):
+    ops = [torch.zeros(128, 784), torch.zeros(128, 784), torch.zeros(128, 20), torch.zeros(128, 20)]
+    with _stand_in_kernels(monkeypatch) as (lib, _):
+        port_elbo.elbo_fwd_cuda(*ops, 1.0)
+        port_elbo.elbo_bwd_cuda(*ops, 1.0, torch.tensor(1.0))
+        (ws,) = port_elbo._workspaces.values()
+    fwd, bwd = lib.args
+    # mdt_elbo_fwd(..., dtypes, beta, grid, ws, out, stream)
+    assert fwd[7:10] == (0, 1.0, 101) and fwd[10] == ws.data_ptr() and fwd[12] == 0
+    # One zero counter, then a partial per CTA of the largest grid.
+    assert ws.dtype == torch.int32 and ws.numel() == 1 + 4 * 132 and not ws.any()
+    # mdt_elbo_bwd(..., dlogvar, grid, stream)
+    assert bwd[13:15] == (51, 0)
+
+
+def test_each_captured_graph_gets_a_workspace_of_its_own(monkeypatch):
+    # The forward's ticket counter is shared by every launch on a
+    # workspace, so a graph never uses a stream's: each capture scope
+    # makes its own, one per capture stream, zeroed when it is made (in a
+    # real capture, by a fill the graph replays).
+    ops = [torch.zeros(128, 784), torch.zeros(128, 784), torch.zeros(128, 20), torch.zeros(128, 20)]
+    with _stand_in_kernels(monkeypatch) as (lib, now):
+        port_elbo.elbo_fwd_cuda(*ops, 1.0)
+        now.capturing = True
+        with port_elbo.capture_scope() as first:
+            port_elbo.elbo_fwd_cuda(*ops, 1.0)
+            port_elbo.elbo_fwd_cuda(*ops, 1.0)
+        with port_elbo.capture_scope() as second:
+            port_elbo.elbo_fwd_cuda(*ops, 1.0)
+            now.stream = 1
+            port_elbo.elbo_fwd_cuda(*ops, 1.0)
+        now.capturing = False
+        port_elbo.elbo_fwd_cuda(*ops, 1.0)
+        assert list(port_elbo._workspaces) == [(None, 0), (None, 1)]
+        eager0, eager1 = port_elbo._workspaces.values()
+    assert list(first.workspaces) == [(None, 0)] and list(second.workspaces) == [(None, 0), (None, 1)]
+    workspaces = [eager0, eager1, first.workspaces[(None, 0)], *second.workspaces.values()]
+    assert all(ws.numel() == 1 + 4 * 132 and not ws.any() for ws in workspaces)
+    assert len({ws.data_ptr() for ws in workspaces}) == 5
+    # The launches, in order: eager on stream 0; the first graph twice on
+    # its workspace; the second graph on its own for streams 0 and 1; eager
+    # on stream 1.
+    got = [args[10] for args in lib.args]
+    assert got == [eager0.data_ptr(), *[first.workspaces[(None, 0)].data_ptr()] * 2,
+                   *(ws.data_ptr() for ws in second.workspaces.values()), eager1.data_ptr()]
+
+
+def _ticket_combine(partials: list, order: list, workspace_of: list) -> tuple:
+    """The forward's cross-CTA combine, emulated: launch i's CTA j writes
+    ``partials[i][j]`` to slot j of workspace ``workspace_of[i]`` and takes
+    a ticket on its counter, in ``order`` (a list of (i, j)); the CTA that
+    takes ticket ``len(partials[i]) - 1`` sums its launch's slots in index
+    order and sets the counter to 0. Returns each launch's sum (None if no
+    CTA of it took that ticket) and each workspace's counter at the end."""
+    slots = {w: np.zeros(max(map(len, partials)), np.float32) for w in workspace_of}
+    counter = {w: 0 for w in workspace_of}
+    out = [None] * len(partials)
+    for i, j in order:
+        w, grid = workspace_of[i], len(partials[i])
+        slots[w][j] = partials[i][j]
+        ticket, counter[w] = counter[w], counter[w] + 1
+        if ticket == grid - 1:
+            out[i] = _in_order(slots[w][:grid])
+            counter[w] = 0
+    return out, counter
+
+
+def _in_order(values) -> np.float32:
+    acc = np.float32(0)
+    for v in values:
+        acc = np.float32(acc + v)
+    return acc
+
+
+@pytest.mark.parametrize(
+    "interleaved, workspace_of, correct",
+    [(False, [0, 0, 0], True), (True, [0, 1, 2], True), (True, [0, 0, 0], False)],
+    ids=["in-turn-one-workspace", "interleaved-own-workspaces", "interleaved-shared-workspace"],
+)
+def test_the_ticket_combine_needs_one_launch_at_a_time_per_workspace(interleaved, workspace_of, correct):
+    # Three launches: 101 CTAs (the main path's grid), 26 (33x783) and 101
+    # again. The CTAs of a launch take their tickets in a shuffled order. In
+    # turn, or interleaved on workspaces of their own (the wrapper's rule:
+    # one per stream, one per captured graph), each launch gives its exact
+    # sum and leaves its counter at 0. Interleaved on one workspace, a
+    # launch sums slots another is still writing, or a reset comes while
+    # another launch still takes tickets (which can leave the counter off
+    # for the launches after).
+    rng = np.random.default_rng(17)
+    partials = [rng.normal(0, 100, grid).astype(np.float32) for grid in (101, 26, 101)]
+    per_launch = [[(i, int(j)) for j in rng.permutation(len(p))] for i, p in enumerate(partials)]
+    if interleaved:
+        rounds = itertools.zip_longest(*per_launch)
+        order = [step for steps in rounds for step in steps if step is not None]
+    else:
+        order = [step for steps in per_launch for step in steps]
+    out, counters = _ticket_combine(partials, order, workspace_of)
+    exact = [o is not None and o.tobytes() == _in_order(p).tobytes() for o, p in zip(out, partials)]
+    assert all(exact) == correct
+    if correct:
+        assert all(c == 0 for c in counters.values())
+        again, _ = _ticket_combine(partials, order, workspace_of)
+        assert [a.tobytes() for a in again] == [o.tobytes() for o in out]
+
+
+# --- the forward's partition and combine, emulated in numpy f32 ----------
+
+_FWD_THREADS = 128
+
+
+def _block_sums(v: np.ndarray) -> np.ndarray:
+    """``block_sum`` of each row of ``v`` (blocks, threads): warp shuffles
+    down by 16, 8, 4, 2, 1 (lane 0 holds the warp's sum), then warp 0 the
+    same over the warps' sums, zero-padded to 32 lanes."""
+
+    def warp_tree(w):  # (..., 32) -> (...,)
+        for off in (16, 8, 4, 2, 1):
+            w = w[..., :off] + w[..., off : 2 * off]
+        return w[..., 0]
+
+    blocks, threads = v.shape
+    warps = warp_tree(v.reshape(blocks, threads // 32, 32))
+    lanes = np.zeros((blocks, 32), np.float32)
+    lanes[:, : threads // 32] = warps
+    return warp_tree(lanes)
+
+
+def _thread_sums(terms: np.ndarray, first_step: int, n_threads: int, acc: np.ndarray) -> None:
+    """Add vector steps ``first_step, first_step + 1, ...`` of 8 ``terms``
+    each into ``acc``, step i to thread i % n_threads, in increasing i."""
+    steps = terms.reshape(-1, 8)
+    for lo in range(0, steps.shape[0], n_threads):
+        rows = steps[lo : lo + n_threads]
+        idx = (first_step + lo + np.arange(rows.shape[0])) % n_threads
+        for k in range(8):
+            acc[idx] += rows[:, k]
+
+
+def _tail_sums(terms: np.ndarray, n_threads: int, acc: np.ndarray) -> None:
+    """Add element j to thread j % n_threads, in increasing j."""
+    for lo in range(0, terms.shape[0], n_threads):
+        chunk = terms[lo : lo + n_threads]
+        acc[np.arange(chunk.shape[0])] += chunk
+
+
+def _emulate_fwd(logits, x, mu, logvar, beta, *, grid) -> np.float32:
+    """The forward's sum on 16-byte aligned operands: each thread's share in
+    its order, the CTAs' sums, then the last CTA's order over the ``grid``
+    partials (strided per thread, then its block tree)."""
+    f32 = np.float32
+    l, xx, m, lv = (np.asarray(a, f32).reshape(-1) for a in (logits, x, mu, logvar))
+    bce_terms = np.maximum(l, f32(0)) - l * xx + np.log1p(np.exp(-np.abs(l)))
+    kl_terms = f32(1) + lv - m * m - np.exp(lv)
+    n_threads = grid * _FWD_THREADS
+    n_vw, n_vn = l.size // 8, m.size // 8
+    bce, kl = np.zeros(n_threads, f32), np.zeros(n_threads, f32)
+    _thread_sums(bce_terms[: 8 * n_vw], 0, n_threads, bce)
+    _thread_sums(kl_terms[: 8 * n_vn], n_vw, n_threads, kl)
+    _tail_sums(bce_terms[8 * n_vw :], n_threads, bce)
+    _tail_sums(kl_terms[8 * n_vn :], n_threads, kl)
+    partials = _block_sums((bce + f32(beta) * (f32(-0.5) * kl)).reshape(grid, _FWD_THREADS))
+    last = np.zeros(_FWD_THREADS, f32)
+    _tail_sums(partials, _FWD_THREADS, last)
+    return _block_sums(last.reshape(1, _FWD_THREADS))[0]
+
+
+@pytest.mark.parametrize(
+    "shape, grid",
+    [((128, 784, 20), 101), ((1000, 784, 20), 528), ((33, 783, 5), 26)],
+    ids=["128", "1000", "33x783"],
+)
+def test_forward_partition_and_combine_match_the_plain_version(shape, grid):
+    b, d, lat = shape
+    logits, x, mu, logvar = _arrays(b, seed=b, d=d, lat=lat)
+    assert port_elbo.fwd_grid(b * d, b * lat, 132) == grid
+    v1 = _emulate_fwd(logits, x, mu, logvar, 2.0, grid=grid)
+    v2 = _emulate_fwd(logits, x, mu, logvar, 2.0, grid=grid)
+    assert v1.dtype == np.float32 and v1.tobytes() == v2.tobytes()
+    plain = float(port_elbo.elbo_fwd_plain(*(torch.tensor(a) for a in (logits, x, mu, logvar)), 2.0))
+    assert float(v1) == pytest.approx(plain, rel=1e-6)
+
 
 @pytest.mark.parametrize(
     "bad, match",
@@ -168,3 +456,16 @@ def test_non_cpu_tensors_launch_the_kernel_or_raise():
 def test_mis_shaped_operands_raise(bad, match):
     with pytest.raises(ValueError, match=match):
         fused_elbo_loss_sum(*bad)
+
+
+def test_the_ablation_variants_still_apply_to_the_source():
+    # ops/elbo_ablation.py edits elbo.cu by substitution; each edit must
+    # find its text exactly once, or the variant would time the wrong thing.
+    from multidisttorch_tpu_torch.ops import _build, elbo_ablation
+
+    src = (_build.CSRC_DIR / "elbo.cu").read_text()
+    assert elbo_ablation.VARIANTS["base"] == []
+    for name, subs in elbo_ablation.VARIANTS.items():
+        for old, new in subs:
+            assert src.count(old) == 1, (name, old)
+            assert new not in src, (name, new)

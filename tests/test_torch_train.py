@@ -14,6 +14,9 @@ package's own for fused against plain training (test_pallas_elbo.py:
 differences in the gradients show at the 1e-4 level.
 """
 
+import json
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,10 +31,13 @@ from multidisttorch_tpu.ops.pallas_elbo import fused_elbo_loss_sum as jax_fused
 from multidisttorch_tpu.parallel.mesh import setup_groups as jax_setup_groups
 from multidisttorch_tpu.train.steps import create_train_state as jax_create_train_state
 from multidisttorch_tpu.train.steps import make_eval_step as jax_make_eval_step
-from multidisttorch_tpu_torch.models.vae import VAE, vae_params_from_flax
-from multidisttorch_tpu_torch.parallel.mesh import setup_groups
+from multidisttorch_tpu_torch.models.vae import VAE, init_vae_params, vae_params_from_flax
+from multidisttorch_tpu_torch.parallel import cluster
+from multidisttorch_tpu_torch.parallel.mesh import TrialGroup, setup_groups
 from multidisttorch_tpu_torch.train.steps import (
+    GraphedMultiStep,
     create_train_state,
+    eager_reason,
     make_eval_step,
     make_multi_step,
     make_sample_step,
@@ -128,6 +134,117 @@ def test_multi_step_equals_single_steps(setup):
         assert torch.equal(v, s2.model.state_dict()[k])
 
 
+@pytest.mark.parametrize(
+    "kw", [{}, {"grad_accum": 2}, {"use_fused_loss": False}], ids=["cpu", "grad_accum", "plain-loss"]
+)
+def test_multi_step_keeps_the_eager_loop_by_rule(setup, kw):
+    # On the CPU, with grad_accum > 1 or with the plain loss, the multi-step
+    # is the eager loop, and it is K single steps to the last bit.
+    _, params, _, _, group = setup
+    rng = np.random.default_rng(4)
+    batches = torch.tensor(rng.uniform(0, 1, (3, 16, 784)).astype(np.float32))
+    noise = torch.tensor(rng.normal(0, 1, (3, 16, LATENT)).astype(np.float32))
+    multi = make_multi_step(group, **kw)
+    assert not multi.graphed and multi.replays == 0
+    assert eager_reason(group, **kw) is not None
+    s1, m1 = multi(_port_state(params, group), batches, eps=noise)
+    s2, step = _port_state(params, group), make_train_step(group, **kw)
+    singles = []
+    for k in range(3):
+        s2, m = step(s2, batches[k], eps=noise[k])
+        singles.append(m["loss_sum"])
+    assert torch.equal(m1["loss_sum"], torch.stack(singles))
+    assert s1.step == s2.step == 3
+    for k, v in s1.model.state_dict().items():
+        assert torch.equal(v, s2.model.state_dict()[k])
+
+
+def _group(size: int, device: str) -> TrialGroup:
+    return TrialGroup(group_id=0, global_ranks=tuple(range(size)), device=torch.device(device),
+                      is_local_member=True, local_rank=0, owner_process=0, pg=object())
+
+
+@pytest.mark.parametrize(
+    "size, device, kw, reason",
+    [
+        (1, "cuda:0", {}, None),
+        (1, "cpu", {}, "not a CUDA device"),
+        (2, "cuda:0", {}, "2 ranks"),
+        (1, "cuda:0", {"grad_accum": 4}, "grad_accum=4"),
+        (1, "cuda:0", {"use_fused_loss": False}, "use_fused_loss=False"),
+    ],
+)
+def test_which_multi_steps_run_as_cuda_graphs(size, device, kw, reason):
+    # Decided from the group's size and device and the arguments alone.
+    got = eager_reason(_group(size, device), **kw)
+    if reason is None:
+        assert got is None
+    else:
+        assert reason in got
+
+
+def test_asking_for_cuda_graphs_without_cuda_raises(monkeypatch):
+    # The rule picks CUDA graphs for a one-rank group on a card. Where there
+    # is no CUDA that raises: it never quietly runs the eager loop.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    group = _group(1, "cuda:0")
+    assert eager_reason(group) is None
+    with pytest.raises(RuntimeError, match="CUDA-graph capture needs a CUDA device"):
+        make_multi_step(group)
+    with pytest.raises(RuntimeError, match="needs a CUDA device, got cpu"):
+        GraphedMultiStep(lambda *args: None, torch.device("cpu"))
+
+
+def test_cpu_optimizer_is_torchs_default_adam(setup):
+    # The CPU keeps the optimizer the tests hold to optax.adam; only a card
+    # gets the capturable one.
+    _, params, _, _, group = setup
+    state = _port_state(params, group)
+    assert state.optimizer.defaults["capturable"] is False
+
+
+def _gloo_multi_step_rank(out_path: str) -> None:
+    """One rank of a two-process gloo world: from the same weights, a
+    two-rank group's multi-step of 3 steps and 3 single DDP steps."""
+    cluster.initialize_runtime(device="cpu")
+    pair = setup_groups(1, device="cpu")[0]
+    rng = np.random.default_rng(13)
+    batches = torch.tensor(rng.uniform(0, 1, (3, 16, 784)).astype(np.float32))
+    noise = torch.tensor(rng.normal(0, 1, (3, 16, LATENT)).astype(np.float32))
+    rows = slice(8 * pair.local_rank, 8 * pair.local_rank + 8)
+    multi = make_multi_step(pair)
+    new_state = lambda: create_train_state(
+        pair, init_vae_params(VAE(hidden_dim=HIDDEN, latent_dim=LATENT), 0), LR
+    )
+    s1, m1 = multi(new_state(), batches[:, rows], eps=noise[:, rows])
+    s2, step, singles = new_state(), make_train_step(pair), []
+    for k in range(3):
+        s2, m = step(s2, batches[k, rows], eps=noise[k, rows])
+        singles.append(m["loss_sum"])
+    got = {
+        "graphed": multi.graphed,
+        "losses_equal": bool(torch.equal(m1["loss_sum"], torch.stack(singles))),
+        "params_equal": all(
+            torch.equal(v, s2.model.state_dict()[k]) for k, v in s1.model.state_dict().items()
+        ),
+        "steps": [s1.step, s2.step],
+    }
+    with open(out_path, "w") as f:
+        json.dump(got, f)
+    cluster.shutdown_runtime()
+
+
+def test_multi_rank_multi_step_keeps_the_eager_loop(tmp_path):
+    from test_torch_groups import _launch
+
+    outs = [str(tmp_path / f"rank{r}.json") for r in range(2)]
+    _launch(lambda r: [sys.executable, __file__, outs[r]], 2, timeout=120)
+    for out in outs:
+        with open(out) as f:
+            got = json.load(f)
+        assert got == {"graphed": False, "losses_equal": True, "params_equal": True, "steps": [3, 3]}
+
+
 def test_grad_accum_matches_full_batch(setup):
     # Two equal microbatches of the per-sample mean average to the full
     # batch's gradient; f32 sums in another order (same tolerances).
@@ -192,3 +309,7 @@ def test_sample_step_decodes_prior_draws(setup):
     assert a.shape == (10, 784) and a.dtype == torch.float32
     assert torch.equal(a, b)
     assert float(a.min()) >= 0.0 and float(a.max()) <= 1.0
+
+
+if __name__ == "__main__":
+    _gloo_multi_step_rank(sys.argv[1])
