@@ -29,8 +29,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    group on ``cuda:0``, MNIST-sized synthetic data, batch 128, its train
    chunks (10 steps) replayed from CUDA graphs; the kernels must have
    launched once per train step, every chunk after a trial's first must
-   have been a replay, and the losses must fall;
-7. each flash-attention kernel (forward, dQ, dK/dV) against its plain
+   have been a replay, and the losses must fall; it writes its checkpoints
+   (the default) into a temporary directory; then its wall time with
+   checkpoints off and on, in rounds off, on, on, off, twice;
+7. checkpoints, resume and a supervised retry on that path at full width
+   (one trial, fused_steps 10): a straight 2-epoch run; 1 epoch resumed to
+   2, bit-identical to it (parameters, Adam moments, step, history,
+   generator states) with its graphs captured after the restore and one
+   launch of each ELBO kernel per step; a scan-back past torn manifests;
+   a failed epoch-2 checkpoint write retried from epoch 1, bit-identical,
+   the dropped attempt's graphs freed and device memory back within
+   8 MiB; a v1 save and restore on the card with no msgpack, flax or jax
+   loaded; each epoch's snapshot and persist times and the second save's
+   bytes;
+8. each flash-attention kernel (forward, dQ, dK/dV) against its plain
    version (o, lse, dq, dk, dv with an lse cotangent, identical bits on a
    rerun) at the LM's full width (BH 128, T 512, D 64: causal bf16 and f32,
    non-causal f32), timed beside the plain version, the byte/FLOP bound and
@@ -43,7 +55,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    must take the SIMT kernels), the padded causal T 1300 (f32 D 32 and bf16
    D 64) and the non-causal T 1300 that must raise, and the autograd path
    with its lse gradient; every call checks which variant it launched;
-8. the LM slice at full width (vocab 32768, d 512, 8 heads, 8 layers, T 512,
+9. the LM slice at full width (vocab 32768, d 512, 8 heads, 8 layers, T 512,
    batch 16, bf16 compute): ``make_lm_multi_step`` runs 10 steps through the
    flash kernels and, from the same weights, through the dense attention;
    the losses agree and fall and each kernel launches 8 times a step, as
@@ -52,7 +64,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    SIMT forward) and with the dense prefill, which must give the same
    tokens; then the step time of both, in four alternating rounds, with the
    device's busy time by kernel;
-9. a ``kernels`` JSON line, then the result line.
+10. a ``kernels`` JSON line, then the result line.
 
 Exits 1 without a result when CUDA is unavailable or the port is not
 beside this script.
@@ -68,6 +80,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -544,7 +557,7 @@ L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 def flash_vs_plain(
     A, F, bh: int, t: int, d: int, dtype, causal: bool, *, timed: bool = True, offset: int = 0
 ) -> dict:
-    """Phase 6 at one flat shape: the three kernels against the plain
+    """Phase 8 at one flat shape: the three kernels against the plain
     versions on the same inputs (the backward with a random lse cotangent
     folded into delta), identical bits on a rerun, the variant each call
     launched and, if ``timed``, times. ``offset`` > 0 places every operand
@@ -768,7 +781,7 @@ LM_TIMING_ROUNDS = 4
 
 
 def lm_slice(A, group, smi: str) -> dict:
-    """Phase 7: the LM path at full width. Returns each flash kernel's
+    """Phase 9: the LM path at full width. Returns each flash kernel's
     launches over the path (train, eval and decode prefill), in total and
     by variant."""
     import numpy as np
@@ -921,6 +934,209 @@ def lm_slice(A, group, smi: str) -> dict:
     return totals, by_variant
 
 
+def _same_checkpoint(ck, a_dir: str, b_dir: str, what: str) -> None:
+    """Two runs' final checkpoints hold the same state, bit for bit: every
+    leaf, and the sidecar's step, history and generator states."""
+    def load(d):
+        path = os.path.join(d, "trial-0", "state.msgpack")
+        with open(path + ".json") as f:
+            return ck._read_tree(path), json.load(f)
+
+    def flat(tree, prefix=""):
+        if not isinstance(tree, dict):
+            return {prefix: tree}
+        out = {prefix: "{}"} if not tree else {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}/{k}"))
+        return out
+
+    (ta, ma), (tb, mb) = load(a_dir), load(b_dir)
+    fa, fb = flat(ta), flat(tb)
+    check(list(fa) == list(fb), f"{what}: the checkpoint trees differ in their keys")
+    for k in fa:
+        if isinstance(fa[k], str):
+            continue
+        check(fa[k].dtype == fb[k].dtype and (fa[k] == fb[k]).all(), f"{what}: {k} differs from the straight run")
+    for key in ("step", "completed_epochs", "history", "torch_generators"):
+        check(ma[key] == mb[key], f"{what}: the sidecar's {key} differs from the straight run")
+
+
+def checkpoint_phase(E, group, smi: str, train, test) -> None:
+    """Phase 7: checkpoints, resume and a supervised retry on the VAE main
+    path at full width (784-400-20, batch 128, fused_steps 10, one group on
+    the card, so every chunk after a trial's first is a graph replay):
+
+    (a) a straight 2-epoch run, ``ckpt_keep_last=2``, format v2;
+    (b) 1 epoch, then ``resume=True`` to 2 epochs: parameters, Adam moments,
+        step, history and generator states bit-identical to (a); the resumed
+        trial captures its graphs after the restore, and each ELBO kernel
+        launches once per resumed step (counts set to 0 just before);
+    (c) a copy of (a) with the newest manifests (the primary and its
+        retained copy) truncated, resumed with ``resume="scan"`` to 3
+        epochs: it scans back to epoch 1 and finishes;
+    (d) the epoch-2 checkpoint write fails once under ``resilient=True``
+        and one retry: attempt 2 resumes from epoch 1 with new graphs and
+        ends bit-identical to (a); the dropped attempt's graphs are freed
+        and ``torch.cuda.memory_allocated`` returns within 8 MiB of its
+        figure before (every pool stream is first given its cuBLAS
+        workspace, which lives as long as the process);
+    (e) a v1 save and restore of a state on the card through
+        ``train/_msgpack.py``; no msgpack, flax or jax module is loaded.
+
+    Times: each epoch's snapshot (host copies, on the loop thread) and
+    persist (serialise and write, on the writer thread), and the bytes of
+    (a)'s second save.
+    """
+    import gc
+    import shutil
+    import tempfile
+    import weakref
+
+    from multidisttorch_tpu_torch.hpo import driver
+    from multidisttorch_tpu_torch.hpo.supervision import RetryPolicy
+    from multidisttorch_tpu_torch.models.vae import VAE, init_vae_params
+    from multidisttorch_tpu_torch.train import checkpoint as ck
+    from multidisttorch_tpu_torch.train.steps import create_train_state, make_train_step
+
+    per_epoch = len(train) // 128
+    chunks = -(-per_epoch // 10)  # an epoch's chunks of 10 steps; the first of a trial is eager
+    real_tree, real_save, real_multi = driver.train_state_to_tree, driver.save_state, driver.make_multi_step
+    snaps, persists, fail_epochs, multis = [], [], set(), []
+
+    def timed_tree(state):
+        t0 = time.perf_counter()
+        out = real_tree(state)
+        snaps.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_save(tree, path, **kw):
+        epoch = kw["metadata"]["completed_epochs"]
+        if epoch in fail_epochs:
+            fail_epochs.discard(epoch)
+            raise OSError(f"injected failure of the epoch-{epoch} checkpoint write")
+        stats = {}
+        t0 = time.perf_counter()
+        out = real_save(tree, path, stats_out=stats, **kw)
+        persists.append({"epoch": epoch, "ms": (time.perf_counter() - t0) * 1e3, **stats})
+        return out
+
+    def tracked_multi(g, **kw):
+        m = real_multi(g, **kw)
+        multis.append(weakref.ref(m))
+        return m
+
+    driver.train_state_to_tree, driver.save_state, driver.make_multi_step = timed_tree, timed_save, tracked_multi
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            def sweep(name, epochs, **kw):
+                cfg = driver.TrialConfig(trial_id=0, epochs=epochs, batch_size=128, seed=0, fused_steps=10)
+                (r,) = driver.run_hpo([cfg], train, test, groups=[group], out_dir=os.path.join(tmp, name),
+                                      ckpt_keep_last=2, verbose=False, **kw)
+                check(r.status in ("completed", "resumed_complete"), f"phase 7 ({name}): {r.status} {r.error}")
+                return r
+
+            # (a) straight.
+            snaps.clear()
+            persists.clear()
+            a = sweep("a", 2)
+            torch.cuda.synchronize()
+            check(a.steps == 2 * per_epoch and a.graph_replays == 2 * chunks - 1,
+                  f"(a): {a.steps} steps, {a.graph_replays} replays")
+            check(len(snaps) == 2 and [p["epoch"] for p in persists] == [1, 2] and persists[0]["format"] == "v2",
+                  f"(a): snapshots {snaps}, persists {persists}")
+            for ms, p in zip(snaps, persists):
+                print(f"checkpoint epoch {p['epoch']}: snapshot {ms:.3f} ms (loop thread), persist "
+                      f"{p['ms']:.3f} ms (writer thread), {p['total_bytes']} bytes: {p['new_bytes']} new, "
+                      f"{p['reused_bytes']} reused, {p['chunks']} chunks ({smi})")
+            second = persists[1]
+            check(second["total_bytes"] == second["new_bytes"] + second["reused_bytes"] > 0,
+                  f"(a): second save's bytes {second}")
+
+            # (b) 1 epoch, then resumed to 2; counts set to 0 just before.
+            sweep("b", 1)
+            for k in E.LAUNCHES:
+                E.LAUNCHES[k] = 0
+            b = sweep("b", 2, resume=True)
+            torch.cuda.synchronize()
+            launches = dict(E.LAUNCHES)
+            check(b.resumed_from_step == per_epoch and b.steps == 2 * per_epoch and b.history == a.history,
+                  f"(b): resumed from {b.resumed_from_step}, {b.steps} steps, history {b.history} vs {a.history}")
+            check(b.graph_replays == chunks - 1,
+                  f"(b): {b.graph_replays} graph replays in the resumed epoch, expected {chunks - 1}")
+            for k in ("elbo_fwd", "elbo_bwd"):
+                check(launches[k] == per_epoch, f"(b): {k} launched {launches[k]} times in {per_epoch} resumed steps")
+            _same_checkpoint(ck, os.path.join(tmp, "a"), os.path.join(tmp, "b"), "(b) resume")
+            print(f"(b) resume: epoch 2 from the epoch-1 checkpoint, bit-identical to (a); "
+                  f"{b.graph_replays} replays; launches {launches}")
+
+            # (c) the newest manifests torn; the scan lands on epoch 1.
+            shutil.copytree(os.path.join(tmp, "a"), os.path.join(tmp, "c"))
+            for name in ("state.msgpack", f"state.msgpack.v{2 * per_epoch:010d}"):
+                path = os.path.join(tmp, "c", "trial-0", name)
+                with open(path, "r+b") as f:
+                    f.truncate(os.path.getsize(path) // 2)
+            c = sweep("c", 3, resume="scan")
+            check(c.resumed_from_step == per_epoch and c.steps == 3 * per_epoch and len(c.history) == 3
+                  and c.history[0] == a.history[0] and c.graph_replays == 2 * chunks - 1,
+                  f"(c): resumed from {c.resumed_from_step}, {c.steps} steps, {c.graph_replays} replays")
+            print(f"(c) scan: past the torn epoch-2 manifests to epoch 1, then epochs 2-3, "
+                  f"test {c.final_test_loss:.4f}")
+
+            # (d) a failed write and one retry. Every pool stream first gets
+            # its cuBLAS workspace, so what is left after is the run's own.
+            x = torch.rand(128, 784, device=group.device)
+            m = init_vae_params(VAE(), 0).to(group.device)
+            for _ in range(32):
+                with torch.cuda.stream(torch.cuda.Stream(group.device)):
+                    m(x, eps=torch.zeros(128, 20, device=group.device))[0].sum().backward()
+            del m, x
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(group.device)
+            multis.clear()
+            fail_epochs.add(2)
+            d = sweep("d", 2, resilient=True, retry=RetryPolicy(max_retries=1, backoff_base_s=0.01))
+            gc.collect()
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated(group.device)
+            check(not fail_epochs, "(d): the injected write failure did not fire")
+            check(d.attempt == 2 and d.resumed_from_step == per_epoch and d.history == a.history
+                  and d.graph_replays == chunks - 1,
+                  f"(d): attempt {d.attempt}, resumed from {d.resumed_from_step}, {d.graph_replays} replays")
+            _same_checkpoint(ck, os.path.join(tmp, "a"), os.path.join(tmp, "d"), "(d) retry")
+            check(len(multis) == 2 and all(r() is None for r in multis),
+                  f"(d): {sum(r() is not None for r in multis)} of {len(multis)} multi-steps (and their graphs) alive")
+            check(after - before <= 8 << 20, f"(d): memory_allocated grew by {after - before} bytes across the retry")
+            print(f"(d) retry: attempt 2 from epoch 1, bit-identical to (a); both attempts' graphs freed; "
+                  f"memory_allocated {before} -> {after} bytes (margin 8 MiB) ({smi})")
+
+            # (e) v1 on the card.
+            step = make_train_step(group)
+            s1 = create_train_state(group, init_vae_params(VAE(), 1), 1e-3)
+            gen = torch.Generator(device=group.device).manual_seed(5)
+            for _ in range(2):
+                s1, _ = step(s1, torch.rand(128, 784, device=group.device, generator=gen), generator=gen)
+            path = os.path.join(tmp, "e", "state.msgpack")
+            ck.save_state(s1, path, metadata={"step": s1.step}, format="v1")
+            with open(path, "rb") as f:
+                check(f.read(1) == b"\x83", "(e): not a v1 msgpack file")
+            s2 = create_train_state(group, init_vae_params(VAE(), 2), 1e-3)
+            ck.restore_state(s2, path)
+            t1, t2 = ck.train_state_to_tree(s1), ck.train_state_to_tree(s2)
+            check(all((t1["params"][n][k] == t2["params"][n][k]).all()
+                      and (t1["opt_state"]["0"][m][n][k] == t2["opt_state"]["0"][m][n][k]).all()
+                      for n in t1["params"] for k in ("bias", "kernel") for m in ("mu", "nu"))
+                  and s2.step == s1.step == 2, "(e): the v1 restore differs from the saved state")
+            check(all(st["step"].device == group.device for st in s2.optimizer.state.values()),
+                  "(e): Adam's restored step is not on the card")
+            loaded = [m for m in sys.modules if m.split(".")[0] in ("msgpack", "flax", "jax", "multidisttorch_tpu")]
+            check(not loaded, f"(e): {loaded} imported")
+            print("(e) v1: saved and restored on the card through train/_msgpack.py, bit-identical; "
+                  "no msgpack, flax or jax module loaded")
+    finally:
+        driver.train_state_to_tree, driver.save_state, driver.make_multi_step = real_tree, real_save, real_multi
+
+
 class _Lines(logging.Handler):
     def __init__(self):
         super().__init__()
@@ -1019,7 +1235,8 @@ def main() -> None:
     # Phase 5: the multi-step as CUDA graphs against its eager loop.
     graphed_vs_eager(E, group, smi)
 
-    # Phase 6: the slice, through run_hpo (graph replays). Counts reset
+    # Phase 6: the slice, through run_hpo (graph replays), writing its
+    # checkpoints (the default) into a temporary directory. Counts reset
     # just before.
     train = synthetic_mnist(60000, seed=0)
     test = synthetic_mnist(10000, seed=1)
@@ -1032,10 +1249,8 @@ def main() -> None:
     for k in E.LAUNCHES:
         E.LAUNCHES[k] = 0
     t0 = time.time()
-    results = run_hpo(
-        configs, train, test, groups=[group],
-        out_dir=os.path.join(HERE, "build", "chip_smoke_results"),
-    )
+    with tempfile.TemporaryDirectory() as tmp:
+        results = run_hpo(configs, train, test, groups=[group], out_dir=tmp)
     torch.cuda.synchronize()
     sweep_s = time.time() - t0
     launches = dict(E.LAUNCHES)
@@ -1068,9 +1283,25 @@ def main() -> None:
             f"{r.graph_replays} graph replays, wall {r.wall_s:.3f} s (eval and epoch ends included), "
             f"samples/s {r.steps * 128 / r.wall_s:.1f} ({smi})"
         )
-    print(f"slice: {steps} train steps in {sweep_s:.3f} s; launches {launches}")
+    print(f"slice: {steps} train steps in {sweep_s:.3f} s, checkpoints on; launches {launches}")
+    # The slice's wall time with checkpoints off and on, in alternating
+    # rounds (off, on, on, off, twice), log lines off.
+    walls = {True: [], False: []}
+    for save in (False, True, True, False) * 2:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.time()
+            run_hpo(configs, train, test, groups=[group], out_dir=tmp, save_checkpoints=save, verbose=False)
+            torch.cuda.synchronize()
+            walls[save].append(time.time() - t0)
+    print(f"slice wall s, checkpoints on: {walls[True]} (median {statistics.median(walls[True]):.6f}), "
+          f"off: {walls[False]} (median {statistics.median(walls[False]):.6f}) "
+          f"(rounds off, on, on, off, twice; {smi})")
 
-    # Phase 7: each flash kernel against its plain version. Timed at the
+    # Phase 7: checkpoints, resume and a supervised retry on the main path.
+    checkpoint_phase(E, group, smi, train, test)
+
+
+    # Phase 8: each flash kernel against its plain version. Timed at the
     # LM's full width; the first is the training path's shape and dtype.
     flash_main = flash_vs_plain(A, F, 128, 512, 64, torch.bfloat16, True)
     flash_vs_plain(A, F, 128, 512, 64, torch.float32, True)
@@ -1096,10 +1327,10 @@ def main() -> None:
     flash_padding_check(A)
     flash_padding_check(A, torch.bfloat16, 64)
 
-    # Phase 8: the LM slice; counts set to 0 inside, just before each part.
+    # Phase 9: the LM slice; counts set to 0 inside, just before each part.
     lm_launches, lm_variants = lm_slice(A, group, smi)
 
-    # Phase 9: the kernels line, then the result.
+    # Phase 10: the kernels line, then the result.
     # "ms", "plain_ms" and "library_ms" are device time per call at the
     # slice's shape (batch 128, f32); "*_call_ms" add the host's per-call
     # cost; "graph_ms" is per call replayed from a CUDA graph, "cold_ms"

@@ -136,11 +136,13 @@ def vae_params_from_flax(tree) -> dict[str, torch.Tensor]:
 
 
 def vae_params_to_flax(state_dict) -> dict[str, dict[str, np.ndarray]]:
-    """A torch VAE ``state_dict`` as a flax parameter tree of numpy arrays."""
+    """A torch VAE ``state_dict`` as a flax parameter tree of numpy arrays
+    (host copies), keys in flax's order: a v1 checkpoint's bytes follow
+    it (``train/checkpoint.py``)."""
     return {
         name: {
-            "kernel": state_dict[f"{name}.weight"].detach().cpu().float().numpy().T.copy(),
             "bias": state_dict[f"{name}.bias"].detach().cpu().float().numpy().copy(),
+            "kernel": state_dict[f"{name}.weight"].detach().cpu().float().numpy().T.copy(),
         }
         for name in LAYERS
     }

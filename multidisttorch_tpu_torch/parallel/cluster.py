@@ -13,6 +13,11 @@ initialises nothing, as the JAX package does.
 :func:`default_device` is the port's one rule for where work runs: CUDA
 unless the caller asks for the CPU, and an error naming what is missing
 when CUDA is absent.
+
+:class:`AgreementTimeout`, :class:`WedgedCollective`,
+:data:`PREEMPTION_EXIT_CODE` and :func:`call_with_timeout` are copies of
+the JAX package's deadline machinery: a collective over a trial group
+that a dead peer would block forever becomes a named error instead.
 """
 
 from __future__ import annotations
@@ -186,3 +191,88 @@ def process_world() -> tuple[int, int]:
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size(), dist.get_rank()
     return 1, 0
+
+
+class AgreementTimeout(TimeoutError):
+    """A deadline-bounded cross-process coordination call expired.
+
+    A dedicated subclass, not a bare ``TimeoutError``: on Python >= 3.10
+    ``socket.timeout`` is ``TimeoutError``, so supervision matching the
+    builtin would misclassify any transient network or NFS timeout inside
+    a trial as a lost peer and kill the whole sweep. Only this type means
+    "the distributed state can no longer be trusted; restart against the
+    ledger" (``hpo/supervision.py`` classifies it like preemption).
+    """
+
+
+class WedgedCollective(AgreementTimeout):
+    """A collective over a trial group (a health or restore agreement)
+    wedged past its deadline: a peer stopped calling (wedged, preempted,
+    dead NIC) and this process waits on a result that will never come.
+    Subclasses :class:`AgreementTimeout`, so supervision classifies it as
+    preemption (die, restart against the ledger); a supervised worker
+    catching it exits with :data:`PREEMPTION_EXIT_CODE`. A Python thread
+    cannot cancel a wedged NCCL or gloo call, so an in-place retry on the
+    same group is never right."""
+
+
+# The exit-code contract: a supervised worker that dies because the
+# *world* failed around it (host preemption, a wedged collective) exits
+# with this code (BSD EX_TEMPFAIL: "try again"); any other non-zero exit
+# marks the host itself as lost.
+PREEMPTION_EXIT_CODE = 75
+
+
+def call_with_timeout(
+    fn,
+    timeout_s: Optional[float],
+    what: str,
+    *,
+    error_cls: type = AgreementTimeout,
+):
+    """Run ``fn()`` with a wall-clock deadline; raise ``error_cls`` (an
+    :class:`AgreementTimeout` by default) naming ``what`` instead of
+    hanging forever.
+
+    A dead or hung peer leaves a collective over its group blocked with no
+    error, the reference's steady state on a lost rank. A blocked C-level
+    collective cannot be interrupted from Python, so the deadline runs
+    ``fn`` on a watchdog thread and abandons it on expiry. The thread must
+    be a daemon: a non-daemon leak would make interpreter shutdown join a
+    thread that never returns. ``timeout_s`` None or <= 0 means no
+    deadline (a direct call).
+    """
+    if timeout_s is None or timeout_s <= 0:
+        return fn()
+    import threading
+
+    box: dict = {}
+
+    def runner():
+        try:
+            box["value"] = fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            box["error"] = e
+
+    t = threading.Thread(target=runner, daemon=True, name=f"watchdog:{what}")
+    t.start()
+    t.join(timeout_s)
+    if t.is_alive():
+        raise error_cls(
+            f"{what} did not complete within {timeout_s:g}s — a "
+            "participating process is likely dead, preempted, or hung. "
+            "The blocked collective was abandoned on a daemon thread; "
+            "treat this process's distributed state as unusable and "
+            "restart the job (the sweep ledger makes the restart cheap)."
+        )
+    if "error" in box:
+        raise box["error"]
+    return box.get("value")
+
+
+def env_timeout(env_var: str, default: Optional[float]) -> Optional[float]:
+    """A deadline in seconds from ``env_var``, else ``default``."""
+    raw = os.environ.get(env_var)
+    if raw is None or raw == "":
+        return default
+    return float(raw)

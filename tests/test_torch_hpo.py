@@ -254,6 +254,7 @@ def test_port_never_imports_jax():
         "for i in pkgutil.walk_packages(m.__path__, 'multidisttorch_tpu_torch.'):\n"
         "    importlib.import_module(i.name)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert not {'msgpack', 'flax', 'optax'} & set(sys.modules), 'msgpack, flax or optax imported'\n"
         "assert not [k for k in sys.modules if k.split('.')[0] == 'multidisttorch_tpu']\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120,
@@ -262,7 +263,8 @@ def test_port_never_imports_jax():
 
 def test_port_sources_name_no_jax():
     pattern = re.compile(
-        r"^\s*(import jax|from jax|import multidisttorch_tpu\b(?!_)|from multidisttorch_tpu\b(?!_))"
+        r"^\s*(import jax|from jax|import (flax|optax|msgpack)|from (flax|optax|msgpack)(\.\w+)* import\b"
+        r"|import multidisttorch_tpu\b(?!_)|from multidisttorch_tpu\b(?!_))"
         r"|multidisttorch_tpu\.", re.M
     )
     sources = [os.path.join(REPO, "chip_smoke.py")]
