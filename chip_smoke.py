@@ -64,7 +64,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    SIMT forward) and with the dense prefill, which must give the same
    tokens; then the step time of both, in four alternating rounds, with the
    device's busy time by kernel;
-10. a ``kernels`` JSON line, then the result line.
+10. trial stacking at full width (K 8 lanes): (a) the lane-batched ELBO
+    kernels against their plain versions at (8, 128, 784, 20) f32, timed
+    beside their bound, the plain version and 8 launches of the
+    single-trial kernels (whose bits they must equal), and untimed at
+    (3, 37, 784, 20) f32, the ragged (3, 37, 783, 5) bf16 and (8, 128) bf16;
+    a registered generator reseeded in place draws a fresh generator's
+    numbers; (b) ``make_stacked_multi_step`` as CUDA-graph replays against
+    its eager loop, with a lane retired and one refilled in place between
+    chunks: bit-identical, no new capture, then ms per stacked step, the
+    device's busy time and kernels; (c) ``run_hpo(stack_trials=True)`` with
+    12 configs (mixed lr, beta, 1-2 epochs) on one group, so lanes retire
+    and refill: all completed, stacked and finite, each lane kernel once per
+    stacked step, lane 0 against its config run unstacked, and the
+    aggregate samples/s beside the single-trial slice's;
+11. a ``kernels`` JSON line, then the result line.
 
 Exits 1 without a result when CUDA is unavailable or the port is not
 beside this script.
@@ -462,7 +476,8 @@ def graphed_vs_eager(E, group, smi: str) -> dict:
         multis[mode] = (multi, state, gen)
         check(state.step == steps, f"{mode}: state.step {state.step}, expected {steps}")
         for k, n in E.LAUNCHES.items():
-            check(n == steps, f"{mode}: {k} counted {n} launches in {steps} steps")
+            want = 0 if k.endswith("_lanes") else steps
+            check(n == want, f"{mode}: {k} counted {n} launches in {steps} steps, expected {want}")
     (le, pe, _, _, _), (lg, pg, launches, replays, _) = runs["eager"], runs["graph"]
     check(replays == len(GRAPH_CHUNKS) - 1, f"graph: {replays} replays, expected {len(GRAPH_CHUNKS) - 1}")
     check(bool(torch.isfinite(lg).all()) and lg.shape == (steps,), f"graph: losses {lg}")
@@ -1137,6 +1152,319 @@ def checkpoint_phase(E, group, smi: str, train, test) -> None:
         driver.train_state_to_tree, driver.save_state, driver.make_multi_step = real_tree, real_save, real_multi
 
 
+STACK_LANES = 8  # stack_max_lanes, the JAX package's default
+STACK_CHUNKS = (10, 10, 8, 10)  # steps per chunk; lane 3 retires and lane 5 refills before the third
+STACK_TIMING_CHUNKS = 20
+# Lane 0's final epoch losses, stacked against the same config run unstacked
+# on the card: the same noise, weights and batches; bmm against mm and Adam
+# on stacked tensors round differently, and 468 steps carry the difference.
+STACK_LOSS_RTOL = 1e-3
+
+
+def lane_kernel_vs_plain(E, lanes: int, b: int, d: int, lat: int, act_dtype, *, timed: bool = True,
+                         smi: str = "") -> dict:
+    """Phase 10(a) at one shape: the lane-batched ELBO kernels against their
+    plain versions (value rel 1e-5 per lane; gradients rtol 1e-5 / atol 1e-6
+    in f32, one bf16 ulp in bf16), identical bits on a rerun and on 100
+    graph replays, and against ``lanes`` launches of the single-trial
+    kernels on the lanes' slices (the same bits where every slice is 16-byte
+    aligned); if ``timed``, times."""
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device="cpu").manual_seed(lanes * 1000 + b * 7 + d)
+    logits = (torch.randn(lanes, b, d, generator=gen) * 2).to(dev, act_dtype)
+    x = torch.rand(lanes, b, d, generator=gen).to(dev)
+    mu = torch.randn(lanes, b, lat, generator=gen).to(dev, act_dtype)
+    logvar = (torch.randn(lanes, b, lat, generator=gen) * 0.5).to(dev, act_dtype)
+    beta = torch.linspace(0.5, 4.0, lanes).to(dev)
+    g = torch.full((lanes,), 1.0 / b, device=dev)
+    args = (logits, x, mu, logvar, beta)
+
+    v1, v2, vp = E.elbo_fwd_lanes_cuda(*args), E.elbo_fwd_lanes_cuda(*args), E.elbo_fwd_lanes_plain(*args)
+    k1, k2, kp = E.elbo_bwd_lanes_cuda(*args, g), E.elbo_bwd_lanes_cuda(*args, g), E.elbo_bwd_lanes_plain(*args, g)
+    singles_v = torch.stack([E.elbo_fwd_cuda(logits[j], x[j], mu[j], logvar[j], float(beta[j])) for j in range(lanes)])
+    singles_k = [E.elbo_bwd_cuda(logits[j], x[j], mu[j], logvar[j], float(beta[j]), g[j]) for j in range(lanes)]
+    torch.cuda.synchronize()
+    tag = f"lanes ({lanes}, {b}, {d}, {lat}) {str(act_dtype).replace('torch.', '')}"
+    check(v1.shape == (lanes,) and bool(torch.isfinite(v1).all()), f"elbo_fwd_lanes {tag}: {v1}")
+    rel = float(((v1 - vp).abs() / vp.abs()).max())
+    check(rel <= 1e-5, f"elbo_fwd_lanes {tag}: value vs plain rel {rel:.2e} > 1e-5")
+    check(bool(torch.equal(v1, v2)), f"elbo_fwd_lanes {tag}: two runs gave different bits")
+    fwd_err = float((v1 - vp).abs().max())
+    bwd_err = 0.0
+    for name, a, a2, p, primal in zip(("dlogits", "dmu", "dlogvar"), k1, k2, kp, (logits, mu, logvar)):
+        check(a.dtype == primal.dtype, f"elbo_bwd_lanes {tag}: {name} is {a.dtype}, primal {primal.dtype}")
+        check(bool(torch.equal(a, a2)), f"elbo_bwd_lanes {tag}: two runs gave different bits in {name}")
+        diff = (a.float() - p.float()).abs()
+        bwd_err = max(bwd_err, float(diff.max()))
+        if a.dtype == torch.float32:
+            ok, tol = bool(torch.all(diff <= 1e-6 + 1e-5 * p.float().abs())), "rtol 1e-5 / atol 1e-6"
+        else:
+            ok, tol = bool(torch.all(diff <= bf16_ulp(p))), "one bf16 ulp"
+        check(ok, f"elbo_bwd_lanes {tag}: {name} differs from plain beyond {tol} (max {float(diff.max()):.3e})")
+    same = bool(torch.equal(v1, singles_v)) and all(
+        bool(torch.equal(k1[i][j], singles_k[j][i])) for i in range(3) for j in range(lanes))
+    aligned = all((n * t.element_size()) % 16 == 0 for n, t in ((b * d, logits), (b * d, x), (b * lat, mu), (b * lat, logvar)))
+    if aligned:
+        check(same, f"lane kernels {tag}: not bit-identical to {lanes} launches of the single-trial kernels")
+    replays_identical(lambda: (E.elbo_fwd_lanes_cuda(*args), *E.elbo_bwd_lanes_cuda(*args, g)), (v1, *k1))
+    _, grid, bwd_grid = E._plan(logits, x, mu, logvar)
+    launch = f"{grid} x {lanes} CTAs of 128 | {bwd_grid} x {lanes} CTAs of 256"
+    if not timed:
+        print(f"kernel {tag}: elbo_fwd_lanes rel_err={rel:.3e} | elbo_bwd_lanes max_abs_err={bwd_err:.3e} ({launch}) "
+              f"| bit-identical reruns and 100 graph replays | {lanes} single-trial launches: "
+              f"{'the same bits' if same else 'not the same bits'} (slices {'' if aligned else 'not '}all aligned)")
+        return {}
+    sz = lambda t: t.numel() * t.element_size()
+    ins = sz(logits) + sz(x) + sz(mu) + sz(logvar) + sz(beta)
+    n_w, n_n = logits.numel(), mu.numel()
+    fwd_bound, fwd_by = bound_ms(ins + 4 * lanes, FWD_OPS[0] * n_w + FWD_OPS[1] * n_n)
+    bwd_bound, bwd_by = bound_ms(ins + sz(g) + sz(logits) + sz(mu) + sz(logvar), BWD_OPS[0] * n_w + BWD_OPS[1] * n_n)
+    calls = {
+        "fwd": (lambda: E.elbo_fwd_lanes_cuda(*args), "elbo_fwd_lanes"),
+        "fwd_plain": (lambda: E.elbo_fwd_lanes_plain(*args), ""),
+        "fwd_singles": (lambda: [E.elbo_fwd_cuda(logits[j], x[j], mu[j], logvar[j], 1.0) for j in range(lanes)], "elbo_fwd"),
+        "bwd": (lambda: E.elbo_bwd_lanes_cuda(*args, g), "elbo_bwd_lanes"),
+        "bwd_plain": (lambda: E.elbo_bwd_lanes_plain(*args, g), ""),
+        "bwd_singles": (lambda: [E.elbo_bwd_cuda(logits[j], x[j], mu[j], logvar[j], 1.0, g[j]) for j in range(lanes)], "elbo_bwd"),
+    }
+    times = {}
+    for key, (fn, name) in calls.items():
+        times[f"{key}_call_ms"] = time_ms(fn)
+        times[f"{key}_ms"], times[f"{key}_from"] = device_time(fn, name)
+        if key in ("fwd", "bwd", "fwd_singles", "bwd_singles"):
+            times[f"{key}_graph_ms"] = graph_ms(fn)
+    times["fwd_kernels_per_call"] = kernels_per_call(calls["fwd"][0])
+    times["bwd_kernels_per_call"] = kernels_per_call(calls["bwd"][0])
+    print(
+        f"kernel {tag}: elbo_fwd_lanes kernel_ms={times['fwd_ms']:.6f} call_ms={times['fwd_call_ms']:.6f} "
+        f"graph_ms={times['fwd_graph_ms']:.6f} plain_ms={times['fwd_plain_ms']:.6f} "
+        f"{lanes} single launches ms={times['fwd_singles_ms']:.6f} (graph {times['fwd_singles_graph_ms']:.6f}) "
+        f"bound_us={fwd_bound * 1e3:.4f} ({fwd_by}) rel_err={rel:.3e} | "
+        f"elbo_bwd_lanes kernel_ms={times['bwd_ms']:.6f} call_ms={times['bwd_call_ms']:.6f} "
+        f"graph_ms={times['bwd_graph_ms']:.6f} plain_ms={times['bwd_plain_ms']:.6f} "
+        f"{lanes} single launches ms={times['bwd_singles_ms']:.6f} (graph {times['bwd_singles_graph_ms']:.6f}) "
+        f"bound_us={bwd_bound * 1e3:.4f} ({bwd_by}) max_abs_err={bwd_err:.3e} "
+        f"| device kernels per call: {times['fwd_kernels_per_call']}, {times['bwd_kernels_per_call']} ({launch}) "
+        f"| bit-identical reruns, 100 graph replays and {lanes} single-trial launches | device ms from: "
+        + ", ".join(f"{k} {times[f'{k}_from']}" for k in calls) + f" ({smi})"
+    )
+    return {**times, "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by, "bwd_bound_ms": bwd_bound,
+            "bwd_bound_by": bwd_by, "fwd_err": fwd_err, "bwd_err": bwd_err, "launch": launch}
+
+
+def reseeded_generator_check() -> None:
+    """A generator registered with a CUDA graph and reseeded in place (a
+    lane's refill) draws, in the next replays, what a fresh generator of
+    that seed draws."""
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = torch.empty(128, 20, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out.copy_(torch.randn(128, 20, generator=gen, device=dev))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph, stream=side):
+        out.copy_(torch.randn(128, 20, generator=gen, device=dev))
+    graph.replay()
+    graph.replay()
+    gen.manual_seed(77)
+    got = []
+    for _ in range(2):
+        graph.replay()
+        got.append(out.clone())
+    fresh = torch.Generator(device=dev).manual_seed(77)
+    want = [torch.randn(128, 20, generator=fresh, device=dev) for _ in range(2)]
+    check(all(bool(torch.equal(a, w)) for a, w in zip(got, want)),
+          "a registered generator reseeded in place does not draw a fresh generator's numbers in the next replays")
+    print("registered generator reseeded in place: the next 2 replays draw a fresh generator's numbers, bit for bit")
+
+
+def stacked_graph_vs_eager(E, group, smi: str) -> dict:
+    """Phase 10(b): ``make_stacked_multi_step`` as CUDA-graph replays
+    against its eager loop at full width (784-400-20, batch 128, K 8 lanes
+    with mixed lr and beta), from the same weights, batches and generator
+    seeds, chunks of 10 and 8; before the third chunk lane 3 retires
+    (``active`` 0) and lane 5 refills (new weights written in place, new
+    hypers, its generator reseeded), identically in both runs. Losses,
+    parameters, moments and step counts must be bit-identical, the retired
+    lane frozen, two graphs captured (no capture for the refill), each lane
+    kernel launched once per step. Then ms per stacked step of both in
+    turns, the device's busy time and its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multidisttorch_tpu_torch.data.datasets import synthetic_mnist
+    from multidisttorch_tpu_torch.models.vae import VAE, init_vae_params
+    from multidisttorch_tpu_torch.train.steps import (
+        EagerStackedMultiStep,
+        TrialHypers,
+        _build_stacked_body,
+        create_stacked_train_state,
+        make_lane_ops,
+        make_stacked_multi_step,
+    )
+
+    dev, lanes = group.device, STACK_LANES
+    rows = 128 * lanes
+    images = torch.from_numpy(synthetic_mnist(rows * sum(STACK_CHUNKS), seed=9).images).to(dev)
+    chunks, i = [], 0
+    for s in STACK_CHUNKS:
+        chunks.append(images[rows * i : rows * (i + s)].reshape(s, lanes, 128, -1))
+        i += s
+    steps = sum(STACK_CHUNKS)
+    lrs = [1e-3, 2e-3, 5e-4, 1e-3, 3e-3, 1e-3, 2e-3, 1e-3]
+    betas = [1.0, 1.0, 2.0, 4.0, 1.0, 0.5, 1.0, 3.0]
+    _, write = make_lane_ops(group)
+    runs, kept = {}, {}
+    for mode in ("eager", "graph"):
+        state = create_stacked_train_state(group, [init_vae_params(VAE(), s) for s in range(lanes)])
+        hypers = TrialHypers.stack(lrs, betas, device=dev)
+        gens = [torch.Generator(device=dev).manual_seed(1000 + j) for j in range(lanes)]
+        multi = (make_stacked_multi_step(group) if mode == "graph"
+                 else EagerStackedMultiStep(_build_stacked_body(group, True, 1)))
+        check(multi.graphed == (mode == "graph"), f"make_stacked_multi_step {mode}: graphed is {multi.graphed}")
+        for k in E.LAUNCHES:
+            E.LAUNCHES[k] = 0
+        losses, frozen = [], None
+        for ci, c in enumerate(chunks):
+            if ci == 2:
+                hypers.set_lane(3, 1e-3, 1.0, 0.0)
+                write(state, init_vae_params(VAE(), 99), 5)
+                hypers.set_lane(5, 4e-3, 2.0, 1.0)
+                gens[5].manual_seed(4242)
+                # Detached: a view of a parameter with a grad_fn would keep its
+                # AccumulateGrad node (made on this stream) alive into the capture.
+                frozen = ({k: v.detach()[3].clone() for k, v in state.params.items()}, float(state.count[3]))
+            state, m = multi(state, hypers, c, generators=gens)
+            losses.append(m["loss_sum"])
+        torch.cuda.synchronize()
+        runs[mode] = (torch.cat(losses), {k: v.detach().clone() for k, v in state.params.items()},
+                      [t.clone() for t in state.exp_avg + state.exp_avg_sq], state.count.clone(), dict(E.LAUNCHES))
+        kept[mode] = (multi, state, hypers, gens)
+        check(all(bool(torch.equal(v[3], frozen[0][k])) for k, v in state.params.items())
+              and float(state.count[3]) == frozen[1], f"{mode}: the retired lane 3 moved")
+        for k, n in E.LAUNCHES.items():
+            want = steps if k.endswith("_lanes") else 0
+            check(n == want, f"stacked {mode}: {k} counted {n} launches in {steps} steps, expected {want}")
+    (le, pe, me, ce, _), (lg, pg, mg, cg, launches) = runs["eager"], runs["graph"]
+    graphed = kept["graph"][0]
+    check(graphed.replays == len(STACK_CHUNKS) - 1 and len(graphed._graphs) == 2,
+          f"stacked graph: {graphed.replays} replays, {len(graphed._graphs)} graphs")
+    check(bool(torch.isfinite(lg).all()) and lg.shape == (steps, lanes), f"stacked graph: losses {lg.shape}")
+    check(bool(torch.equal(le, lg)), f"stacked graph vs eager: losses differ (max {float((le - lg).abs().max()):.3e})")
+    for k in pe:
+        check(bool(torch.equal(pe[k], pg[k])), f"stacked graph vs eager: param {k} differs")
+    check(all(bool(torch.equal(a, b)) for a, b in zip(me, mg)) and bool(torch.equal(ce, cg)),
+          "stacked graph vs eager: Adam's moments or step counts differ")
+    print(f"stacked multi-step K {lanes} lanes vs eager loop, 784-400-20 batch 128, chunks {list(STACK_CHUNKS)}, "
+          f"lane 3 retired and lane 5 refilled before the third: {steps} x {lanes} losses, every parameter, "
+          f"moment and step count bit-identical; retired lane frozen; {graphed.replays} replays of "
+          f"{len(graphed._graphs)} graphs; launches {launches}; counts {cg.tolist()}")
+
+    per = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        multi, state, hypers, gens = kept[mode]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STACK_TIMING_CHUNKS):
+            state, _ = multi(state, hypers, chunks[0], generators=gens)
+        torch.cuda.synchronize()
+        per[mode].append((time.perf_counter() - t0) / (STACK_TIMING_CHUNKS * 10) * 1e3)
+    res = {}
+    for mode in ("eager", "graph"):
+        multi, state, hypers, gens = kept[mode]
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    state, _ = multi(state, hypers, chunks[0], generators=gens)
+                torch.cuda.synchronize()
+            seen = sum(e.count for e in prof.key_averages() if "elbo_fwd_lanes" in e.key and e.device_time_total > 0)
+            if seen == 50:
+                break
+        by_kernel = sorted(((e.device_time_total / 50 / 1e3, e.count / 50, e.key) for e in prof.key_averages()
+                            if e.device_time_total > 0), reverse=True)
+        busy = sum(k[0] for k in by_kernel) if seen == 50 else 0.0
+        ms = statistics.fmean(per[mode])
+        res[mode] = {"ms_per_step": ms, "busy_ms": busy or None, "idle": (1 - busy / ms) if busy else None,
+                     "by_kernel": by_kernel}
+        busy_s = (f"device busy not measured, idle share not measured (the profiler saw {seen} of 50 "
+                  "elbo_fwd_lanes launches)" if not busy
+                  else f"device busy {busy * 1e3:.3f} us/step, idle share {1 - busy / ms:.3f}")
+        print(f"stacked VAE train step, K {lanes} lanes ({mode}{', one CUDA graph per chunk of 10' if mode == 'graph' else ' loop'}): "
+              f"{ms:.6f} ms/step (rounds " + ", ".join(f"{v:.6f}" for v in per[mode]) + f"), {busy_s}, "
+              f"{lanes * 128 / ms * 1e3:.1f} samples/s ({smi})")
+        if mode == "graph":
+            print(f"stacked VAE train step (graph): {sum(k[1] for k in by_kernel):.0f} device kernels per step; "
+                  "device us per step by kernel (launches per step), top 14: "
+                  + "; ".join(f"{t * 1e3:.3f} ({n:g}) {key[:60]}" for t, n, key in by_kernel[:14]))
+    return res
+
+
+def stacked_sweep(E, group, smi: str, train, test, slice_samples_s: float) -> dict:
+    """Phase 10(c), the main path of trial stacking: ``run_hpo`` with 12
+    configs (mixed lr and beta, 1 or 2 epochs) on one group with
+    ``stack_trials=True`` and K 8 lanes, so lanes retire and refill; counts
+    set to 0 just before, read just after. Every result completed,
+    stacked and finite; each lane kernel launched once per stacked step;
+    then lane 0's config run unstacked, its final losses within
+    ``STACK_LOSS_RTOL``. Returns the launches."""
+    from multidisttorch_tpu_torch.hpo.driver import TrialConfig, run_hpo
+
+    per_epoch = len(train) // 128
+    configs = [
+        TrialConfig(trial_id=i, epochs=1 + i % 2, batch_size=128, seed=i, fused_steps=10,
+                    lr=(1e-3, 2e-3, 5e-4)[i % 3], beta=(1.0, 2.0, 0.5, 4.0)[i % 4])
+        for i in range(12)
+    ]
+    for k in E.LAUNCHES:
+        E.LAUNCHES[k] = 0
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        results = run_hpo(configs, train, test, groups=[group], out_dir=tmp, stack_trials=True,
+                          stack_max_lanes=STACK_LANES, verbose=False)
+        torch.cuda.synchronize()
+        sweep_s = time.time() - t0
+        launches = dict(E.LAUNCHES)
+        check(all(os.path.exists(r.checkpoint) for r in results), "stacked sweep: a lane checkpoint is missing")
+    # 8 lanes: round 1 runs configs 0-7; the 1-epoch ones retire and 8-11
+    # refill; round 2 retires 1, 3, 5, 7, 8 and 10; round 3 runs 9 and 11
+    # with six lanes masked.
+    rounds = 3
+    check(len(results) == 12, f"stacked sweep: {len(results)} results")
+    for r in results:
+        check(r.status == "completed" and r.stacked, f"trial {r.trial_id}: {r.status} stacked={r.stacked} {r.error}")
+        check(r.steps == r.config.epochs * per_epoch and len(r.history) == r.config.epochs,
+              f"trial {r.trial_id}: {r.steps} steps, {len(r.history)} epochs")
+        check(math.isfinite(r.final_train_loss) and math.isfinite(r.final_test_loss),
+              f"trial {r.trial_id}: non-finite losses {r.final_train_loss} {r.final_test_loss}")
+        check(r.host_syncs == 2 * r.config.epochs, f"trial {r.trial_id}: {r.host_syncs} host syncs")
+    stacked_steps = rounds * per_epoch
+    for k in ("elbo_fwd_lanes", "elbo_bwd_lanes"):
+        check(launches[k] == stacked_steps, f"stacked sweep: {k} launched {launches[k]} times in {stacked_steps} stacked steps")
+    # Lane 0's config, unstacked through the graphed single-trial path.
+    with tempfile.TemporaryDirectory() as tmp:
+        (u,) = run_hpo([configs[0]], train, test, groups=[group], out_dir=tmp, verbose=False, save_checkpoints=False)
+    s0 = results[0]
+    rel_train = abs(s0.final_train_loss - u.final_train_loss) / abs(u.final_train_loss)
+    rel_test = abs(s0.final_test_loss - u.final_test_loss) / abs(u.final_test_loss)
+    check(rel_train <= STACK_LOSS_RTOL and rel_test <= STACK_LOSS_RTOL,
+          f"lane 0 vs unstacked: train {s0.final_train_loss} vs {u.final_train_loss} (rel {rel_train:.2e}), "
+          f"test {s0.final_test_loss} vs {u.final_test_loss} (rel {rel_test:.2e}), tolerance {STACK_LOSS_RTOL}")
+    lane_samples = sum(r.steps for r in results) * 128
+    for r in results:
+        print(f"stacked trial {r.trial_id}: lr {r.config.lr} beta {r.config.beta} {r.steps} steps, "
+              f"train {r.final_train_loss:.4f}, test {r.final_test_loss:.4f}, {r.graph_replays} replays in its lifetime")
+    print(f"stacked sweep: 12 configs, K {STACK_LANES} lanes, {rounds} rounds of {per_epoch} stacked steps in "
+          f"{sweep_s:.3f} s (eval, 12 checkpoints and 3 captures included): {lane_samples / sweep_s:.1f} aggregate "
+          f"train samples/s against the single-trial graphed slice's {slice_samples_s:.1f}; launches {launches} ({smi})")
+    print(f"lane 0 vs the same config unstacked: train {s0.final_train_loss:.6f} vs {u.final_train_loss:.6f} "
+          f"(rel {rel_train:.3e}), test {s0.final_test_loss:.6f} vs {u.final_test_loss:.6f} (rel {rel_test:.3e}); "
+          f"tolerance rel {STACK_LOSS_RTOL}")
+    return launches
+
+
 class _Lines(logging.Handler):
     def __init__(self):
         super().__init__()
@@ -1283,7 +1611,9 @@ def main() -> None:
             f"{r.graph_replays} graph replays, wall {r.wall_s:.3f} s (eval and epoch ends included), "
             f"samples/s {r.steps * 128 / r.wall_s:.1f} ({smi})"
         )
-    print(f"slice: {steps} train steps in {sweep_s:.3f} s, checkpoints on; launches {launches}")
+    slice_samples_s = steps * 128 / sweep_s
+    print(f"slice: {steps} train steps in {sweep_s:.3f} s, checkpoints on, {slice_samples_s:.1f} train samples/s; "
+          f"launches {launches}")
     # The slice's wall time with checkpoints off and on, in alternating
     # rounds (off, on, on, off, twice), log lines off.
     walls = {True: [], False: []}
@@ -1330,7 +1660,17 @@ def main() -> None:
     # Phase 9: the LM slice; counts set to 0 inside, just before each part.
     lm_launches, lm_variants = lm_slice(A, group, smi)
 
-    # Phase 10: the kernels line, then the result.
+    # Phase 10: trial stacking; counts set to 0 inside (c), just before the
+    # stacked sweep.
+    lane_main = lane_kernel_vs_plain(E, STACK_LANES, 128, 784, 20, torch.float32, smi=smi)
+    lane_kernel_vs_plain(E, 3, 37, 784, 20, torch.float32, timed=False)
+    lane_kernel_vs_plain(E, 3, 37, 783, 5, torch.bfloat16, timed=False)
+    lane_kernel_vs_plain(E, STACK_LANES, 128, 784, 20, torch.bfloat16, timed=False)
+    reseeded_generator_check()
+    stacked_graph_vs_eager(E, group, smi)
+    stack_launches = stacked_sweep(E, group, smi, train, test, slice_samples_s)
+
+    # Phase 11: the kernels line, then the result.
     # "ms", "plain_ms" and "library_ms" are device time per call at the
     # slice's shape (batch 128, f32); "*_call_ms" add the host's per-call
     # cost; "graph_ms" is per call replayed from a CUDA graph, "cold_ms"
@@ -1373,6 +1713,23 @@ def main() -> None:
                                     if key.startswith(f"{name}:")},
             **flash_main[name],
             "grid_launches_per_call": 1,
+        })
+    # Lane rows: device time per call at the stacked path's shape (K 8, batch
+    # 128, f32); "singles_ms" is 8 launches of the single-trial kernel on the
+    # same operands; no single PyTorch call computes per-lane sums, so
+    # "library_ms" is null. "launches" counts the stacked sweep's (phase 10c).
+    for name, key, line in (("elbo_fwd_lanes", "fwd", 134), ("elbo_bwd_lanes", "bwd", 163)):
+        m = lane_main
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": f"multidisttorch_tpu/ops/pallas_elbo.py:{line}",
+            "launches": stack_launches[name], "max_abs_err": m[f"{key}_err"],
+            "ms": m[f"{key}_ms"], "plain_ms": m[f"{key}_plain_ms"],
+            "bound_ms": m[f"{key}_bound_ms"], "bound_by": m[f"{key}_bound_by"], "library_ms": None,
+            "call_ms": m[f"{key}_call_ms"], "plain_call_ms": m[f"{key}_plain_call_ms"],
+            "graph_ms": m[f"{key}_graph_ms"], "singles_ms": m[f"{key}_singles_ms"],
+            "singles_graph_ms": m[f"{key}_singles_graph_ms"], "ms_from": m[f"{key}_from"],
+            "grid_launches_per_call": m[f"{key}_kernels_per_call"], "launch": m["launch"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -126,6 +126,93 @@ class TrialDataIterator:
         return self.num_batches * self.batch_size
 
 
+class StackedTrialDataIterator:
+    """K lockstep trial data streams, gathered ``(K, B, ...)`` per step: the
+    feed of a stacked bucket (``hpo/driver.py``; ``train/steps.py``'s
+    stacked steps).
+
+    Lane ``k`` replays exactly the stream of a :class:`TrialDataIterator`
+    with ``seed=seeds[k]``: the same (seed, epoch) permutation and the same
+    drop-tail batch boundaries; all K lanes' rows of a step come from one
+    host gather and one copy to the device. Lanes advance in lockstep
+    rounds of ``num_batches`` steps (they share the batch size and the
+    dataset, so their epochs align to rounds); :meth:`set_lane` rebinds a
+    lane to a new seed mid-sweep (a refill starts its own epoch 1 while the
+    other lanes continue). On a group of several ranks each rank takes its
+    contiguous share of every lane's batch.
+
+    Every lane reads the one ``dataset``: the JAX package's per-lane
+    datasets (``datasets=``) wait for ROADMAP A.12, where
+    ``TrialConfig.dataset`` is ported, and its native gatherer for A.4b.
+    """
+
+    def __init__(self, dataset: Dataset, group: TrialGroup, batch_size: int, seeds):
+        _check_divisible(batch_size, group)
+        if not seeds:
+            raise ValueError("stacked iterator needs at least one lane")
+        self.dataset = dataset
+        self.group = group
+        self.batch_size = batch_size
+        self.num_lanes = len(seeds)
+        self.num_batches = len(dataset) // batch_size
+        if self.num_batches == 0:
+            raise ValueError(f"dataset of {len(dataset)} rows smaller than one batch of {batch_size}")
+        # (seed, epoch) determines a lane's permutation, as for one trial.
+        self._lanes = [{"seed": s, "epoch": 1} for s in seeds]
+
+    def set_lane(self, k: int, seed: int, epoch: int = 1) -> None:
+        """Rebind lane ``k`` to a fresh (seed, epoch) stream (a refill)."""
+        self._lanes[k] = {"seed": seed, "epoch": epoch}
+
+    @property
+    def samples_per_epoch(self) -> int:
+        """Rows each lane consumes per round (drop-tail, like the
+        unstacked iterator)."""
+        return self.num_batches * self.batch_size
+
+    def _round_perms(self) -> np.ndarray:
+        """``(K, rows)``: each lane's permutation for its current epoch."""
+        rows = np.arange(len(self.dataset))
+        return np.stack([epoch_permutation(lane["seed"], lane["epoch"], rows) for lane in self._lanes])
+
+    def _host_round(self):
+        """Host ``(K, B, D)`` arrays for one lockstep round, then every
+        lane's epoch advances."""
+        perms, bs = self._round_perms(), self.batch_size
+        for b in range(self.num_batches):
+            idx = perms[:, b * bs : (b + 1) * bs].reshape(-1)
+            yield self.dataset.images[idx].reshape(self.num_lanes, bs, -1)
+        for lane in self._lanes:
+            lane["epoch"] += 1
+
+    def _put(self, rows: np.ndarray, axis: int) -> torch.Tensor:
+        return _to_device(_local_rows(rows, self.group, axis), self.group.device)
+
+    def round_batches(self) -> Iterator[torch.Tensor]:
+        """One lockstep round as per-step ``(K, rows, ...)`` device batches."""
+        for stacked in self._host_round():
+            yield self._put(stacked, axis=1)
+
+    def round_chunks(self, k_steps: int) -> Iterator:
+        """One lockstep round as ``(start_batch_index, (S, K, rows, ...))``
+        chunks, the last possibly shorter: the same boundaries as
+        :meth:`TrialDataIterator.epoch_chunks`."""
+        if k_steps < 1:
+            raise ValueError(f"chunk size must be >= 1, got {k_steps}")
+
+        def chunks():
+            buf, start = [], 0
+            for i, stacked in enumerate(self._host_round()):
+                buf.append(stacked)
+                if len(buf) == k_steps:
+                    yield start, self._put(np.stack(buf), axis=2)
+                    start, buf = i + 1, []
+            if buf:
+                yield start, self._put(np.stack(buf), axis=2)
+
+        return chunks()
+
+
 class EvalDataIterator:
     """Full-coverage eval feed: every row, in dataset order; the final
     batch is zero-padded to ``batch_size`` and paired with 0/1 weights."""

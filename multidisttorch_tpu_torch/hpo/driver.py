@@ -33,10 +33,16 @@ from the seed (ROADMAP C.5). Initial weights come from the module-level
 :func:`init_vae_params`, so a test can substitute weights carried across
 from the JAX package.
 
+``stack_trials=True`` runs same-shape configs K at a time on one group
+(:class:`_StackedBucketRun`, the JAX package's trial stacking): one stacked
+program advances K trials, through one CUDA graph per chunk on a card;
+lanes retire at their own epoch targets and are refilled in place from the
+bucket's queue, or masked when it is dry, with no new capture.
+
 What this slice does not port raises ``NotImplementedError`` naming its
-ROADMAP item: stacking, fault plans, profiling, the compile farm, weight
-sharding and model parallel, pipeline stages, remat and per-trial dataset
-references.
+ROADMAP item: fault plans, profiling, the compile farm, weight sharding and
+model parallel, pipeline stages, remat, other model families and
+per-trial dataset references.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from __future__ import annotations
 import base64
 import json
 import logging
+import math
 import os
 import threading
 import time
@@ -55,7 +62,7 @@ import numpy as np
 import torch
 
 from multidisttorch_tpu_torch.data.datasets import Dataset
-from multidisttorch_tpu_torch.data.sampler import EvalDataIterator, TrialDataIterator
+from multidisttorch_tpu_torch.data.sampler import EvalDataIterator, StackedTrialDataIterator, TrialDataIterator
 from multidisttorch_tpu_torch.hpo.ledger import SweepLedger, config_hash
 from multidisttorch_tpu_torch.hpo.supervision import (
     DIVERGENCE,
@@ -78,12 +85,17 @@ from multidisttorch_tpu_torch.train.checkpoint import (
     train_state_to_tree,
     valid_candidates_by_step,
 )
-from multidisttorch_tpu_torch.train.guards import check_finite
+from multidisttorch_tpu_torch.train.guards import DivergenceError, check_finite
 from multidisttorch_tpu_torch.train.steps import (
+    TrialHypers,
+    create_stacked_train_state,
     create_train_state,
     make_eval_step,
+    make_lane_ops,
     make_multi_step,
     make_sample_step,
+    make_stacked_eval_step,
+    make_stacked_multi_step,
 )
 from multidisttorch_tpu_torch.utils.imaging import save_image_grid
 from multidisttorch_tpu_torch.utils.logging import log0, log0_enabled
@@ -153,8 +165,6 @@ _UNPORTED_FIELDS = {
 
 # run_hpo arguments this slice does not port: (inert value, ROADMAP item).
 _UNPORTED_ARGS = {
-    "stack_trials": (False, "A.7 (trial stacking)"),
-    "stack_max_lanes": (8, "A.7 (trial stacking)"),
     "precompile": (None, "A.9 (compile and dispatch)"),
     "fault_plan": (None, "A.10 (faults and telemetry)"),
     "profile_dir": (None, "A.10 (faults and telemetry)"),
@@ -182,6 +192,22 @@ def _stream_seed(seed: int, rank: int, stream: int) -> int:
 
 # The checkpoint sidecar's key for the trial's generator states.
 GENERATORS_KEY = "torch_generators"
+
+
+def _gather_generator_states(group: TrialGroup, generators: dict) -> dict:
+    """Every group rank's states of ``generators`` (name -> generator),
+    base64, in rank order; a collective on a multi-rank group, so every
+    rank calls it at the same point."""
+    out = {}
+    for name, gen in generators.items():
+        state = gen.get_state()
+        if group.size > 1:
+            state = group_all_gather(group, state.to(group.device)).cpu()
+        out[name] = [
+            base64.b64encode(part.numpy().tobytes()).decode("ascii")
+            for part in state.view(group.size, -1)
+        ]
+    return out
 
 
 def config_mismatch_vs_meta(cfg: TrialConfig, meta: dict) -> dict:
@@ -429,20 +455,6 @@ class _TrialRun:
                 raw = base64.b64decode(per_rank[self.group.local_rank])
                 gen.set_state(torch.frombuffer(bytearray(raw), dtype=torch.uint8))
 
-    def _generator_states(self) -> dict:
-        """Every group rank's generator states, base64, in rank order; a
-        collective on a multi-rank group, so every rank calls it at the
-        same boundary."""
-        out = {}
-        for name, gen in self._generators.items():
-            state = gen.get_state()
-            if self.group.size > 1:
-                state = group_all_gather(self.group, state.to(self.group.device)).cpu()
-            out[name] = [
-                base64.b64encode(part.numpy().tobytes()).decode("ascii")
-                for part in state.view(self.group.size, -1)
-            ]
-        return out
 
     @contextmanager
     def _guard(self):
@@ -607,7 +619,7 @@ class _TrialRun:
                 # states are gathered on every rank; the writer takes host
                 # copies of the state here, before the next chunk changes
                 # it, and a background thread serialises and writes them.
-                generators = self._generator_states()
+                generators = _gather_generator_states(self.group, self._generators)
                 if self._is_writer:
                     with self._guard():
                         tree = train_state_to_tree(self.state)
@@ -655,6 +667,295 @@ class _TrialRun:
                     )
         self._agree_boundary("completion work")
         self._log(f"Done. time: {self.result.wall_s:f}")
+
+
+# --- trial stacking: same-shape configs K at a time on one group ---
+
+
+def stack_bucket_key(cfg: TrialConfig) -> tuple:
+    """The shape signature under which trials may share one stacked
+    program: everything that changes an array shape or the step's
+    structure. The scalar hypers (lr, beta, seed) and the epoch target stay
+    out: they are the lane axis."""
+    return (cfg.batch_size, cfg.hidden_dim, cfg.latent_dim, cfg.fused_steps, cfg.grad_accum, cfg.remat)
+
+
+def config_is_stackable(cfg: TrialConfig) -> bool:
+    """Whether a config can ride a stacked bucket: the stacked eval is the
+    posterior mean only, so ``eval_sampled`` runs its own path (as do a
+    sharded update and pipeline stages, which the port does not run yet)."""
+    return not cfg.eval_sampled and not cfg.zero_update and cfg.pipeline_stages == 1
+
+
+def data_shape_sig(ds: Dataset, batch_size: int) -> tuple:
+    """The dataset's half of a co-pack decision: feature dim (the batch
+    shape) and batches per epoch (the lockstep round), not its identity."""
+    return (int(ds.images.shape[1]), len(ds) // max(1, int(batch_size)))
+
+
+class _StackedBucketRun:
+    """One bucket of same-shape configs, K at a time on one group, as a
+    cooperative generator (the stacked sibling of :class:`_TrialRun`).
+
+    All lanes advance in lockstep rounds of ``num_batches`` steps (one
+    round is one epoch of every lane: they share the dataset and the batch
+    size); each unit of work is one chunk of ``fused_steps`` steps of every
+    lane (one CUDA-graph replay on a card), an epoch's shorter tail one step
+    at a time. After a round, one fetch brings every lane's train sum and
+    one its test sum (two host syncs per round for all lanes). A lane that
+    reaches its config's epoch target retires (its result, ``metrics.json``
+    with ``"stacked": true``, its checkpoint in an unstacked trial's tree
+    and metadata, its ledger row) and is refilled in place from the queue,
+    or masked when the queue is dry; a lane whose epoch loss is not finite
+    is a recorded ``diverged`` result, and the other lanes go on. Refill
+    and masking copy into the tensors the graphs hold (parameters, moments,
+    step counts, hypers, generator states): nothing is captured anew.
+
+    Each lane's noise comes from its own generator, seeded as the unstacked
+    trial's (:func:`_stream_seed`), so on the CPU a stacked trial trains to
+    the unstacked trial's bits. Stacked lanes checkpoint only at retirement.
+
+    Not ported here: the drain (``request_drain``, ``drain_snapshot``,
+    ROADMAP A.12), AOT admission of the programs (A.9), the metrics
+    registry, bus events and the device books (A.10), and the fault
+    injector's lane hooks with the lane retry they drive (A.10).
+    """
+
+    def __init__(
+        self,
+        group: TrialGroup,
+        items,
+        train_data: Dataset,
+        test_data: Optional[Dataset],
+        out_dir: str,
+        *,
+        max_lanes: int = 8,
+        save_checkpoint: bool = True,
+        verbose: bool = True,
+        ledger: Optional[SweepLedger] = None,
+        attempts: Optional[dict] = None,
+        chashes: Optional[dict] = None,
+    ):
+        template = items[0][1]
+        for _, cfg in items:
+            if stack_bucket_key(cfg) != stack_bucket_key(template):
+                raise ValueError(
+                    f"stacked bucket mixes shape keys: {stack_bucket_key(cfg)} vs {stack_bucket_key(template)}"
+                )
+        self.group = group
+        self.out_dir = out_dir
+        self.queue = list(items)
+        self.results: dict[int, TrialResult] = {}
+        self._train_data = train_data
+        self._save_checkpoint = save_checkpoint
+        self._ckpt_format = default_format()
+        self._verbose = verbose
+        self._host_syncs = 0
+        self._is_writer = group.is_writer_process
+        self._ledger = ledger
+        self._attempts = attempts if attempts is not None else {}
+        self._chashes = chashes if chashes is not None else {}
+        self._dims = (template.hidden_dim, template.latent_dim)
+        self.fused = template.fused_steps
+
+        k = min(len(self.queue), max_lanes)
+        first = [self.queue.pop(0) for _ in range(k)]
+        dev = group.device
+        self.data = StackedTrialDataIterator(train_data, group, template.batch_size, [c.seed for _, c in first])
+        self.test_iter = (
+            EvalDataIterator(test_data, group, template.batch_size)
+            if test_data is not None and len(test_data) > 0
+            else None
+        )
+        self.multi = make_stacked_multi_step(group, grad_accum=template.grad_accum)
+        self.seval = make_stacked_eval_step(group) if self.test_iter is not None else None
+        self.read_lane, self.write_lane = make_lane_ops(group)
+        self.state = create_stacked_train_state(group, [self._init_model(c.seed) for _, c in first])
+        # (K,) on the device, changed in place: the graphs read them.
+        self.hypers = TrialHypers.stack([c.lr for _, c in first], [c.beta for _, c in first], device=dev)
+        self.generators = [torch.Generator(device=dev).manual_seed(self._noise_seed(c)) for _, c in first]
+        # Per-lane host bookkeeping; None = lane masked (queue dry).
+        self.lanes: list[Optional[dict]] = [self._fresh_lane(i, c) for i, c in first]
+        for lane in self.lanes:
+            self._note_attempt_start(lane)
+
+    def _init_model(self, seed: int) -> VAE:
+        return init_vae_params(VAE(hidden_dim=self._dims[0], latent_dim=self._dims[1]), seed)
+
+    def _noise_seed(self, cfg: TrialConfig) -> int:
+        return _stream_seed(cfg.seed, self.group.local_rank, 0)
+
+    def _fresh_lane(self, idx: int, cfg: TrialConfig) -> dict:
+        return {"idx": idx, "cfg": cfg, "epochs_done": 0, "history": [], "steps": 0, "t0": time.time(),
+                "syncs0": self._host_syncs, "replays0": self.multi.replays}
+
+    def _log(self, *args, level: int = logging.INFO):
+        if self._verbose:
+            log0(*args, trial=self.group, level=level)
+
+    def _note_attempt_start(self, lane: dict) -> None:
+        idx = lane["idx"]
+        self._attempts[idx] = self._attempts.get(idx, 0) + 1
+        if self._ledger is not None:
+            self._ledger.attempt_start(lane["cfg"].trial_id, self._chashes.get(idx, ""), self._attempts[idx])
+
+    def _note_attempt_end(self, lane: dict, status: str, *, error: str = "", summary=None) -> None:
+        if self._ledger is not None:
+            idx = lane["idx"]
+            self._ledger.attempt_end(lane["cfg"].trial_id, self._chashes.get(idx, ""), self._attempts.get(idx, 1),
+                                     status, error=error, summary=summary)
+
+    def live_items(self) -> list:
+        """The configs riding a lane now (their attempts have started)."""
+        return [(lane["idx"], lane["cfg"]) for lane in self.lanes
+                if lane is not None and lane["idx"] not in self.results]
+
+    def lane_progress(self, idx: int) -> Optional[dict]:
+        """Executed work of config ``idx`` if it rides a lane (stacked lanes
+        start from scratch)."""
+        for lane in self.lanes:
+            if lane is not None and lane["idx"] == idx:
+                return {"resumed_from_step": 0, "steps_at_failure": lane["steps"]}
+        return None
+
+    def record_preempted(self, error_text: str) -> None:
+        """The ledger's ``preempted`` row for every live lane, when a
+        preemption elsewhere ends the sweep."""
+        for lane in self.lanes:
+            if lane is not None:
+                self._note_attempt_end(lane, "preempted", error=error_text, summary=self.lane_progress(lane["idx"]))
+
+    def _result(self, k: int, **kw) -> TrialResult:
+        lane = self.lanes[k]
+        cfg = lane["cfg"]
+        return TrialResult(
+            trial_id=cfg.trial_id, group_id=self.group.group_id, config=cfg, history=list(lane["history"]),
+            out_dir=os.path.join(self.out_dir, f"trial-{cfg.trial_id}"), steps=lane["steps"],
+            wall_s=time.time() - lane["t0"], host_syncs=self._host_syncs - lane["syncs0"],
+            graph_replays=self.multi.replays - lane["replays0"], dataset=self._train_data.name,
+            dataset_synthetic=self._train_data.synthetic, stacked=True,
+            attempt=self._attempts.get(lane["idx"], 1), **kw,
+        )
+
+    def _diverge_lane(self, k: int, avg: float) -> None:
+        """A non-finite epoch loss on lane ``k``: a terminal ``diverged``
+        result (never retried: the config reproduces it); the lane refills."""
+        lane = self.lanes[k]
+        err = DivergenceError("lane epoch average train loss", avg, step=lane["steps"], trial_id=lane["cfg"].trial_id)
+        result = self._result(k, status="diverged", error=str(err))
+        self.results[lane["idx"]] = result
+        self._note_attempt_end(lane, "diverged", error=str(err), summary=_result_summary(result))
+        self._log(f"Trial {lane['cfg'].trial_id} DIVERGED (stacked lane {k}, non-finite loss at step "
+                  f"{lane['steps']}); lane freed")
+        self._refill_or_mask(k)
+
+    def _retire(self, k: int) -> None:
+        """Lane ``k`` reached its epoch target: its result, metrics and
+        checkpoint, then refill or mask."""
+        lane = self.lanes[k]
+        cfg: TrialConfig = lane["cfg"]
+        last = lane["history"][-1]
+        result = self._result(k, final_train_loss=last["avg_train_loss"],
+                              final_test_loss=last.get("test_loss", float("nan")))
+        if self._save_checkpoint:
+            # The unstacked trial's tree and metadata: an unstacked resume
+            # finds the trial complete. Gathered on every rank.
+            generators = _gather_generator_states(self.group, {"train": self.generators[k]})
+        if self._is_writer:
+            if self._save_checkpoint:
+                ckpt = os.path.join(result.out_dir, "state.msgpack")
+                lane_state = self.read_lane(self.state, k)
+                save_state(lane_state, ckpt, format=self._ckpt_format, metadata={
+                    **asdict(cfg), "completed_epochs": lane["epochs_done"], "step": lane_state.step,
+                    "history": list(lane["history"]), GENERATORS_KEY: generators,
+                })
+                result.checkpoint = ckpt
+            os.makedirs(result.out_dir, exist_ok=True)
+            with open(os.path.join(result.out_dir, "metrics.json"), "w") as f:
+                json.dump({
+                    "trial_id": result.trial_id, "group_id": result.group_id, "config": asdict(cfg),
+                    "dataset": result.dataset, "dataset_synthetic": result.dataset_synthetic,
+                    "history": result.history, "wall_s": result.wall_s, "steps": result.steps, "stacked": True,
+                }, f, indent=2)
+        self.results[lane["idx"]] = result
+        self._note_attempt_end(lane, "completed", summary=_result_summary(result))
+        self._log(f"Trial {cfg.trial_id} done (stacked lane {k}). time: {result.wall_s:f}")
+        self._refill_or_mask(k)
+
+    def _refill_or_mask(self, k: int) -> None:
+        """Pop the next queued config into lane ``k``, in place (weights,
+        moments, step count, hypers, data stream, generator), or mask the
+        lane (``active`` 0) when the queue is dry."""
+        if self.queue:
+            idx, nxt = self.queue.pop(0)
+            self.write_lane(self.state, self._init_model(nxt.seed), k)
+            self.hypers.set_lane(k, nxt.lr, nxt.beta, 1.0)
+            self.generators[k].manual_seed(self._noise_seed(nxt))
+            self.data.set_lane(k, nxt.seed)
+            self.lanes[k] = self._fresh_lane(idx, nxt)
+            self._note_attempt_start(self.lanes[k])
+            self._log(f"Trial {nxt.trial_id} refilled into stacked lane {k} (no new capture)")
+        else:
+            self.lanes[k] = None
+            self.hypers.set_lane(k, 1e-3, 1.0, 0.0)
+
+    def _dispatch(self, chunk) -> torch.Tensor:
+        """One chunk of every lane's steps; the ``(K,)`` loss sums."""
+        self.state, metrics = self.multi(self.state, self.hypers, chunk, generators=self.generators)
+        for lane in self.lanes:
+            if lane is not None:
+                lane["steps"] += chunk.shape[0]
+        return metrics["loss_sum"].sum(0)
+
+    def run(self) -> Iterator[None]:
+        n_per_epoch = self.data.samples_per_epoch
+        while any(lane is not None for lane in self.lanes):
+            round_sum = None  # (K,) on the device until the round's fetch
+            for _, chunk in self.data.round_chunks(self.fused):
+                # A tail shorter than the chunk runs one step at a time.
+                parts = [chunk] if chunk.shape[0] == self.fused else [chunk[j : j + 1] for j in range(chunk.shape[0])]
+                for part in parts:
+                    sums = self._dispatch(part)
+                    round_sum = sums if round_sum is None else round_sum + sums
+                yield
+            self._host_syncs += 1
+            train_sums = round_sum.tolist()
+            test_sums = None
+            if self.test_iter is not None:
+                test_dev = None
+                for tbatch, tweights in self.test_iter.batches():
+                    out = self.seval(self.state, self.hypers, tbatch, tweights)["loss_sum"]
+                    test_dev = out if test_dev is None else test_dev + out
+                    yield
+                self._host_syncs += 1
+                test_sums = test_dev.tolist()
+            retiring, diverged = [], []
+            for k, lane in enumerate(self.lanes):
+                if lane is None:
+                    continue
+                lane["epochs_done"] += 1
+                avg = train_sums[k] / n_per_epoch
+                if not math.isfinite(avg):
+                    diverged.append((k, avg))
+                    continue
+                record = {"epoch": lane["epochs_done"], "avg_train_loss": avg}
+                self._log("Trial {} ====> Epoch: {} Average loss: {:.4f}".format(
+                    lane["cfg"].trial_id, lane["epochs_done"], avg))
+                if test_sums is not None:
+                    record["test_loss"] = test_sums[k] / self.test_iter.num_rows
+                    self._log("Trial {} ====> Test set loss: {:.4f}".format(
+                        lane["cfg"].trial_id, record["test_loss"]))
+                lane["history"].append(record)
+                if lane["epochs_done"] >= lane["cfg"].epochs:
+                    retiring.append(k)
+            for k, avg in diverged:
+                self._diverge_lane(k, avg)
+                yield
+            for k in retiring:
+                self._retire(k)
+                yield
+        if self.group.device.type == "cuda":
+            torch.cuda.synchronize(self.group.device)
 
 
 def predicted_cost(cfg: TrialConfig, train_rows: int) -> int:
@@ -736,11 +1037,33 @@ def run_hpo(
       trial's last valid checkpoint.
     - ``agree_timeout_s`` bounds every agreement over a multi-rank group
       (default ``MDT_AGREE_TIMEOUT_S``, else 600 s).
+    - ``stack_trials=True``, when configs outnumber groups, runs configs
+      that share a shape bucket (:func:`stack_bucket_key`: architecture,
+      batch size, ``fused_steps``; any lr, beta, seed and epochs) up to
+      ``stack_max_lanes`` at a time on one group as one stacked program
+      (:class:`_StackedBucketRun`), refilling a finished trial's lane in
+      place; unstackable configs and lone members run one per group. A
+      bucket too large to leave every group work is split. It raises on
+      contradictory settings (``resume``, ``shard_across_trials``, a
+      ``model_builder``), and stacked buckets write no image files.
 
     Returns results for the trials run here (or settled in the ledger), in
     config order.
     """
     passed = locals()
+    if stack_trials:
+        # Contradictory settings fail loudly rather than run another sweep.
+        if resume:
+            raise ValueError(
+                "stack_trials is incompatible with resume= (lane restore into a stacked bucket is "
+                "not implemented; run the resume sweep unstacked)"
+            )
+        if shard_across_trials:
+            raise ValueError("stack_trials is incompatible with shard_across_trials (stacked lanes each see the full dataset)")
+        if model_builder is not None:
+            raise ValueError("stack_trials supports the default VAE only (a custom model_builder cannot share one stacked program)")
+        if stack_max_lanes < 1:
+            raise ValueError(f"stack_max_lanes must be >= 1, got {stack_max_lanes}")
     for name, (inert, item) in _UNPORTED_ARGS.items():
         if passed[name] != inert:
             raise NotImplementedError(
@@ -817,23 +1140,80 @@ def run_hpo(
             ckpt_keep_last=ckpt_keep_last,
         )
 
-    # Queue items are (kind, config index, config, ready_at): kind "single"
-    # or "retry"; ready_at in the future marks a retry still in its backoff
-    # (skipped, not blocking: other queued work runs first).
-    shared = [("single", i, cfg, 0.0) for i, cfg in enumerate(configs) if i not in skipped]
+    def build_items() -> list:
+        """Work items ``(kind, members)``: ``("single", [(i, cfg)])``, or
+        ``("bucket", [(i, cfg), ...])`` of stacked configs, in config order
+        of their first member. Stacking applies only when configs outnumber
+        groups; otherwise every trial gets a group of its own."""
+        indexed = [(i, cfg) for i, cfg in enumerate(configs) if i not in skipped]
+        if not (stack_trials and len(configs) > len(groups)):
+            return [("single", [item]) for item in indexed]
+        buckets: dict[tuple, list] = {}
+        singles = []
+        for item in indexed:
+            if config_is_stackable(item[1]):
+                key = (stack_bucket_key(item[1]), data_shape_sig(train_data, item[1].batch_size))
+                buckets.setdefault(key, []).append(item)
+            else:
+                singles.append(item)
+        items = []
+        for members in buckets.values():
+            if len(members) >= 2:
+                items.append(("bucket", members))
+            else:
+                singles.extend(members)
+        items.extend(("single", [m]) for m in singles)
+        # Never idle a group behind one large bucket: split the largest
+        # until every group has an item (or none is left to split).
+        while len(items) < len(groups):
+            big = max((it for it in items if it[0] == "bucket" and len(it[1]) >= 4),
+                      key=lambda it: len(it[1]), default=None)
+            if big is None:
+                break
+            items.remove(big)
+            half = len(big[1]) // 2
+            items += [("bucket", big[1][:half]), ("bucket", big[1][half:])]
+        items.sort(key=lambda it: it[1][0][0])
+        return items
+
+    # Queue items are (kind, members, ready_at): kind "single", "retry" (one
+    # member each) or "bucket"; ready_at in the future marks a retry still in
+    # its backoff (skipped, not blocking: other queued work runs first).
+    items = build_items()
+    shared = [(kind, members, 0.0) for kind, members in items]
     per_group: dict[int, list] = {g.group_id: [] for g in groups}
     if not single:
-        assignment = balanced_assignment(
-            [predicted_cost(cfg, len(train_data)) for cfg in configs], len(groups)
-        )
-        for item in shared:
-            per_group[groups[assignment[item[1]]].group_id].append(item)
+        if any(kind == "bucket" for kind, _ in items):
+            costs = [sum(predicted_cost(cfg, len(train_data)) for _, cfg in members) for _, members in items]
+            owners = balanced_assignment(costs, len(groups))
+        else:
+            by_config = balanced_assignment(
+                [predicted_cost(cfg, len(train_data)) for cfg in configs], len(groups)
+            )
+            owners = [by_config[members[0][0]] for _, members in items]
+        for item, owner in zip(shared, owners):
+            per_group[groups[owner].group_id].append(item)
 
     def queue_of(g: TrialGroup) -> list:
         return shared if single else per_group[g.group_id]
 
     local_groups = [g for g in groups if g.is_local_member]
-    active: dict[int, tuple] = {}  # group_id -> (config index, run, generator)
+    # group_id -> (kind, config index or None, run, generator)
+    active: dict[int, tuple] = {}
+
+    def fail_items(g: TrialGroup, members, error_text: str, *, status: str = "failed",
+                   started: bool = True, progress_of=None) -> None:
+        """Record ``members`` of a broken bucket as ``status``; a member
+        whose attempt had not ``started`` (still queued) gets its start
+        first, so the ledger pairs every end with a start."""
+        for i, cfg in members:
+            if not started:
+                attempts[i] += 1
+                led.attempt_start(cfg.trial_id, chashes[i], attempts[i])
+            results[i] = TrialResult(trial_id=cfg.trial_id, group_id=g.group_id, config=cfg, status=status,
+                                     error=error_text, attempt=attempts[i], stacked=True)
+            led.attempt_end(cfg.trial_id, chashes[i], attempts[i], status, error=error_text,
+                            summary=progress_of(i) if progress_of is not None else None)
 
     def attempt_progress(run: Optional[_TrialRun]) -> dict:
         """Executed work of a failed or interrupted attempt."""
@@ -854,7 +1234,7 @@ def run_hpo(
         # once there.
         delay = retry.backoff_s(fails, key=cfg.trial_id) if single else 0.0
         led.attempt_end(cfg.trial_id, chashes[i], attempts[i], "retrying", error=error_text, summary=progress)
-        queue_of(g).append(("retry", i, cfg, time.time() + delay))
+        queue_of(g).append(("retry", [(i, cfg)], time.time() + delay))
         log0(
             f"Trial {cfg.trial_id} FAULTED ({error_text}); retrying from last valid "
             f"checkpoint in {delay:.2f}s (infra failure {fails} of {retry.max_retries + 1} budget)",
@@ -865,7 +1245,10 @@ def run_hpo(
     def record_preempted_peers(error_text: str = "host preemption (sweep-wide)") -> None:
         """A preemption ends the whole driver: record every in-flight
         attempt, after landing its checkpoint write (best effort)."""
-        for i2, run2, _ in list(active.values()):
+        for kind2, i2, run2, _ in list(active.values()):
+            if kind2 == "bucket":
+                run2.record_preempted(error_text)
+                continue
             try:
                 run2._join_ckpt()
             except Exception:  # noqa: BLE001 — recording must go on
@@ -875,16 +1258,86 @@ def run_hpo(
 
     def next_ready_at() -> Optional[float]:
         queues = [shared] if single else [per_group[g.group_id] for g in local_groups]
-        deadlines = [item[3] for q in queues for item in q]
+        deadlines = [item[2] for q in queues for item in q]
         return min(deadlines) if deadlines else None
+
+    bucket_setup_fails: dict[tuple, int] = {}
+
+    def start_bucket(g: TrialGroup, members) -> bool:
+        """Start a stacked bucket on ``g``; False if its setup failed and
+        it was requeued under ``retry`` or, in a resilient sweep, its
+        members were recorded failed."""
+        err: Optional[BaseException] = None
+        try:
+            run = _StackedBucketRun(g, members, train_data, test_data, out_dir, max_lanes=stack_max_lanes,
+                                    save_checkpoint=save_checkpoints, verbose=verbose, ledger=led,
+                                    attempts=attempts, chashes=chashes)
+        except Exception as e:  # noqa: BLE001 — setup failure isolation
+            err = e
+        if needs_agreement(g):
+            ok = group_all_ok(g, err is None, timeout_s=agree_timeout_s,
+                              what=f"stacked bucket setup agreement over group {g.group_id}",
+                              error_cls=WedgedCollective)
+        else:
+            ok = err is None
+        if ok:
+            active[g.group_id] = ("bucket", None, run, run.run())
+            return True
+        error_text = f"{type(err).__name__}: {err}" if err is not None else "setup failed on a peer rank"
+        setup_class = classify_failure(err) if err is not None else INFRA
+        if setup_class == PREEMPTION:
+            fail_items(g, members, error_text, status="preempted", started=False)
+            record_preempted_peers()
+            raise err
+        # An infra fault at setup (the data path, the filesystem) gets the
+        # retry budget, counted per bucket (no lane exists yet to charge),
+        # before its trials fail together.
+        key = tuple(i for i, _ in members)
+        fails = bucket_setup_fails[key] = bucket_setup_fails.get(key, 0) + 1
+        if retry is not None and setup_class == INFRA and retry.should_retry(fails, INFRA):
+            delay = retry.backoff_s(fails, key=members[0][0]) if single else 0.0
+            queue_of(g).append(("bucket", members, time.time() + delay))
+            log0(f"Stacked bucket of {len(members)} trials FAULTED at setup ({error_text}); retrying in "
+                 f"{delay:.2f}s (setup failure {fails} of {retry.max_retries + 1} budget)", trial=g)
+            return False
+        fail_items(g, members, error_text, started=False)
+        if not resilient:
+            if err is not None:
+                raise err
+            raise RuntimeError(error_text)
+        log0(f"Stacked bucket of {len(members)} trials FAILED at setup ({error_text}); sweep continues", trial=g)
+        return False
+
+    def finish_bucket(g: TrialGroup, run: _StackedBucketRun, e: Exception) -> None:
+        """A bucket-wide failure: lanes already retired keep their results;
+        every live lane and queued member is recorded ``failed`` (or
+        ``preempted``) together. Lane divergence never reaches here."""
+        error_text = f"{type(e).__name__}: {e}"
+        preempted = classify_failure(e) == PREEMPTION
+        status = "preempted" if preempted else "failed"
+        results.update(run.results)
+        fail_items(g, run.live_items(), error_text, status=status,
+                   progress_of=run.lane_progress if preempted else None)
+        fail_items(g, run.queue, error_text, status=status, started=False)
+        if preempted:
+            record_preempted_peers()
+            raise e
+        if not resilient:
+            raise e
+        log0(f"Stacked bucket FAILED ({error_text}); group freed, sweep continues", trial=g)
 
     def start_next(g: TrialGroup) -> None:
         q = queue_of(g)
         for _ in range(len(q)):
-            kind, i, cfg, ready_at = q.pop(0)
+            kind, members, ready_at = q.pop(0)
             if ready_at > time.time():
-                q.append((kind, i, cfg, ready_at))  # backoff not over
+                q.append((kind, members, ready_at))  # backoff not over
                 continue
+            if kind == "bucket":
+                if start_bucket(g, members):
+                    return
+                continue
+            (i, cfg), = members
             attempts[i] += 1
             led.attempt_start(cfg.trial_id, chashes[i], attempts[i])
             # A retry resumes through the scan-back (past whatever torn or
@@ -903,7 +1356,7 @@ def run_hpo(
             else:
                 ok = err is None
             if ok:
-                active[g.group_id] = (i, run, run.run())
+                active[g.group_id] = ("single", i, run, run.run())
                 return
             error_text = f"{type(err).__name__}: {err}" if err is not None else "setup failed on a peer rank"
             # A broken setup is an infra fault like any other, except the
@@ -978,18 +1431,24 @@ def run_hpo(
         for g in local_groups:
             if g.group_id not in active:
                 continue
-            i, run, gen = active[g.group_id]
+            kind, i, run, gen = active[g.group_id]
             try:
                 next(gen)
             except StopIteration:
                 del active[g.group_id]
-                run.result.attempt = attempts[i]
-                results[i] = run.result
-                led.attempt_end(run.cfg.trial_id, chashes[i], attempts[i], "completed",
-                                summary=_result_summary(run.result))
+                if kind == "bucket":
+                    results.update(run.results)
+                else:
+                    run.result.attempt = attempts[i]
+                    results[i] = run.result
+                    led.attempt_end(run.cfg.trial_id, chashes[i], attempts[i], "completed",
+                                    summary=_result_summary(run.result))
                 start_next(g)
             except Exception as e:  # noqa: BLE001 — failure isolation
                 del active[g.group_id]
-                finish(g, i, run, e)
+                if kind == "bucket":
+                    finish_bucket(g, run, e)
+                else:
+                    finish(g, i, run, e)
                 start_next(g)
     return [results[i] for i in sorted(results)]

@@ -14,7 +14,14 @@ tests inject the same ``eps`` into both.
 
 :func:`vae_params_from_flax` carries a flax parameter tree across (flax's
 ``kernel`` is (in, out), torch's ``weight`` is (out, in));
-:func:`vae_params_to_flax` is its inverse.
+:func:`vae_params_to_flax` is its inverse. Both take a stacked tree too.
+
+:class:`StackedVAE` is K same-shape VAEs with their parameters stacked on
+a leading lane axis (weights ``(K, out, in)``, biases ``(K, out)``): the
+JAX package's ``vmap`` of ``VAE`` over stacked parameters
+(``train/steps.py`` trial stacking) written out, each layer one batched
+product over the lanes. :func:`stack_vae_params` stacks K VAEs' weights,
+:func:`lane_params` and :func:`write_lane_params` read and write one lane.
 """
 
 from __future__ import annotations
@@ -99,6 +106,117 @@ class VAE(nn.Module):
         return self.decode(z), mu, logvar
 
 
+class StackedLinear(nn.Module):
+    """K ``nn.Linear`` layers of one shape, stacked: ``weight`` ``(K, out,
+    in)``, ``bias`` ``(K, out)``; ``(K, rows, in)`` to ``(K, rows, out)`` in
+    one ``torch.baddbmm``."""
+
+    def __init__(self, lanes: int, in_features: int, out_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(lanes, out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(lanes, out_features))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        w, b = self.weight, self.bias
+        if dtype != torch.float32:
+            x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+        return torch.baddbmm(b.unsqueeze(1), x, w.transpose(1, 2))
+
+
+class StackedVAE(nn.Module):
+    """K same-shape :class:`VAE` s on a leading lane axis: lane k computes
+    what a :class:`VAE` with lane k's parameters computes on lane k's rows.
+
+    Inputs are ``(K, rows, ...)``; :meth:`encode` also takes one
+    ``(rows, features)`` batch that every lane scores (the stacked eval). Noise
+    is ``eps`` ``(K, rows, latent)`` or drawn per lane, lane k from
+    ``generators[k]`` with the unstacked :meth:`VAE.reparameterize`'s draw,
+    so a lane given its unstacked twin's generator draws the twin's noise.
+    """
+
+    def __init__(
+        self,
+        lanes: int,
+        input_dim: int = 784,
+        hidden_dim: int = 400,
+        latent_dim: int = 20,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.lanes = lanes
+        self.input_dim = input_dim
+        self.hidden_dim = hidden_dim
+        self.latent_dim = latent_dim
+        self.dtype = dtype
+        self.fc1 = StackedLinear(lanes, input_dim, hidden_dim)
+        self.fc21 = StackedLinear(lanes, hidden_dim, latent_dim)
+        self.fc22 = StackedLinear(lanes, hidden_dim, latent_dim)
+        self.fc3 = StackedLinear(lanes, latent_dim, hidden_dim)
+        self.fc4 = StackedLinear(lanes, hidden_dim, input_dim)
+
+    def encode(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(K, rows, ...)``, or one ``(rows, features)`` batch that every
+        lane scores, to ``(mu, logvar)``, each ``(K, rows, latent)``."""
+        if x.dim() == 2:
+            x = x.unsqueeze(0).expand(self.lanes, -1, -1)
+        x = x.reshape(self.lanes, x.shape[1], -1).to(self.dtype)
+        h1 = F.relu(self.fc1(x, self.dtype))
+        return self.fc21(h1, self.dtype), self.fc22(h1, self.dtype)
+
+    def reparameterize(
+        self,
+        mu: torch.Tensor,
+        logvar: torch.Tensor,
+        eps: Optional[torch.Tensor] = None,
+        generators=None,
+    ) -> torch.Tensor:
+        """``z = mu + eps * exp(0.5*logvar)``; ``eps`` given, or drawn
+        N(0, I) in float32, lane k's from ``generators[k]`` (from the
+        default generator when None)."""
+        if eps is None:
+            shape = mu.shape[1:]
+            if generators is None:
+                eps = torch.randn(mu.shape, device=mu.device, dtype=torch.float32)
+            else:
+                eps = torch.stack([
+                    torch.randn(shape, generator=g, device=mu.device, dtype=torch.float32)
+                    for g in generators
+                ])
+        return mu + eps.to(mu.dtype) * torch.exp(0.5 * logvar)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """``(K, rows, latent)`` to logits ``(K, rows, input_dim)``."""
+        h3 = F.relu(self.fc3(z.to(self.dtype), self.dtype))
+        return self.fc4(h3, self.dtype)
+
+    def forward(self, x: torch.Tensor, eps: Optional[torch.Tensor] = None, generators=None):
+        """``(K, rows, ...)`` to ``(recon_logits, mu, logvar)``."""
+        mu, logvar = self.encode(x)
+        z = self.reparameterize(mu, logvar, eps=eps, generators=generators)
+        return self.decode(z), mu, logvar
+
+
+def stack_vae_params(models) -> dict[str, torch.Tensor]:
+    """K :class:`VAE` s (or their ``state_dict`` s) as one
+    :class:`StackedVAE` ``state_dict``, lane k the k-th."""
+    dicts = [m.state_dict() if isinstance(m, nn.Module) else m for m in models]
+    return {key: torch.stack([d[key].detach() for d in dicts]) for key in dicts[0]}
+
+
+def lane_params(stacked: StackedVAE, k: int) -> dict[str, torch.Tensor]:
+    """Lane ``k`` of ``stacked`` as a :class:`VAE` ``state_dict`` (copies)."""
+    return {key: v[k].detach().clone() for key, v in stacked.state_dict().items()}
+
+
+def write_lane_params(stacked: StackedVAE, k: int, state_dict) -> None:
+    """Copy a :class:`VAE` ``state_dict`` into lane ``k`` of ``stacked``, in
+    place: a CUDA graph that holds the stacked parameters keeps their
+    addresses."""
+    with torch.no_grad():
+        for key, v in stacked.state_dict().items():
+            v[k].copy_(state_dict[key])
+
+
 def init_vae_params(model: VAE, seed: int) -> VAE:
     """Initialise ``model``'s parameters in place from ``seed`` and return it.
 
@@ -123,14 +241,15 @@ def init_vae_params(model: VAE, seed: int) -> VAE:
 
 def vae_params_from_flax(tree) -> dict[str, torch.Tensor]:
     """A flax VAE parameter tree (``{fc1: {kernel, bias}, ...}``, optionally
-    under ``"params"``) as a torch ``state_dict``."""
+    under ``"params"``) as a torch ``state_dict``; a stacked tree (a leading
+    lane axis on every leaf) gives a :class:`StackedVAE` ``state_dict``."""
     if "params" in tree:
         tree = tree["params"]
     out = {}
     for name in LAYERS:
         kernel = np.asarray(tree[name]["kernel"], dtype=np.float32)
         bias = np.asarray(tree[name]["bias"], dtype=np.float32)
-        out[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.T))
+        out[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(np.swapaxes(kernel, -1, -2)))
         out[f"{name}.bias"] = torch.from_numpy(bias.copy())
     return out
 
@@ -138,11 +257,12 @@ def vae_params_from_flax(tree) -> dict[str, torch.Tensor]:
 def vae_params_to_flax(state_dict) -> dict[str, dict[str, np.ndarray]]:
     """A torch VAE ``state_dict`` as a flax parameter tree of numpy arrays
     (host copies), keys in flax's order: a v1 checkpoint's bytes follow
-    it (``train/checkpoint.py``)."""
+    it (``train/checkpoint.py``). A stacked ``state_dict`` gives a stacked
+    tree."""
     return {
         name: {
             "bias": state_dict[f"{name}.bias"].detach().cpu().float().numpy().copy(),
-            "kernel": state_dict[f"{name}.weight"].detach().cpu().float().numpy().T.copy(),
+            "kernel": np.swapaxes(state_dict[f"{name}.weight"].detach().cpu().float().numpy(), -1, -2).copy(),
         }
         for name in LAYERS
     }

@@ -2,7 +2,9 @@
 //
 // Replaces the Pallas TPU kernels of multidisttorch_tpu/ops/pallas_elbo.py:
 //   elbo_fwd: _fwd_kernel, launched by _fwd (pallas_call at :134);
-//   elbo_bwd: _bwd_kernel, launched by _bwd (pallas_call at :163).
+//   elbo_bwd: _bwd_kernel, launched by _bwd (pallas_call at :163);
+// and the same two for K stacked trials in one launch each
+// (elbo_fwd_lanes_kernel, elbo_bwd_lanes_kernel, after the launchers below).
 //
 // What bounds them: the launch and the dependent chain, not bytes. At the
 // main path's shape (batch 128, 784 pixels, latent 20, f32) the forward
@@ -311,10 +313,12 @@ __global__ void __launch_bounds__(kBwdThreads)
   }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+__host__ __device__ inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
 
 template <typename TL, typename TX, typename TM, typename TV>
-Operands<TL, TX, TM, TV> operands(const void* logits, const void* x, const void* mu,
+__host__ __device__ Operands<TL, TX, TM, TV> operands(const void* logits, const void* x, const void* mu,
                                   const void* logvar, int64_t n_wide, int64_t n_narrow,
                                   bool vec_wide, bool vec_narrow) {
   Operands<TL, TX, TM, TV> op;
@@ -350,6 +354,156 @@ void launch_bwd(const void* logits, const void* x, const void* mu, const void* l
   Cotangents<TL, TM, TV> ct{static_cast<TL*>(dlogits), static_cast<TM*>(dmu),
                             static_cast<TV*>(dlogvar)};
   elbo_bwd_kernel<TL, TX, TM, TV><<<grid, kBwdThreads, 0, stream>>>(op, ct, beta, g);
+}
+
+// ---- Lane-batched kernels: K same-shape trials in one launch each ----
+//
+// The stacked train step (K trials as one program, train/steps.py) takes the
+// ELBO of (K, B, D) logits/x and (K, B, L) mu/logvar with a beta per lane,
+// and wants K sums. Each lane is one single-trial problem, so each kernel
+// runs the single-trial kernel's work once per lane: gridDim.y = K lanes,
+// blockIdx.y the lane, gridDim.x the single-trial grid of one lane's
+// (B, D) + (B, L) slices. Lane k thus computes exactly what one
+// elbo_fwd/elbo_bwd launch computes on its slices (the same threads, steps,
+// order and combine), so a stacked trial's loss and cotangents equal its
+// unstacked twin's bits wherever the slices' alignment agrees. beta[k] and
+// the cotangent g[k] are read from device memory, so one captured CUDA graph
+// serves every mix of lanes and hypers. What bounds them is the same as
+// above: at K 8, B 128, f32 the forward reads 6.59 MB (about 2 us at
+// 3.35 TB/s), so K lanes in one launch pay one launch instead of K.
+//
+// The forward's workspace holds K ticket counters (0 between launches),
+// then K rows of gridDim.x float partials: each lane combines its own
+// partials in index order, in its last CTA, and sets its counter back to 0.
+
+// Lane k's operands: the k-th slices, each pair on the vector path where
+// lane k's pointers are 16-byte aligned (and the cotangents', `out_w` and
+// `out_n`, for the backward), else on the scalar path.
+template <typename TL, typename TX, typename TM, typename TV>
+__device__ __forceinline__ Operands<TL, TX, TM, TV> lane_operands(
+    const Operands<TL, TX, TM, TV>& all, int64_t k, bool out_w, bool out_n) {
+  const TL* l = all.logits + k * all.n_wide;
+  const TX* x = all.x + k * all.n_wide;
+  const TM* m = all.mu + k * all.n_narrow;
+  const TV* v = all.logvar + k * all.n_narrow;
+  return operands<TL, TX, TM, TV>(l, x, m, v, all.n_wide, all.n_narrow,
+                                  out_w && aligned16(l) && aligned16(x),
+                                  out_n && aligned16(m) && aligned16(v));
+}
+
+// `all` holds the (K, ...) bases and one lane's element counts.
+template <typename TL, typename TX, typename TM, typename TV>
+__global__ void __launch_bounds__(kFwdThreads)
+    elbo_fwd_lanes_kernel(Operands<TL, TX, TM, TV> all, const float* beta, unsigned* ws,
+                          float* out) {
+  __shared__ float warp_sums[kFwdThreads / 32];
+  __shared__ bool lane_done;
+  const int64_t k = blockIdx.y;
+  const auto op = lane_operands(all, k, true, true);
+  const int64_t S = (int64_t)gridDim.x * kFwdThreads;
+  const int64_t t = (int64_t)blockIdx.x * kFwdThreads + threadIdx.x;
+  const float part = block_sum<kFwdThreads>(fwd_thread_part(op, beta[k], t, S), warp_sums);
+  unsigned* ticket = ws + k;
+  float* partials = reinterpret_cast<float*>(ws + gridDim.y) + k * gridDim.x;
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = part;
+    __threadfence();  // this lane's partial is visible before its ticket
+    lane_done = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!lane_done) return;
+  __threadfence();  // the lane's last CTA: its other partials are visible from here
+  float acc = 0.f;
+  for (unsigned i = threadIdx.x; i < gridDim.x; i += kFwdThreads) acc += __ldcg(partials + i);
+  __syncthreads();  // warp_sums is reused
+  acc = block_sum<kFwdThreads>(acc, warp_sums);
+  if (threadIdx.x == 0) {
+    out[k] = acc;
+    *ticket = 0u;  // for the next launch on this workspace
+  }
+}
+
+// The backward of lane blockIdx.y: elbo_bwd_kernel's loop on the lane's
+// slices, with g[k] and beta[k].
+template <typename TL, typename TX, typename TM, typename TV>
+__global__ void __launch_bounds__(kBwdThreads)
+    elbo_bwd_lanes_kernel(Operands<TL, TX, TM, TV> all, Cotangents<TL, TM, TV> cts,
+                          const float* beta_lanes, const float* g_lanes) {
+  const int64_t k = blockIdx.y;
+  const Cotangents<TL, TM, TV> ct{cts.dlogits + k * all.n_wide, cts.dmu + k * all.n_narrow,
+                                  cts.dlogvar + k * all.n_narrow};
+  const auto op = lane_operands(all, k, aligned16(ct.dlogits),
+                                aligned16(ct.dmu) && aligned16(ct.dlogvar));
+  const float beta = beta_lanes[k];
+  const int64_t S = (int64_t)gridDim.x * kBwdThreads;
+  const int64_t t = (int64_t)blockIdx.x * kBwdThreads + threadIdx.x;
+  const int64_t n_steps = op.n_vw + op.n_vn;
+  bool have_g = false;
+  float g = 0.f;
+  for (int64_t base = t; base < n_steps; base += kSteps * S) {
+    Raw ra[kSteps], rb[kSteps];
+    load_round(op, base, S, ra, rb);
+    if (!have_g) {
+      g = g_lanes[k];
+      have_g = true;
+    }
+    const float gb = g * beta;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      const int64_t i = base + s * S;
+      float a[kVec], b[kVec], o[kVec];
+      if (i < op.n_vw) {
+        unpack<TL>(ra[s], a);
+        unpack<TX>(rb[s], b);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) o[e] = g * (1.f / (1.f + expf(-a[e])) - b[e]);
+        store8(ct.dlogits + i * kVec, o);
+      } else if (i < n_steps) {
+        const int64_t j = i - op.n_vw;
+        unpack<TM>(ra[s], a);
+        unpack<TV>(rb[s], b);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) o[e] = gb * a[e];
+        store8(ct.dmu + j * kVec, o);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) o[e] = gb * 0.5f * (expf(b[e]) - 1.f);
+        store8(ct.dlogvar + j * kVec, o);
+      }
+    }
+  }
+  const int64_t w0 = op.n_vw * kVec + t, n0 = op.n_vn * kVec + t;
+  if (w0 >= op.n_wide && n0 >= op.n_narrow) return;
+  if (!have_g) g = g_lanes[k];
+  const float gb = g * beta;
+  for (int64_t j = w0; j < op.n_wide; j += S) {
+    const float l = to_f32(op.logits[j]);
+    ct.dlogits[j] = from_f32<TL>(g * (1.f / (1.f + expf(-l)) - to_f32(op.x[j])));
+  }
+  for (int64_t j = n0; j < op.n_narrow; j += S) {
+    ct.dmu[j] = from_f32<TM>(gb * to_f32(op.mu[j]));
+    ct.dlogvar[j] = from_f32<TV>(gb * 0.5f * (expf(to_f32(op.logvar[j])) - 1.f));
+  }
+}
+
+template <typename TL, typename TX, typename TM, typename TV>
+void launch_fwd_lanes(const void* logits, const void* x, const void* mu, const void* logvar,
+                      int64_t n_wide, int64_t n_narrow, int lanes, const float* beta, int grid,
+                      unsigned* ws, float* out, cudaStream_t stream) {
+  const auto all = operands<TL, TX, TM, TV>(logits, x, mu, logvar, n_wide, n_narrow, false, false);
+  elbo_fwd_lanes_kernel<TL, TX, TM, TV><<<dim3(grid, lanes), kFwdThreads, 0, stream>>>(
+      all, beta, ws, out);
+}
+
+template <typename TL, typename TX, typename TM, typename TV>
+void launch_bwd_lanes(const void* logits, const void* x, const void* mu, const void* logvar,
+                      int64_t n_wide, int64_t n_narrow, int lanes, const float* beta,
+                      const float* g, void* dlogits, void* dmu, void* dlogvar, int grid,
+                      cudaStream_t stream) {
+  const auto all = operands<TL, TX, TM, TV>(logits, x, mu, logvar, n_wide, n_narrow, false, false);
+  Cotangents<TL, TM, TV> ct{static_cast<TL*>(dlogits), static_cast<TM*>(dmu),
+                            static_cast<TV*>(dlogvar)};
+  elbo_bwd_lanes_kernel<TL, TX, TM, TV><<<dim3(grid, lanes), kBwdThreads, 0, stream>>>(
+      all, ct, beta, g);
 }
 
 // Selects `device` for the launch if it is not current, and puts the
@@ -418,5 +572,37 @@ extern "C" int mdt_elbo_bwd(int device, const void* logits, const void* x,
   MDT_ELBO_DISPATCH(launch_bwd, logits, x, mu, logvar, n_wide, n_narrow, beta,
                     static_cast<const float*>(g), dlogits, dmu, dlogvar, grid,
                     static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}
+
+// The lane-batched forward: out[k] = the summed negative ELBO of lane k's
+// (B, D) and (B, L) slices (n_wide and n_narrow elements each) with
+// beta[k]; a grid of `grid` x `lanes` CTAs of 128 threads and the workspace
+// `ws` (`lanes` zero counters, then lanes x grid floats), which no other
+// launch uses until this one has finished.
+extern "C" int mdt_elbo_fwd_lanes(int device, const void* logits, const void* x,
+                                  const void* mu, const void* logvar, int64_t n_wide,
+                                  int64_t n_narrow, int lanes, int dtypes, const void* beta,
+                                  int grid, void* ws, void* out, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  MDT_ELBO_DISPATCH(launch_fwd_lanes, logits, x, mu, logvar, n_wide, n_narrow, lanes,
+                    static_cast<const float*>(beta), grid, static_cast<unsigned*>(ws),
+                    static_cast<float*>(out), static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}
+
+// The lane-batched backward: each lane's cotangents scaled by g[k], with
+// beta[k]; a grid of `grid` x `lanes` CTAs of 256 threads.
+extern "C" int mdt_elbo_bwd_lanes(int device, const void* logits, const void* x,
+                                  const void* mu, const void* logvar, int64_t n_wide,
+                                  int64_t n_narrow, int lanes, int dtypes, const void* beta,
+                                  const void* g, void* dlogits, void* dmu, void* dlogvar,
+                                  int grid, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  MDT_ELBO_DISPATCH(launch_bwd_lanes, logits, x, mu, logvar, n_wide, n_narrow, lanes,
+                    static_cast<const float*>(beta), static_cast<const float*>(g), dlogits, dmu,
+                    dlogvar, grid, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,9 @@ math). The reconstruction term is computed from logits,
 ``max(l,0) - l*x + log1p(exp(-|l|))``, which equals the reference's
 ``binary_cross_entropy(sigmoid(l), x, reduction="sum")`` without the
 ``log`` of a saturated sigmoid. ``beta`` weights the KL (beta-VAE);
-``beta=1`` is the reference's ``loss_function``.
+``beta=1`` is the reference's ``loss_function``. The ``_lanes`` forms take
+K stacked trials on a leading lane axis and a ``(K,)`` beta, and return one
+sum per lane: lane k's value is the single-trial function's.
 """
 
 from __future__ import annotations
@@ -59,3 +61,30 @@ def elbo_loss_weighted_sum(
         mu, logvar
     )
     return torch.dot(per_sample, weights.to(per_sample.dtype))
+
+
+def _per_sample_lanes(recon_logits, x, mu, logvar) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(K, rows)`` per-sample reconstruction and KL terms; ``x`` is ``(K,
+    rows, D)`` or one ``(rows, D)`` batch shared by every lane."""
+    k, n = recon_logits.shape[:2]
+    x = x.reshape(-1, n, recon_logits[0, 0].numel()).expand(k, -1, -1)
+    bce = bernoulli_recon_per_sample(recon_logits.reshape(k * n, -1), x.reshape(k * n, -1)).reshape(k, n)
+    kl = gaussian_kl_per_sample(mu.reshape(k * n, -1), logvar.reshape(k * n, -1)).reshape(k, n)
+    return bce, kl
+
+
+def elbo_loss_sum_lanes(recon_logits, x, mu, logvar, beta: torch.Tensor) -> torch.Tensor:
+    """:func:`elbo_loss_sum` of each of K lanes, with ``beta[k]``: ``(K,)``."""
+    bce, kl = _per_sample_lanes(recon_logits, x, mu, logvar)
+    return bce.sum(1) + beta * kl.sum(1)
+
+
+def elbo_loss_weighted_sum_lanes(recon_logits, x, mu, logvar, weights, beta: torch.Tensor) -> torch.Tensor:
+    """:func:`elbo_loss_weighted_sum` of each of K lanes, with ``beta[k]``
+    and one ``(rows,)`` weight vector for every lane: ``(K,)``."""
+    bce, kl = _per_sample_lanes(recon_logits, x, mu, logvar)
+    per_sample = bce + beta.reshape(-1, 1) * kl
+    w = weights.to(per_sample.dtype)
+    # One dot per lane, as the single-trial function takes it: a batched
+    # product would sum the rows in another order.
+    return torch.stack([torch.dot(row, w) for row in per_sample])

@@ -30,21 +30,34 @@ for K steps. Every other case runs them in a Python loop (see its
 docstring). On a card the optimizer is Adam with ``capturable=True`` (its
 step count on the device), so the update can be captured; the eager loop
 uses the same optimizer, so both give the same numbers.
+
+Trial stacking (the JAX package's ``make_stacked_*``, at the end of this
+module) runs K same-shape trials as one program: :class:`TrialHypers`,
+:func:`create_stacked_train_state`, :func:`make_stacked_train_step`,
+:func:`make_stacked_multi_step` (CUDA graphs by the same rule),
+:func:`make_stacked_eval_step` and :func:`make_lane_ops`.
 """
 
 from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
+from multidisttorch_tpu_torch.models.vae import VAE, StackedVAE, lane_params, write_lane_params
 from multidisttorch_tpu_torch.ops import elbo as elbo_ops
-from multidisttorch_tpu_torch.ops.elbo import fused_elbo_loss_sum
-from multidisttorch_tpu_torch.ops.losses import elbo_loss_sum, elbo_loss_weighted_sum
+from multidisttorch_tpu_torch.ops.elbo import fused_elbo_loss_sum, fused_elbo_loss_sum_lanes
+from multidisttorch_tpu_torch.ops.losses import (
+    elbo_loss_sum,
+    elbo_loss_sum_lanes,
+    elbo_loss_weighted_sum,
+    elbo_loss_weighted_sum_lanes,
+)
+from multidisttorch_tpu_torch.parallel.collectives import group_pmean, group_psum
 from multidisttorch_tpu_torch.parallel.mesh import TrialGroup
 
 
@@ -249,44 +262,42 @@ class _Captured:
     alive."""
 
     graph: Any
-    batches: torch.Tensor
-    eps: Optional[torch.Tensor]
+    inputs: tuple
     losses: torch.Tensor
     scope: elbo_ops.CaptureScope
     keep: tuple = ()
 
 
-class GraphedMultiStep:
-    """K train steps as one CUDA graph per (state, K, batch shape, dtype,
-    noise source), replayed once per chunk.
+class _GraphedChunks:
+    """Chunks of train steps as CUDA graphs: one graph per key, captured
+    when the key is first seen and replayed on the stream that captured it.
+    :class:`GraphedMultiStep` (one trial) and
+    :class:`GraphedStackedMultiStep` (K stacked trials) are built on it.
 
     Where it could go wrong, and what it does:
 
-    - *Warm-up trains no extra step.* The first chunk for a state runs
-      eagerly, as real training, on the side stream that captures: it
-      allocates the gradients, Adam's state and the stream's cuBLAS
-      workspace outside any capture. Its graph is captured right after,
-      and every later chunk of that shape is a replay. A chunk of another
-      K (an epoch's ragged last chunk) or shape gets a graph of its own,
-      captured when first seen and then replayed.
-    - *Adam under capture.* The state's optimizer must be ``capturable``
-      (its step count on the device; :func:`create_train_state` does so on
-      a card). Gradients are dropped before the capture
-      (``zero_grad(set_to_none=True)``), and each captured step drops its
-      predecessor's as the eager step does, so backward writes fresh ones
-      from the graph's private pool.
-    - *The trial's own generator.* Noise drawn from an explicit
-      ``torch.Generator`` is registered with the graph
-      (``CUDAGraph.register_generator_state``), so each replay draws the
-      next numbers of that generator, as the eager loop would; the default
-      generator is registered by the capture itself.
-    - *Static buffers.* Each chunk is copied into the graph's static
-      ``(K, rows, ...)`` input (and noise); the ``(K,)`` losses are cloned
-      before they are returned. ``state.step`` advances by K on the host.
-    - *The forward's workspace and launch counts.* Each graph is captured
-      inside an ``ops.elbo.capture_scope()``, kept with the graph: it gives
-      the graph a ticket counter and partials of its own, which no eager
-      call or other graph shares, and it tallies the ELBO launches the
+    - *Warm-up trains no extra step.* The first chunk of an owner (a
+      trial's optimizer, a stacked state) runs eagerly, as real training,
+      on the side stream that captures: it allocates the gradients, the
+      optimizer's state and the stream's cuBLAS workspace outside any
+      capture. Its graph is captured right after, and every later chunk of
+      that key is a replay. A chunk of another length (an epoch's ragged
+      last chunk) or shape gets a graph of its own, captured when first
+      seen and then replayed.
+    - *Gradients.* They are dropped before the capture, and each captured
+      step drops its predecessor's as the eager step does, so backward
+      writes fresh ones from the graph's private pool.
+    - *Generators.* Noise drawn from an explicit ``torch.Generator`` is
+      registered with the graph (``CUDAGraph.register_generator_state``),
+      so each replay draws the next numbers of that generator, as the eager
+      loop would; the default generator is registered by the capture
+      itself.
+    - *Static buffers.* Each chunk's inputs are copied into the graph's
+      static ones; the losses are cloned before they are returned.
+    - *The ELBO kernels' workspace and launch counts.* Each graph is
+      captured inside an ``ops.elbo.capture_scope()``, kept with the graph:
+      it gives the graph a ticket counter and partials of its own, which no
+      eager call or other graph shares, and it tallies the ELBO launches the
       graph holds, which each replay adds to ``ops.elbo.LAUNCHES``.
 
     A capture that fails raises; nothing falls back to the eager loop. So
@@ -295,60 +306,51 @@ class GraphedMultiStep:
 
     graphed = True
 
-    def __init__(self, body: Callable, device: torch.device):
+    def __init__(self, device: torch.device):
         if device.type != "cuda" or not torch.cuda.is_available():
             raise RuntimeError(
                 f"CUDA-graph capture needs a CUDA device, got {device} "
                 f"(torch.cuda.is_available() is {torch.cuda.is_available()})"
             )
-        self._body = body
         self._device = device
         self._stream = torch.cuda.Stream(device)
         self._graphs: dict[tuple, _Captured] = {}
         self._warm: set[int] = set()
         self.replays = 0
 
-    def _steps(self, state, batches, eps, generator) -> torch.Tensor:
-        return torch.stack([
-            self._body(state, batches[k], None if eps is None else eps[k], generator)
-            for k in range(batches.shape[0])
-        ])
-
-    def _capture(self, state, batches, eps, generator) -> _Captured:
-        static_b = torch.empty_like(batches, device=self._device)
-        static_e = None if eps is None else torch.empty_like(eps, device=self._device)
+    def _capture(self, steps, inputs, generators, drop_grads, keep) -> _Captured:
+        statics = tuple(None if x is None else torch.empty_like(x, device=self._device) for x in inputs)
         graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            graph.register_generator_state(generator)
-        state.optimizer.zero_grad(set_to_none=True)
+        for gen in generators:
+            graph.register_generator_state(gen)
+        drop_grads()
         with elbo_ops.capture_scope() as scope:
             with torch.cuda.graph(graph, stream=self._stream):
-                losses = self._steps(state, static_b, static_e, generator)
-        return _Captured(graph, static_b, static_e, losses, scope, keep=(state.optimizer, generator))
+                losses = steps(*statics)
+        return _Captured(graph, statics, losses, scope, keep)
 
-    def __call__(self, state: TrainState, batches, eps=None, generator=None):
-        k = batches.shape[0]
-        key = (id(state.optimizer), k, tuple(batches.shape[1:]), batches.dtype,
-               None if eps is None else (tuple(eps.shape[1:]), eps.dtype),
-               None if generator is None else id(generator))
+    def _chunk(self, owner, key, steps: Callable, inputs: tuple, generators: tuple, drop_grads: Callable,
+               keep: tuple) -> torch.Tensor:
+        """Run one chunk, ``steps(*inputs) -> losses``: eagerly as the
+        owner's warm-up, else as a replay of the key's graph (captured
+        first if new)."""
         cap = self._graphs.get(key)
-        if cap is None and id(state.optimizer) not in self._warm:
+        if cap is None and id(owner) not in self._warm:
             # Warm-up: this chunk trains eagerly on the capturing stream.
             current = torch.cuda.current_stream(self._device)
             self._stream.wait_stream(current)
             with torch.cuda.stream(self._stream):
-                losses = self._steps(state, batches, eps, generator)
+                losses = steps(*inputs)
             current.wait_stream(self._stream)
             losses.record_stream(current)
-            self._warm.add(id(state.optimizer))
-            self._graphs[key] = self._capture(state, batches, eps, generator)
-            state.step += k
-            return state, {"loss_sum": losses}
+            self._warm.add(id(owner))
+            self._graphs[key] = self._capture(steps, inputs, generators, drop_grads, keep)
+            return losses
         if cap is None:
-            cap = self._graphs[key] = self._capture(state, batches, eps, generator)
-        cap.batches.copy_(batches)
-        if eps is not None:
-            cap.eps.copy_(eps)
+            cap = self._graphs[key] = self._capture(steps, inputs, generators, drop_grads, keep)
+        for static, x in zip(cap.inputs, inputs):
+            if x is not None:
+                static.copy_(x)
         # Replayed on the stream that captured it, ordered after the copies
         # and before what follows on the caller's stream.
         current = torch.cuda.current_stream(self._device)
@@ -358,8 +360,39 @@ class GraphedMultiStep:
         current.wait_stream(self._stream)
         elbo_ops.count_replay(cap.scope)
         self.replays += 1
+        return cap.losses.clone()
+
+
+class GraphedMultiStep(_GraphedChunks):
+    """K train steps of one trial as one CUDA graph per (state, K, batch
+    shape, dtype, noise source), replayed once per chunk
+    (:class:`_GraphedChunks`). The state's optimizer must be
+    ``capturable`` (its step count on the device; :func:`create_train_state`
+    does so on a card). ``state.step`` advances by K on the host.
+    """
+
+    def __init__(self, body: Callable, device: torch.device):
+        super().__init__(device)
+        self._body = body
+
+    def _steps(self, state, batches, eps, generator) -> torch.Tensor:
+        return torch.stack([
+            self._body(state, batches[k], None if eps is None else eps[k], generator)
+            for k in range(batches.shape[0])
+        ])
+
+    def __call__(self, state: TrainState, batches, eps=None, generator=None):
+        k = batches.shape[0]
+        key = (id(state.optimizer), k, tuple(batches.shape[1:]), batches.dtype,
+               None if eps is None else (tuple(eps.shape[1:]), eps.dtype),
+               None if generator is None else id(generator))
+        losses = self._chunk(
+            state.optimizer, key, lambda b, e: self._steps(state, b, e, generator), (batches, eps),
+            () if generator is None else (generator,),
+            lambda: state.optimizer.zero_grad(set_to_none=True), keep=(state.optimizer, generator),
+        )
         state.step += k
-        return state, {"loss_sum": cap.losses.clone()}
+        return state, {"loss_sum": losses}
 
 
 def make_eval_step(group: TrialGroup, *, beta: float = 1.0, with_recon: bool = True) -> Callable:
@@ -415,3 +448,375 @@ def make_sample_step(group: TrialGroup, num_samples: int = 64) -> Callable:
             return model.decode_probs(z).float()
 
     return sample_fn
+
+
+# --- trial stacking: K same-shape trials through one program ---
+#
+# The JAX package vmaps one trial's step over K stacked states (its
+# train/steps.py, "trial stacking"): K configs that share every array shape
+# and differ only in scalar hypers (lr, beta, seed) advance together, one
+# dispatch for K trials. Here the lane axis is written out: each layer is
+# one batched product over the lanes (models/vae.py::StackedVAE), the loss
+# one launch of each lane-batched ELBO kernel, and the update Adam on the
+# stacked tensors with a per-lane lr and step count. Per-lane hypers are
+# (K,) tensors on the device (TrialHypers), so one CUDA graph serves every
+# mix of lanes: retiring a lane clears its `active` entry, refilling it
+# copies a fresh trial into the stacked tensors in place (make_lane_ops),
+# and neither captures anything anew.
+
+
+@dataclass
+class TrialHypers:
+    """Per-lane hyperparameters of a stacked bucket, each ``(K,)`` on the
+    device: what may differ between lanes without changing the program.
+    ``lr`` is float64, so that a lane's step size on the CPU is the
+    unstacked optimizer's to the last bit; ``active`` is 1.0 for a lane
+    that trains and 0.0 for one that is retired (its parameters, moments
+    and step count stay as they are). Change them with :meth:`set_lane`,
+    in place: a captured graph reads these tensors."""
+
+    lr: torch.Tensor
+    beta: torch.Tensor
+    active: torch.Tensor
+
+    @staticmethod
+    def stack(lrs, betas, active=None, device=None) -> "TrialHypers":
+        lr = torch.tensor(list(lrs), dtype=torch.float64, device=device)
+        return TrialHypers(
+            lr=lr,
+            beta=torch.tensor(list(betas), dtype=torch.float32, device=device),
+            active=torch.ones(lr.shape, dtype=torch.float32, device=device)
+            if active is None else torch.tensor(list(active), dtype=torch.float32, device=device),
+        )
+
+    def set_lane(self, k: int, lr: float, beta: float, active: float = 1.0) -> None:
+        self.lr[k] = lr
+        self.beta[k] = beta
+        self.active[k] = active
+
+
+@dataclass
+class StackedTrainState:
+    """K trials' training state on one leading lane axis: the stacked
+    model, Adam's two moments (one tensor per parameter, in
+    ``model.parameters()`` order) and Adam's step count per lane
+    (``count``, f32 on the device, as torch's Adam keeps it under
+    ``capturable``). A lane's step count is its optimizer steps."""
+
+    model: StackedVAE
+    exp_avg: list
+    exp_avg_sq: list
+    count: torch.Tensor
+
+    @property
+    def lanes(self) -> int:
+        return self.model.lanes
+
+    @property
+    def params(self) -> dict[str, torch.Tensor]:
+        return dict(self.model.named_parameters())
+
+
+def _write_lane(state: StackedTrainState, lane, k: int) -> None:
+    """Copy a trial into lane ``k`` in place: a :class:`TrainState`
+    (parameters, Adam's moments and step count) or a fresh :class:`VAE`
+    (its parameters; zero moments and count, as a new optimizer)."""
+    model = lane.model if isinstance(lane, TrainState) else lane
+    write_lane_params(state.model, k, model.state_dict())
+    adam = lane.optimizer.state if isinstance(lane, TrainState) else {}
+    with torch.no_grad():
+        for p, m, v in zip(model.parameters(), state.exp_avg, state.exp_avg_sq):
+            st = adam.get(p)
+            if st:
+                m[k].copy_(st["exp_avg"])
+                v[k].copy_(st["exp_avg_sq"])
+            else:
+                m[k].zero_()
+                v[k].zero_()
+        state.count[k] = float(lane.step) if isinstance(lane, TrainState) else 0.0
+
+
+def _read_lane(state: StackedTrainState, k: int) -> TrainState:
+    """Lane ``k`` as an unstacked trial's :class:`TrainState`, copies on
+    the same device: a :class:`VAE` with the lane's parameters and an Adam
+    holding its moments and step count (``step`` from the device, one
+    sync). Its lr is a placeholder (0): a lane's lr lives in
+    :class:`TrialHypers`, and Adam's state does not depend on it."""
+    sm = state.model
+    dev = state.count.device
+    model = VAE(sm.input_dim, sm.hidden_dim, sm.latent_dim, sm.dtype).to(dev)
+    model.load_state_dict(lane_params(sm, k))
+    capturable = dev.type == "cuda"
+    optimizer = torch.optim.Adam(model.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8, capturable=capturable)
+    step = int(state.count[k].item())
+    for p, m, v in zip(model.parameters(), state.exp_avg, state.exp_avg_sq):
+        optimizer.state[p] = {
+            "step": torch.tensor(float(step), dtype=torch.float32, device=dev if capturable else "cpu"),
+            "exp_avg": m[k].detach().clone(),
+            "exp_avg_sq": v[k].detach().clone(),
+        }
+    return TrainState(model=model, optimizer=optimizer, step=step)
+
+
+def create_stacked_train_state(group: TrialGroup, lanes: Sequence) -> StackedTrainState:
+    """Stack K trials on the group's device, lane k from ``lanes[k]``: an
+    initialised :class:`VAE` (a fresh trial, as the JAX package's
+    ``build_lane_state``) or a :class:`TrainState`. Every rank of a
+    multi-rank group holds the whole stacked state (the JAX package
+    replicates it over the submesh); the lanes are built alike on every
+    rank from their seeds, so no broadcast is needed."""
+    _require_trainable(group)
+    if not lanes:
+        raise ValueError("a stacked state needs at least one lane")
+    first = lanes[0].model if isinstance(lanes[0], TrainState) else lanes[0]
+    model = StackedVAE(len(lanes), first.input_dim, first.hidden_dim, first.latent_dim, first.dtype)
+    model = model.to(group.device)
+    state = StackedTrainState(
+        model=model,
+        exp_avg=[torch.zeros_like(p) for p in model.parameters()],
+        exp_avg_sq=[torch.zeros_like(p) for p in model.parameters()],
+        count=torch.zeros(len(lanes), dtype=torch.float32, device=group.device),
+    )
+    for k, lane in enumerate(lanes):
+        _write_lane(state, lane, k)
+    return state
+
+
+_BETA1, _BETA2, _EPS = 0.9, 0.999, 1e-8
+
+
+def _stacked_adam_update(state: StackedTrainState, hypers: TrialHypers) -> None:
+    """One Adam step of every live lane from the parameters' gradients, in
+    place; a retired lane (``active`` 0) keeps its parameters, moments and
+    step count, selected (``torch.where``), never multiplied by the mask.
+
+    The arithmetic is torch's Adam's on the port's unstacked path, per
+    lane: on a card the ``capturable`` multi-tensor path (bias corrections
+    from the on-device step count, so a graph can hold it), on the CPU the
+    single-tensor path, whose bias corrections and step size are Python
+    floats there (here from the lanes' host-side counts and lrs; no sync,
+    the tensors lie on the CPU) rounded to f32 where it uses them.
+    """
+    count = state.count + 1
+    live = hypers.active > 0.5
+    k = state.lanes
+    if state.count.device.type == "cuda":
+        lr = hypers.lr.float()
+        step_size = torch.reciprocal((torch.pow(_BETA1, count) - 1) / lr)  # -lr / (1 - beta1^t)
+        bc2_sqrt = torch.sqrt(-(torch.pow(_BETA2, count) - 1))
+    else:
+        steps, lrs = count.tolist(), hypers.lr.tolist()
+        neg_step = torch.tensor([-(lr / (1 - _BETA1**t)) for lr, t in zip(lrs, steps)], dtype=torch.float32)
+        bc2_sqrt = torch.tensor([(1 - _BETA2**t) ** 0.5 for t in steps], dtype=torch.float32)
+    with torch.no_grad():
+        for p, m, v in zip(state.model.parameters(), state.exp_avg, state.exp_avg_sq):
+            shape = (k,) + (1,) * (p.dim() - 1)
+            g = p.grad
+            m_new = torch.lerp(m, g, 1 - _BETA1)
+            v_new = (v * _BETA2).addcmul_(g, g, value=1 - _BETA2)
+            if p.is_cuda:
+                denom = (v_new.sqrt() / bc2_sqrt.view(shape)).add_(_EPS).div_(step_size.view(shape))
+                p_new = torch.addcdiv(p, m_new, denom)
+            else:
+                denom = (v_new.sqrt() / bc2_sqrt.view(shape)).add_(_EPS)
+                p_new = p + neg_step.view(shape) * m_new / denom
+            sel = live.view(shape)
+            torch.where(sel, p_new, p, out=p)
+            torch.where(sel, m_new, m, out=m)
+            torch.where(sel, v_new, v, out=v)
+        torch.where(live, count, state.count, out=state.count)
+
+
+def _build_stacked_body(group: TrialGroup, use_fused_loss: bool, grad_accum: int) -> Callable:
+    """``body(state, hypers, batch, eps, generators) -> (K,) loss sums``:
+    one stacked train step (the JAX package's ``_stacked_lane_body`` over
+    every lane), with no host-side count, so that a CUDA graph can hold it.
+    On a multi-rank group each rank holds its rows of every lane's batch;
+    the stacked gradients are averaged and the loss sums summed over the
+    group's process group (DDP's estimator, written out)."""
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    _require_trainable(group)
+    loss_impl = fused_elbo_loss_sum_lanes if use_fused_loss else elbo_loss_sum_lanes
+
+    def microbatch_loss(state, hypers, mb, eps, generators):
+        k, m = mb.shape[:2]
+        recon_logits, mu, logvar = state.model(mb, eps=eps, generators=generators)
+        return loss_impl(recon_logits, mb.reshape(k, m, -1), mu, logvar, hypers.beta) / m
+
+    def body(state: StackedTrainState, hypers: TrialHypers, batch, eps=None, generators=None):
+        n = batch.shape[1]
+        for p in state.model.parameters():
+            p.grad = None
+        if grad_accum == 1:
+            loss = microbatch_loss(state, hypers, batch, eps, generators)
+            loss.sum().backward()
+            loss = loss.detach()
+        else:
+            if n % grad_accum:
+                raise ValueError(f"batch size {n} not divisible by grad_accum={grad_accum}")
+            mb = n // grad_accum
+            loss = None
+            for a in range(grad_accum):
+                rows = slice(a * mb, (a + 1) * mb)
+                part = microbatch_loss(
+                    state, hypers, batch[:, rows], None if eps is None else eps[:, rows], generators
+                ) / grad_accum
+                part.sum().backward()
+                loss = part.detach() if loss is None else loss + part.detach()
+        if group.size > 1:
+            for p in state.model.parameters():
+                p.grad = group_pmean(group, p.grad)
+        _stacked_adam_update(state, hypers)
+        loss_sum = (loss * n).float()
+        return group_psum(group, loss_sum) if group.size > 1 else loss_sum
+
+    return body
+
+
+def make_stacked_train_step(group: TrialGroup, *, use_fused_loss: bool = True, grad_accum: int = 1) -> Callable:
+    """One optimizer step of K stacked trials: ``step(state, hypers, batch,
+    eps=None, generators=None) -> (state, metrics)``.
+
+    ``batch`` is ``(K, rows, ...)``: each lane's rows (this rank's share on
+    a multi-rank group). The noise is ``eps`` ``(K, rows, latent)`` when
+    given, else lane k's is drawn from ``generators[k]`` (give each lane its
+    unstacked twin's generator and it draws the twin's noise).
+    ``metrics["loss_sum"]`` is ``(K,)``, one summed negative ELBO per lane
+    over the group's batch, on the device. The fused loss runs the
+    lane-batched ELBO kernels (``ops/elbo.py::fused_elbo_loss_sum_lanes``):
+    the JAX package computes its stacked loss in XLA, because its kernel
+    bakes beta in at compile time; the port's kernels read beta per lane.
+    """
+    body = _build_stacked_body(group, use_fused_loss, grad_accum)
+
+    def step_fn(state, hypers, batch, eps=None, generators=None):
+        return state, {"loss_sum": body(state, hypers, batch, eps, generators)}
+
+    return step_fn
+
+
+class EagerStackedMultiStep:
+    """S stacked train steps in a Python loop."""
+
+    graphed = False
+    replays = 0
+
+    def __init__(self, body: Callable):
+        self._body = body
+
+    def __call__(self, state: StackedTrainState, hypers: TrialHypers, batches, eps=None, generators=None):
+        losses = [self._body(state, hypers, batches[s], None if eps is None else eps[s], generators)
+                  for s in range(batches.shape[0])]
+        return state, {"loss_sum": torch.stack(losses)}
+
+
+class GraphedStackedMultiStep(_GraphedChunks):
+    """S stacked train steps as one CUDA graph per (state, hypers, S, batch
+    shape, dtype, noise source), replayed once per chunk
+    (:class:`_GraphedChunks`). The graph holds the stacked parameters,
+    moments and counts, the hypers' tensors and the lanes' generators by
+    address: retire and refill lanes through :meth:`TrialHypers.set_lane`,
+    ``make_lane_ops``' ``write`` and ``Generator.manual_seed``, all in
+    place, and every later replay trains the new lane mix with no new
+    capture."""
+
+    def __init__(self, body: Callable, device: torch.device):
+        super().__init__(device)
+        self._body = body
+
+    def __call__(self, state: StackedTrainState, hypers: TrialHypers, batches, eps=None, generators=None):
+        gens = tuple(generators or ())
+
+        def steps(b, e):
+            return torch.stack([self._body(state, hypers, b[s], None if e is None else e[s], generators)
+                                for s in range(b.shape[0])])
+
+        def drop_grads():
+            for p in state.model.parameters():
+                p.grad = None
+
+        key = (id(state), id(hypers), batches.shape[0], tuple(batches.shape[1:]), batches.dtype,
+               None if eps is None else (tuple(eps.shape[1:]), eps.dtype), tuple(id(g) for g in gens))
+        losses = self._chunk(state, key, steps, (batches, eps), gens, drop_grads, keep=(state, hypers, gens))
+        return state, {"loss_sum": losses}
+
+
+def make_stacked_multi_step(group: TrialGroup, *, use_fused_loss: bool = True, grad_accum: int = 1) -> Callable:
+    """S chained stacked steps: ``multi(state, hypers, batches, eps=None,
+    generators=None)`` with ``batches`` ``(S, K, rows, ...)`` (and ``eps``
+    ``(S, K, rows, latent)``); ``metrics["loss_sum"]`` is ``(S, K)``.
+
+    By :func:`eager_reason`'s rule, a one-rank group on a CUDA device with
+    the fused loss and ``grad_accum`` 1 runs each chunk as one replay of a
+    CUDA graph of its S steps for all K lanes
+    (:class:`GraphedStackedMultiStep`); anything else keeps the eager loop
+    (:class:`EagerStackedMultiStep`). Both give the same numbers."""
+    body = _build_stacked_body(group, use_fused_loss, grad_accum)
+    if eager_reason(group, use_fused_loss=use_fused_loss, grad_accum=grad_accum) is None:
+        return GraphedStackedMultiStep(body, group.device)
+    return EagerStackedMultiStep(body)
+
+
+def _stacked_eval_sums(state: StackedTrainState, hypers: TrialHypers, batch, weights) -> torch.Tensor:
+    """Every lane's masked posterior-mean eval of one shared batch: ``(K,)``
+    f32 over this rank's rows (the JAX package's ``_stacked_eval_lane``)."""
+    n = batch.shape[0]
+    with torch.no_grad():
+        mu, logvar = state.model.encode(batch.reshape(n, -1))
+        recon_logits = state.model.decode(mu)
+        return elbo_loss_weighted_sum_lanes(
+            recon_logits, batch.reshape(n, -1), mu, logvar, weights, hypers.beta
+        ).float()
+
+
+def make_stacked_eval_step(group: TrialGroup) -> Callable:
+    """Masked posterior-mean eval of K stacked trials: ``eval(state, hypers,
+    batch, weights) -> {"loss_sum": (K,)}``. The batch and its 0/1 pad
+    weights are shared by every lane (each trial scores the same test rows);
+    the parameters and beta are per lane. The sums cover the group's
+    batch."""
+    if not group.is_local_member:
+        raise ValueError(f"this process is not a member of {group!r}")
+
+    def eval_fn(state, hypers, batch, weights):
+        sums = _stacked_eval_sums(state, hypers, batch, weights)
+        return {"loss_sum": group_psum(group, sums) if group.size > 1 else sums}
+
+    return eval_fn
+
+
+def make_stacked_eval_scan(group: TrialGroup) -> Callable:
+    """The whole eval set at once: ``eval_scan(state, hypers, eval_batches,
+    eval_weights) -> {"loss_sum": (K,)}`` with ``eval_batches`` ``(E, rows,
+    ...)`` and ``eval_weights`` ``(E, rows)``, summed from zero over the E
+    batches in order (the JAX package's scanned eval)."""
+    eval_fn = make_stacked_eval_step(group)
+
+    def eval_scan(state, hypers, eval_batches, eval_weights):
+        acc = torch.zeros(state.lanes, dtype=torch.float32, device=state.count.device)
+        for b, w in zip(eval_batches, eval_weights):
+            acc = acc + eval_fn(state, hypers, b, w)["loss_sum"]
+        return {"loss_sum": acc}
+
+    return eval_scan
+
+
+def make_lane_ops(group: TrialGroup) -> tuple[Callable, Callable]:
+    """Lane surgery for mask-and-refill: ``(read, write)``.
+
+    ``read(state, k) -> TrainState`` copies lane ``k`` out as an unstacked
+    trial's state (a retired lane's result and checkpoint). ``write(state,
+    lane, k) -> state`` copies a trial into lane ``k``: an initialised
+    :class:`VAE` (a fresh trial: zero moments and step count) or a
+    :class:`TrainState`. Both copy in place and never rebind a stacked
+    tensor, so the CUDA graphs that hold the stacked state keep working
+    with no new capture."""
+    if not group.is_local_member:
+        raise ValueError(f"this process is not a member of {group!r}")
+
+    def write(state: StackedTrainState, lane, k: int) -> StackedTrainState:
+        _write_lane(state, lane, k)
+        return state
+
+    return _read_lane, write
