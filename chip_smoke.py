@@ -68,7 +68,8 @@ Phases, in order; any failure exits non-zero and prints no result:
     kernels against their plain versions at (8, 128, 784, 20) f32, timed
     beside their bound, the plain version and 8 launches of the
     single-trial kernels (whose bits they must equal), and untimed at
-    (3, 37, 784, 20) f32, the ragged (3, 37, 783, 5) bf16 and (8, 128) bf16;
+    (3, 37, 784, 20) f32, the ragged (3, 37, 783, 5) bf16, (8, 128) bf16
+    and phase 11b's (1, 128) and (4, 128) f32;
     a registered generator reseeded in place draws a fresh generator's
     numbers; (b) ``make_stacked_multi_step`` as CUDA-graph replays against
     its eager loop, with a lane retired and one refilled in place between
@@ -78,7 +79,25 @@ Phases, in order; any failure exits non-zero and prints no result:
     and refill: all completed, stacked and finite, each lane kernel once per
     stacked step, lane 0 against its config run unstacked, and the
     aggregate samples/s beside the single-trial slice's;
-11. a ``kernels`` JSON line, then the result line.
+11. population-based training at full width (784-400-20, batch 128, an
+    eval set of 79 batches): (a) the main path, ``run_pbt(fused=True)``
+    with 8 lanes, 5 generations of 50 steps: one capture and 5 replays of
+    the generation graph, one host fetch per generation, each lane kernel
+    once per stacked step, every generation's exploit edges, ms per
+    generation and stacked steps/s; the generation graph's first replay
+    against the same generation eager from the same state (bit-identical,
+    the exchange leaving each lane it did not exploit untouched), and the
+    device's busy time and idle share; (b) the per-group mode (4 one-slot
+    groups on cuda:0) against the fused mode, population 4, 3 generations,
+    the counts set to 0 before each run and read after it (each lane
+    kernel 4 x 150 times per group, 150 + 1 fused): eval sums within rel
+    1e-3, rankings and exploit edges equal but where the lanes they put
+    differently lie within rel 1e-3 of each other (a near-tie, printed); (c) the exchange alone under capture with NaN
+    written into lanes' sums through the static tensor it reads: NaN lanes
+    last, never a source, each replay equal to the eager exchange; (d) an
+    unstacked trial's lr set between chunks (``_set_lr``) drops its graphs,
+    and the recaptured chunk equals the eager loop's;
+12. a ``kernels`` JSON line, then the result line.
 
 Exits 1 without a result when CUDA is unavailable or the port is not
 beside this script.
@@ -1465,6 +1484,370 @@ def stacked_sweep(E, group, smi: str, train, test, slice_samples_s: float) -> di
     return launches
 
 
+# Phase 11, population-based training at full width (784-400-20, batch 128,
+# MNIST-sized data, so the eval set is 79 batches). 11a is the main path.
+PBT_FUSED = dict(population=8, generations=5, steps_per_generation=50, batch_size=128, lr_min=1e-4, lr_max=1e-2,
+                 perturb_factors=(0.8, 1.25), exploit_fraction=0.25)
+PBT_PER_GROUP = dict(PBT_FUSED, population=4, generations=3)
+# Per-group members against the fused lanes on the card: a generation's eval
+# sums within the stacked-vs-unstacked tolerance of phase 10c (batched
+# products of one lane and of K round differently, and 150 steps carry it).
+PBT_EVAL_RTOL = STACK_LOSS_RTOL
+
+
+def _pbt_snapshot(state, hypers, gens) -> tuple:
+    """Copies, on the card, of what a generation changes: every state
+    tensor, the lrs and the generators' states."""
+    from multidisttorch_tpu_torch.hpo.pbt import _state_tensors
+
+    return [t.detach().clone() for t in _state_tensors(state)], hypers.lr.clone(), [g.get_state() for g in gens]
+
+
+def _pbt_restore(snap, state, hypers, gens) -> None:
+    from multidisttorch_tpu_torch.hpo.pbt import _state_tensors
+
+    with torch.no_grad():
+        for t, s in zip(_state_tensors(state), snap[0]):
+            t.copy_(s)
+        hypers.lr.copy_(snap[1])
+    for g, s in zip(gens, snap[2]):
+        g.set_state(s)
+
+
+def _pbt_state(state, hypers) -> list:
+    from multidisttorch_tpu_torch.hpo.pbt import _state_tensors
+
+    return [t.detach().clone() for t in _state_tensors(state)] + [hypers.lr.clone()]
+
+
+def _pbt_same(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+
+def _pbt_run_counted(E, what: str, cfg, train, test, **kw) -> tuple:
+    """``run_pbt`` with the launch counts set to 0 just before and read just
+    after: each lane kernel once per stacked step of every member or
+    generation (``warmups`` more steps run on a scratch copy before a
+    capture), the single-trial kernels never. Returns the result, the
+    counts and the wall seconds."""
+    from multidisttorch_tpu_torch.hpo import run_pbt
+
+    warmups = kw.pop("warmups")
+    for k in E.LAUNCHES:
+        E.LAUNCHES[k] = 0
+    t0 = time.time()
+    res = run_pbt(cfg, train, test, verbose=False, **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(E.LAUNCHES)
+    steps = cfg.generations * cfg.steps_per_generation
+    for k, n in launches.items():
+        want = (steps + warmups) * (cfg.population if what == "per-group" else 1) if k.endswith("_lanes") else 0
+        check(n == want, f"{what} PBT (population {cfg.population}): {k} launched {n} times, expected {want}")
+    return res, launches, wall
+
+
+def pbt_fused_path(E, group, smi: str, train, test) -> dict:
+    """Phase 11a, the main path: ``run_pbt(fused=True)``, population 8, 5
+    generations of 50 steps, counts set to 0 just before and read just
+    after. One capture and 5 replays, one host fetch per generation, each
+    lane kernel once per stacked step (and once in the warm-up step on a
+    scratch copy before the capture); every generation's exploit edges;
+    ms per generation and graphed stacked steps/s."""
+    from multidisttorch_tpu_torch.hpo import PBTConfig
+
+    cfg = PBTConfig(**PBT_FUSED)
+    # Each lane kernel once per stacked step of the 5 replays, and once in
+    # the warm-up before the capture (one step on a scratch copy).
+    res, launches, _ = _pbt_run_counted(E, "fused", cfg, train, test, warmups=1, groups=[group], fused=True)
+    book = res.dispatch_book
+    G, S = cfg.generations, cfg.steps_per_generation
+    check(book["captures"] == 1 and book["graph_replays"] == G and book["program_calls"] == G,
+          f"fused PBT: {book['captures']} captures, {book['graph_replays']} replays, {book['program_calls']} calls "
+          f"in {G} generations")
+    check(book["host_fetches"] == G, f"fused PBT: {book['host_fetches']} host fetches in {G} generations")
+    check(len(res.history) == G and all(math.isfinite(s) for h in res.history for s in h["loss_sums"]),
+          "fused PBT: a generation's eval sums are missing or not finite")
+    best = [min(h["loss_sums"]) for h in res.history]
+    check(best[-1] < best[0], f"fused PBT: the best eval sum did not fall ({best[0]} -> {best[-1]})")
+    for h in res.history:
+        print(f"PBT fused gen {h['generation']}: order {h['order']}, best eval loss {min(h['scores'].values()):.4f}, "
+              "exploits " + (", ".join(f"{e['from']}->{e['to']} lr {e['new_lr']:.6e}" for e in h["exploits"])
+                             or "none"))
+    gen_ms = [s * 1e3 for s in book["generation_s"]]
+    steady = statistics.median(gen_ms[1:])
+    print(f"PBT fused (K {cfg.population}, {G} generations x {S} steps, eval {-(-len(test) // 128)} batches): "
+          f"ms per generation {', '.join(f'{v:.3f}' for v in gen_ms)} (the first captures); median of the later "
+          f"{steady:.3f} ms, {S / steady * 1e3:.1f} graphed stacked steps/s, "
+          f"{S * cfg.population * 128 / steady * 1e3:.1f} train samples/s; {book['host_fetches']} host fetches, "
+          f"{book['captures']} capture, {book['graph_replays']} replays; final lrs "
+          f"{['%.3e' % v for v in res.final_lrs]}; launches {launches} ({smi})")
+    return {"launches": launches, "ms_per_generation": steady, "generation_ms": gen_ms}
+
+
+def pbt_generation_checks(group, smi: str, train, test, ms_per_generation: float) -> dict:
+    """Phase 11a, the generation graph at the main path's config: its first
+    replay against the same generation run eagerly from the same state, bit
+    for bit (books, parameters, moments, counts, lrs), the exchange leaving
+    each lane it did not exploit as train and eval left it and giving each
+    lane it did exploit its source's bits; then the device's busy time per
+    generation from torch.profiler (kept only when the trace holds every
+    step's elbo_fwd_lanes) and the idle share against the main path's ms
+    per generation."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from multidisttorch_tpu_torch.data.sampler import StackedTrialDataIterator
+    from multidisttorch_tpu_torch.hpo import PBTConfig
+    from multidisttorch_tpu_torch.hpo._threefry import pbt_explore_key, pbt_perturb_factors
+    from multidisttorch_tpu_torch.hpo.pbt import (
+        _init_lrs,
+        _init_model,
+        _noise_seed,
+        _place_eval,
+        _stage_eval_host,
+        _state_tensors,
+        n_exploit_for,
+    )
+    from multidisttorch_tpu_torch.train.steps import (
+        TrialHypers,
+        _build_stacked_body,
+        _pack_pbt_books,
+        create_stacked_train_state,
+        fetch_pbt_books,
+        make_pbt_generation_step,
+        make_stacked_eval_scan,
+        pbt_exchange,
+        pbt_train_eval,
+    )
+
+    cfg = PBTConfig(**PBT_FUSED)
+    K, S, dev = cfg.population, cfg.steps_per_generation, group.device
+    kw = dict(n_exploit=n_exploit_for(cfg), lr_min=cfg.lr_min, lr_max=cfg.lr_max)
+    state = create_stacked_train_state(group, [_init_model(cfg, cfg.seed + k) for k in range(K)])
+    hypers = TrialHypers.stack([float(v) for v in _init_lrs(cfg)], [cfg.beta] * K, device=dev)
+    gens = [torch.Generator(device=dev).manual_seed(_noise_seed(cfg.seed, k, 0)) for k in range(K)]
+    chunks = StackedTrialDataIterator(train, group, 128, [cfg.seed + k for k in range(K)]).stream_chunks(S)
+    eval_b, eval_w = _place_eval(group, *_stage_eval_host(test, group, 128)[:2])
+    factors = torch.from_numpy(pbt_perturb_factors(pbt_explore_key(cfg.seed), 0, K, cfg.perturb_factors)).to(dev)
+    gen_step = make_pbt_generation_step(group, **kw)
+    check(gen_step.graphed, "make_pbt_generation_step on cuda:0 is not graphed")
+    batches = next(chunks)
+    snap = _pbt_snapshot(state, hypers, gens)
+    graph_books = fetch_pbt_books(gen_step(state, hypers, batches, eval_b, eval_w, factors, gens), K)
+    check(gen_step.captures == 1 and gen_step.replays == 1,
+          f"PBT generation: {gen_step.captures} captures, {gen_step.replays} replays after the first call")
+    graph_after = _pbt_state(state, hypers)
+    _pbt_restore(snap, state, hypers, gens)
+    body, eval_scan = _build_stacked_body(group, True, 1), make_stacked_eval_scan(group)
+    train_sums, eval_sums = pbt_train_eval(body, eval_scan, state, hypers, batches, eval_b, eval_w, gens)
+    before = [t.detach().clone() for t in _state_tensors(state)]
+    books = pbt_exchange(state, hypers, eval_sums, factors, **kw)
+    eager_books = fetch_pbt_books(_pack_pbt_books(books, train_sums, eval_sums), K)
+    eager_after = _pbt_state(state, hypers)
+    for name in eager_books:
+        check(np.array_equal(graph_books[name], eager_books[name]),
+              f"PBT generation: graph replay vs eager, {name} differ: {graph_books[name]} vs {eager_books[name]}")
+    check(_pbt_same(graph_after, eager_after), "PBT generation: graph replay vs eager, the state after differs")
+    src, exploited = eager_books["src"], eager_books["exploited"]
+    check(bool(exploited.any()), f"PBT generation 0 exploited no lane (sums {eager_books['eval_loss_sum']})")
+    for t_before, t_after in zip(before, eager_after):
+        for lane in range(K):
+            check(bool(torch.equal(t_after[lane], t_before[int(src[lane])])),
+                  f"PBT exchange: lane {lane} (exploited {bool(exploited[lane])}, src {src[lane]}) does not hold "
+                  "its source's state")
+    kept = [lane for lane in range(K) if not exploited[lane]]
+    print(f"PBT generation graph (K {K}, {S} steps, {eval_b.shape[0]} eval batches, exchange): first replay vs the "
+          "same generation eager from the same state: books, parameters, moments, counts and lrs bit-identical; "
+          f"edges {[(int(src[j]), j) for j in range(K) if exploited[j]]}; lanes {kept} untouched by the exchange, "
+          "the exploited ones their sources' bits")
+
+    # Device busy per generation: two replays under the profiler, the trace
+    # kept only when it holds every step's elbo_fwd_lanes.
+    busy, seen = 0.0, 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                fetch_pbt_books(gen_step(state, hypers, next(chunks), eval_b, eval_w, factors, gens), K)
+            torch.cuda.synchronize()
+        seen = sum(e.count for e in prof.key_averages() if "elbo_fwd_lanes" in e.key and e.device_time_total > 0)
+        if seen == 2 * S:
+            busy = sum(e.device_time_total for e in prof.key_averages()) / 2 / 1e3
+            break
+    by_kernel = sorted(((e.device_time_total / 2 / 1e3, e.count / 2, e.key) for e in prof.key_averages()
+                        if e.device_time_total > 0), reverse=True)
+    busy_s = (f"device busy not measured, idle share not measured (the profiler saw {seen} of {2 * S} "
+              "elbo_fwd_lanes launches)" if not busy else
+              f"device busy {busy:.3f} ms per generation, idle share {1 - busy / ms_per_generation:.3f} of the "
+              f"main path's {ms_per_generation:.3f} ms")
+    print(f"PBT fused generation: {busy_s}; {sum(k[1] for k in by_kernel):.0f} device kernels per generation; "
+          "device ms per generation by kernel (launches), top 10: "
+          + "; ".join(f"{t:.3f} ({n:g}) {key[:50]}" for t, n, key in by_kernel[:10]) + f" ({smi})")
+    return {"busy_ms": busy or None, "idle": (1 - busy / ms_per_generation) if busy else None}
+
+
+def pbt_exchange_under_capture(group) -> None:
+    """Phase 11c: ``pbt_exchange`` alone in a CUDA graph at full width (K 8),
+    reading its eval sums and factors from static tensors. A NaN written into
+    a lane's sum ranks it last, makes it a target and never a source; two
+    replays with different sums each equal the eager exchange from the same
+    state, bit for bit."""
+    import copy
+
+    from multidisttorch_tpu_torch.hpo import PBTConfig
+    from multidisttorch_tpu_torch.hpo.pbt import _init_model
+    from multidisttorch_tpu_torch.train.steps import TrialHypers, create_stacked_train_state, pbt_exchange
+
+    cfg, K, dev = PBTConfig(**PBT_FUSED), 8, group.device
+    state = create_stacked_train_state(group, [_init_model(cfg, 100 + k) for k in range(K)])
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for t in state.exp_avg + state.exp_avg_sq:
+            t.copy_(torch.rand(t.shape, generator=gen).to(dev))
+        state.count.copy_(torch.arange(K, dtype=torch.float32, device=dev) + 1)
+    hypers = TrialHypers.stack([1e-3 * (k + 1) for k in range(K)], [1.0] * K, device=dev)
+    sums = torch.arange(K, dtype=torch.float32, device=dev)
+    factors = torch.tensor([0.8, 1.25] * (K // 2), device=dev)
+    kw = dict(n_exploit=2, lr_min=cfg.lr_min, lr_max=cfg.lr_max)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the warm-up, on copies
+        pbt_exchange(copy.deepcopy(state), TrialHypers(hypers.lr.clone(), hypers.beta, hypers.active), sums,
+                     factors, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        books = pbt_exchange(state, hypers, sums, factors, **kw)
+    nan = float("nan")
+    # Lane 2 would rank first but for its NaN; then two NaN lanes and a tie.
+    for case in ([9.0, 5.0, nan, 7.0, 3.0, 2.0, 6.0, 4.0], [3.0, nan, 8.0, 1.0, 2.0, 2.0, nan, 0.5]):
+        sums.copy_(torch.tensor(case, device=dev))
+        snap = _pbt_snapshot(state, hypers, [])
+        graph.replay()
+        torch.cuda.synchronize()
+        got = {k: v.clone() for k, v in books.items()}
+        got_state = _pbt_state(state, hypers)
+        _pbt_restore(snap, state, hypers, [])
+        want = pbt_exchange(state, hypers, sums, factors, **kw)
+        check(all(bool(torch.equal(got[k], want[k])) for k in want), f"exchange under capture: books differ, {case}")
+        check(_pbt_same(got_state, _pbt_state(state, hypers)), f"exchange under capture: state differs, {case}")
+        nan_lanes = [j for j, v in enumerate(case) if v != v]
+        order, src, exploited = got["order"].tolist(), got["src"].tolist(), got["exploited"].tolist()
+        check(sorted(order[K - len(nan_lanes):]) == nan_lanes, f"exchange: NaN lanes {nan_lanes} not last in {order}")
+        check(all(src[j] not in nan_lanes for j in range(K) if exploited[j]),
+              f"exchange: a NaN lane is a source: src {src}, exploited {exploited}")
+        check(all(exploited[j] for j in nan_lanes), f"exchange: NaN lanes {nan_lanes} not exploited: {exploited}")
+        print(f"PBT exchange under capture, sums {case}: order {order}, edges "
+              f"{[(src[j], j) for j in range(K) if exploited[j]]}, new lrs "
+              f"{['%.3e' % v for v in got['new_lr'].tolist()]}; replay = eager, bit for bit")
+    # Its cost: the replay between CUDA events (a replay repeats the same
+    # gathers), beside the bytes bound of reading and writing every stacked
+    # tensor once.
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in _pbt_state(state, hypers))
+    print(f"PBT exchange (K {K}, 784-400-20, parameters, both moments, counts and lrs): "
+          f"{time_ms(graph.replay, iters=100):.6f} ms per graph replay; bytes bound "
+          f"{nbytes / PEAK_BYTES_S * 1e3:.6f} ms ({nbytes} bytes)")
+
+
+def _near_tie_pairs(a_order: list, b_order: list, a_edges: list, b_edges: list) -> list:
+    """The pairs of lanes that two runs' rankings or exploit edges put
+    differently: the lanes that hold one rank position in the two orders
+    and, where the orders agree, each differing edge's source and target."""
+    pairs = [(i, j) for i, j in zip(a_order, b_order) if i != j]
+    if not pairs:
+        pairs = [(e["from"], e["to"]) for e in a_edges + b_edges if (e in a_edges) != (e in b_edges)]
+    return sorted({tuple(sorted((int(i), int(j)))) for i, j in pairs})
+
+
+def pbt_per_group_vs_fused(E, group, smi: str, train, test) -> dict:
+    """Phase 11b: the per-group mode on one card (4 one-slot groups on
+    cuda:0, a graphed one-lane member each) against the fused mode at the
+    same config, population 4, 3 generations, each run's launches counted
+    on their own. Per generation the eval sums agree within
+    ``PBT_EVAL_RTOL``; the rankings and exploit edges are equal, except
+    where the lanes they put differently lie within that tolerance of each
+    other (a near-tie, printed with its pairs; the generations after it are
+    not compared, since the two populations then differ). Returns each
+    run's launch counts."""
+    import numpy as np
+
+    from multidisttorch_tpu_torch.hpo import PBTConfig
+    from multidisttorch_tpu_torch.parallel.mesh import setup_groups
+
+    cfg = PBTConfig(**PBT_PER_GROUP)
+    # A member's first chunk trains eagerly (the warm-up is a real step);
+    # the fused graph warms up one step on a scratch copy.
+    per, per_launches, per_s = _pbt_run_counted(E, "per-group", cfg, train, test, warmups=0,
+                                                groups=setup_groups(4, devices=["cuda:0"] * 4))
+    fused, fused_launches, fused_s = _pbt_run_counted(E, "fused", cfg, train, test, warmups=1, groups=[group],
+                                                      fused=True)
+    want = cfg.population * (cfg.generations - 1)  # each member's first chunk is its warm-up
+    check(per.dispatch_book["graph_replays"] == want,
+          f"per-group PBT: {per.dispatch_book['graph_replays']} replays, expected {want}")
+    worst = 0.0
+    for hp, hf in zip(per.history, fused.history):
+        gen = hp["generation"]
+        sp, sf = np.array(hp["loss_sums"]), np.array(hf["loss_sums"])
+        rel = float(np.max(np.abs(sp - sf) / np.abs(sf)))
+        worst = max(worst, rel)
+        check(rel <= PBT_EVAL_RTOL, f"per-group vs fused gen {gen}: eval sums rel {rel:.3e} ({sp} vs {sf})")
+        if hp["order"] == hf["order"] and hp["exploits"] == hf["exploits"]:
+            continue
+        pairs = _near_tie_pairs(hp["order"], hf["order"], hp["exploits"], hf["exploits"])
+        gaps = [float(abs(sf[i] - sf[j]) / max(abs(sf[i]), abs(sf[j]))) for i, j in pairs]
+        check(bool(pairs) and max(gaps) <= PBT_EVAL_RTOL,
+              f"per-group vs fused gen {gen}: rankings or edges differ beyond a near-tie: lanes {pairs} at "
+              f"relative gaps {gaps}; {hp['order']} {hp['exploits']} vs {hf['order']} {hf['exploits']}, sums {sf}")
+        print(f"PBT near-tie at gen {gen}: lanes " + ", ".join(f"{i}/{j} (gap {g:.3e})" for (i, j), g in zip(pairs, gaps))
+              + f" <= {PBT_EVAL_RTOL}, fused sums {sf.tolist()}; per-group order {hp['order']} edges {hp['exploits']}, "
+              f"fused order {hf['order']} edges {hf['exploits']}; later generations not compared")
+        break
+    print(f"PBT per-group ({cfg.population} one-slot groups on cuda:0) vs fused, population {cfg.population}, "
+          f"{cfg.generations} x {cfg.steps_per_generation} steps: eval sums within rel "
+          f"{worst:.3e} (tolerance {PBT_EVAL_RTOL}), orders {[h['order'] for h in per.history]} vs "
+          f"{[h['order'] for h in fused.history]}, edges {[h['exploits'] for h in per.history]} vs "
+          f"{[h['exploits'] for h in fused.history]}; wall {per_s:.3f} s vs {fused_s:.3f} s, "
+          f"{per.dispatch_book['dispatches_per_generation']} vs {fused.dispatch_book['dispatches_per_generation']} "
+          f"calls per generation; launches {per_launches} vs {fused_launches} ({smi})")
+    return {"per_group": per_launches, "fused": fused_launches}
+
+
+def set_lr_recapture_check(group) -> None:
+    """Phase 11d, the ground rule on graph state for an unstacked trial:
+    ``hpo/pbt.py::_set_lr`` between chunks drops the trial's graphs (their
+    Adam update holds the lr it was captured with), and the chunk after it
+    is captured anew; the losses and parameters equal the eager loop's with
+    the same change, bit for bit (784-400-20, batch 128, 3 chunks of 10)."""
+    from multidisttorch_tpu_torch.data.datasets import synthetic_mnist
+    from multidisttorch_tpu_torch.hpo.pbt import _set_lr
+    from multidisttorch_tpu_torch.models.vae import VAE, init_vae_params
+    from multidisttorch_tpu_torch.train.steps import EagerMultiStep, _build_body, create_train_state, make_multi_step
+
+    dev = group.device
+    chunks = torch.from_numpy(synthetic_mnist(128 * 30, seed=4).images).to(dev).reshape(3, 10, 128, -1)
+    runs = {}
+    for mode in ("eager", "graph"):
+        state = create_train_state(group, init_vae_params(VAE(), 3), 1e-3)
+        gen = torch.Generator(device=dev).manual_seed(21)
+        multi = make_multi_step(group) if mode == "graph" else EagerMultiStep(_build_body(group, 1.0, True, 1))
+        losses = []
+        for i, chunk in enumerate(chunks):
+            if i == 2:
+                _set_lr(state, 4e-3, multi)
+            state, m = multi(state, chunk, generator=gen)
+            losses.append(m["loss_sum"])
+        torch.cuda.synchronize()
+        runs[mode] = (torch.cat(losses), [p.detach().clone() for p in state.model.parameters()], multi)
+    (le, pe, _), (lg, pg, graphed) = runs["eager"], runs["graph"]
+    check(graphed.captures == 2 and graphed.replays == 2,
+          f"_set_lr: {graphed.captures} captures and {graphed.replays} replays, expected 2 and 2")
+    check(bool(torch.equal(le, lg)) and _pbt_same(pe, pg),
+          f"_set_lr: the recaptured chunk differs from the eager loop (losses max diff {float((le - lg).abs().max()):.3e})")
+    print("_set_lr between chunks 2 and 3 (lr 1e-3 -> 4e-3): the trial's graph dropped and captured anew "
+          f"({graphed.captures} captures, {graphed.replays} replays); 30 losses and every parameter bit-identical "
+          "to the eager loop with the same change")
+
+
 class _Lines(logging.Handler):
     def __init__(self):
         super().__init__()
@@ -1666,11 +2049,22 @@ def main() -> None:
     lane_kernel_vs_plain(E, 3, 37, 784, 20, torch.float32, timed=False)
     lane_kernel_vs_plain(E, 3, 37, 783, 5, torch.bfloat16, timed=False)
     lane_kernel_vs_plain(E, STACK_LANES, 128, 784, 20, torch.bfloat16, timed=False)
+    # Phase 11b's shapes: one-lane per-group members and the fused K 4.
+    lane_kernel_vs_plain(E, 1, 128, 784, 20, torch.float32, timed=False)
+    lane_kernel_vs_plain(E, PBT_PER_GROUP["population"], 128, 784, 20, torch.float32, timed=False)
     reseeded_generator_check()
     stacked_graph_vs_eager(E, group, smi)
     stack_launches = stacked_sweep(E, group, smi, train, test, slice_samples_s)
 
-    # Phase 11: the kernels line, then the result.
+    # Phase 11: population-based training; counts set to 0 inside (a) and
+    # (b), just before each run.
+    pbt = pbt_fused_path(E, group, smi, train, test)
+    pbt_generation_checks(group, smi, train, test, pbt["ms_per_generation"])
+    pbt_b = pbt_per_group_vs_fused(E, group, smi, train, test)
+    pbt_exchange_under_capture(group)
+    set_lr_recapture_check(group)
+
+    # Phase 12: the kernels line, then the result.
     # "ms", "plain_ms" and "library_ms" are device time per call at the
     # slice's shape (batch 128, f32); "*_call_ms" add the host's per-call
     # cost; "graph_ms" is per call replayed from a CUDA graph, "cold_ms"
@@ -1717,13 +2111,20 @@ def main() -> None:
     # Lane rows: device time per call at the stacked path's shape (K 8, batch
     # 128, f32); "singles_ms" is 8 launches of the single-trial kernel on the
     # same operands; no single PyTorch call computes per-lane sums, so
-    # "library_ms" is null. "launches" counts the stacked sweep's (phase 10c).
+    # "library_ms" is null. "launches" counts the stacked sweep's (phase 10c)
+    # and PBT's (phase 11a, fused K 8; phase 11b, per-group and fused K 4),
+    # "launches_by_path" each.
+    by_path = {name: {"stacked_sweep": stack_launches[name], "pbt_fused": pbt["launches"][name],
+                      "pbt_per_group_k4": pbt_b["per_group"][name], "pbt_fused_k4": pbt_b["fused"][name]}
+               for name in ("elbo_fwd_lanes", "elbo_bwd_lanes")}
     for name, key, line in (("elbo_fwd_lanes", "fwd", 134), ("elbo_bwd_lanes", "bwd", 163)):
         m = lane_main
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": f"multidisttorch_tpu/ops/pallas_elbo.py:{line}",
-            "launches": stack_launches[name], "max_abs_err": m[f"{key}_err"],
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
+            "max_abs_err": m[f"{key}_err"],
             "ms": m[f"{key}_ms"], "plain_ms": m[f"{key}_plain_ms"],
             "bound_ms": m[f"{key}_bound_ms"], "bound_by": m[f"{key}_bound_by"], "library_ms": None,
             "call_ms": m[f"{key}_call_ms"], "plain_call_ms": m[f"{key}_plain_call_ms"],

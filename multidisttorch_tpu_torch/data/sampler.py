@@ -212,6 +212,27 @@ class StackedTrialDataIterator:
 
         return chunks()
 
+    def stream_chunks(self, k_steps: int) -> Iterator[torch.Tensor]:
+        """Endless full ``(S, K, rows, ...)`` chunks that cross round
+        boundaries, each round freshly permuted per lane: the feed of a loop
+        driven by step counts (PBT's generations of ``S`` steps,
+        ``hpo/pbt.py``), where every chunk must be full so that one captured
+        graph serves them all. Lane ``k`` replays the stream of a one-lane
+        iterator with ``seeds=[seeds[k]]``."""
+        if k_steps < 1:
+            raise ValueError(f"chunk size must be >= 1, got {k_steps}")
+
+        def chunks():
+            buf = []
+            while True:
+                for stacked in self._host_round():
+                    buf.append(stacked)
+                    if len(buf) == k_steps:
+                        yield self._put(np.stack(buf), axis=2)
+                        buf = []
+
+        return chunks()
+
 
 class EvalDataIterator:
     """Full-coverage eval feed: every row, in dataset order; the final
@@ -233,16 +254,25 @@ class EvalDataIterator:
             return arr
         return np.pad(arr, [(0, short)] + [(0, 0)] * (arr.ndim - 1))
 
-    def batches(self) -> Iterator[tuple[torch.Tensor, torch.Tensor]]:
-        """Yield ``(imgs, weights)`` of this rank's rows, on the device;
-        weights are 1.0 on real rows and 0.0 on the final batch's padding."""
-        bs, dev = self.batch_size, self.group.device
+    def host_batches(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """Yield host-side ``(imgs, weights)`` group batches, zero-padded to
+        ``batch_size``: the one source :meth:`batches` places on the device,
+        also taken whole by PBT (``hpo/pbt.py`` stacks the eval set into one
+        ``(E, B, ...)`` device tensor)."""
+        bs = self.batch_size
         for b in range(self.num_batches):
             rows = self.dataset.images[b * bs : (b + 1) * bs]
             weights = np.zeros(bs, np.float32)
             weights[: rows.shape[0]] = 1.0
+            yield self._pad(rows), weights
+
+    def batches(self) -> Iterator[tuple[torch.Tensor, torch.Tensor]]:
+        """Yield ``(imgs, weights)`` of this rank's rows, on the device;
+        weights are 1.0 on real rows and 0.0 on the final batch's padding."""
+        dev = self.group.device
+        for rows, weights in self.host_batches():
             yield (
-                _to_device(_local_rows(self._pad(rows), self.group), dev),
+                _to_device(_local_rows(rows, self.group), dev),
                 _to_device(_local_rows(weights, self.group), dev),
             )
 

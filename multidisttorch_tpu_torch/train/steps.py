@@ -35,15 +35,19 @@ Trial stacking (the JAX package's ``make_stacked_*``, at the end of this
 module) runs K same-shape trials as one program: :class:`TrialHypers`,
 :func:`create_stacked_train_state`, :func:`make_stacked_train_step`,
 :func:`make_stacked_multi_step` (CUDA graphs by the same rule),
-:func:`make_stacked_eval_step` and :func:`make_lane_ops`.
+:func:`make_stacked_eval_step` and :func:`make_lane_ops`. Population-based
+training's exchange and generation follow: :func:`pbt_exchange` and
+:func:`make_pbt_generation_step` (one CUDA graph per generation on a card).
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
@@ -299,6 +303,13 @@ class _GraphedChunks:
       it gives the graph a ticket counter and partials of its own, which no
       eager call or other graph shares, and it tallies the ELBO launches the
       graph holds, which each replay adds to ``ops.elbo.LAUNCHES``.
+    - *A warm-up that must not train* (a PBT generation, whose every run is
+      to be a replay): the caller passes ``warm``, which runs the same work
+      on a scratch copy of the state; the chunk is then captured and
+      replayed at once.
+    - *State a graph holds that changes by value* (an unstacked optimizer's
+      Python-float lr): :meth:`drop` forgets the owner's graphs, and its
+      next chunk is captured anew.
 
     A capture that fails raises; nothing falls back to the eager loop. So
     does a device that is not a card with CUDA.
@@ -317,6 +328,13 @@ class _GraphedChunks:
         self._graphs: dict[tuple, _Captured] = {}
         self._warm: set[int] = set()
         self.replays = 0
+        self.captures = 0
+
+    def drop(self, owner) -> None:
+        """Forget the graphs of ``owner`` (the first item of their keys).
+        The owner stays warm: its next chunk is captured and replayed."""
+        for key in [key for key in self._graphs if key[0] == id(owner)]:
+            del self._graphs[key]
 
     def _capture(self, steps, inputs, generators, drop_grads, keep) -> _Captured:
         statics = tuple(None if x is None else torch.empty_like(x, device=self._device) for x in inputs)
@@ -327,25 +345,29 @@ class _GraphedChunks:
         with elbo_ops.capture_scope() as scope:
             with torch.cuda.graph(graph, stream=self._stream):
                 losses = steps(*statics)
+        self.captures += 1
         return _Captured(graph, statics, losses, scope, keep)
 
     def _chunk(self, owner, key, steps: Callable, inputs: tuple, generators: tuple, drop_grads: Callable,
-               keep: tuple) -> torch.Tensor:
+               keep: tuple, warm: Optional[Callable] = None) -> torch.Tensor:
         """Run one chunk, ``steps(*inputs) -> losses``: eagerly as the
-        owner's warm-up, else as a replay of the key's graph (captured
-        first if new)."""
+        owner's warm-up (or, given ``warm``, that on a scratch copy and then
+        a replay), else as a replay of the key's graph (captured first if
+        new)."""
         cap = self._graphs.get(key)
         if cap is None and id(owner) not in self._warm:
-            # Warm-up: this chunk trains eagerly on the capturing stream.
+            # Warm-up on the capturing stream: this chunk's real training,
+            # or the caller's scratch run.
             current = torch.cuda.current_stream(self._device)
             self._stream.wait_stream(current)
             with torch.cuda.stream(self._stream):
-                losses = steps(*inputs)
+                losses = steps(*inputs) if warm is None else warm()
             current.wait_stream(self._stream)
             losses.record_stream(current)
             self._warm.add(id(owner))
-            self._graphs[key] = self._capture(steps, inputs, generators, drop_grads, keep)
-            return losses
+            cap = self._graphs[key] = self._capture(steps, inputs, generators, drop_grads, keep)
+            if warm is None:
+                return losses
         if cap is None:
             cap = self._graphs[key] = self._capture(steps, inputs, generators, drop_grads, keep)
         for static, x in zip(cap.inputs, inputs):
@@ -820,3 +842,181 @@ def make_lane_ops(group: TrialGroup) -> tuple[Callable, Callable]:
         return state
 
     return _read_lane, write
+
+
+# --- population-based training: the exchange over the lane axis ---
+#
+# PBT (hpo/pbt.py) runs a population as the lanes of one stacked state.
+# A generation is S stacked train steps, the eval of the whole eval set
+# and the exploit/explore exchange: a stable argsort ranks the lanes, the
+# bottom lanes copy the top lanes' parameters, Adam moments and step counts
+# in place, and their lr becomes the source's times a factor drawn by the
+# host (hpo/_threefry.py, the JAX package's draw). Everything is written in
+# place, so one CUDA graph of the whole generation is replayed for every
+# generation.
+
+
+def pbt_exchange(
+    state: StackedTrainState,
+    hypers: TrialHypers,
+    eval_sums: torch.Tensor,
+    factors: torch.Tensor,
+    *,
+    n_exploit: int,
+    lr_min: float,
+    lr_max: float,
+) -> dict[str, torch.Tensor]:
+    """The exploit/explore exchange over the lane axis, in place (the JAX
+    package's ``pbt_exchange``).
+
+    ``eval_sums`` ``(K,)`` f32 ranks the lanes: NaN counts as ``+inf`` and
+    the argsort is stable, so a diverged lane ranks last and is never a
+    source, and ties break by lane. Bottom slot ``i`` exploits top slot
+    ``i`` iff its sanitised sum is strictly worse: every stacked parameter,
+    both Adam moments and ``count`` are gathered from ``src`` in place, and
+    the lane's lr becomes ``clip(lr[src] * factors[lane], lr_min,
+    lr_max)``, computed in f32 as the JAX package does and written into
+    ``hypers.lr``. ``n_exploit`` (static, at most ``K // 2``, so sources
+    and targets are disjoint) 0 is the identity. Noise generators are a
+    lane's identity and are not copied.
+
+    Returns the books, on the device: ``order`` (lanes best first),
+    ``exploited`` (K,) bool, ``src`` (K,) (a lane itself where not
+    exploited) and ``new_lr`` (K,) f32.
+    """
+    k = hypers.lr.shape[0]
+    if not 0 <= n_exploit <= k // 2:
+        raise ValueError(f"n_exploit {n_exploit} is outside [0, {k // 2}] for {k} lanes")
+    sanitized = torch.where(torch.isnan(eval_sums), torch.full_like(eval_sums, float("inf")), eval_sums)
+    order = torch.argsort(sanitized, stable=True)
+    lanes = torch.arange(k, device=eval_sums.device)
+    lr32 = hypers.lr.float()
+    if n_exploit == 0:
+        return {"order": order, "exploited": torch.zeros(k, dtype=torch.bool, device=eval_sums.device),
+                "src": lanes, "new_lr": lr32}
+    top, bottom = order[:n_exploit], order[k - n_exploit:]
+    cond = sanitized[bottom] > sanitized[top]
+    src = lanes.scatter(0, bottom, torch.where(cond, top, bottom))
+    exploited = torch.zeros(k, dtype=torch.bool, device=eval_sums.device).scatter(0, bottom, cond)
+    new_lr = torch.where(exploited, torch.clamp(lr32[src] * factors, lr_min, lr_max), lr32)
+    with torch.no_grad():
+        for t in (*state.model.parameters(), *state.exp_avg, *state.exp_avg_sq, state.count):
+            t.copy_(t.index_select(0, src))
+        hypers.lr.copy_(torch.where(exploited, new_lr.double(), hypers.lr))
+    return {"order": order, "exploited": exploited, "src": src, "new_lr": new_lr}
+
+
+def pbt_train_eval(body: Callable, eval_scan: Callable, state: StackedTrainState, hypers: TrialHypers, batches,
+                   eval_batches, eval_weights, generators=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """A generation before its exchange: S stacked train steps (``body``,
+    :func:`_build_stacked_body`'s) and the eval of the whole eval set
+    (``eval_scan``, :func:`make_stacked_eval_scan`'s). Returns the train
+    sums ``(S, K)`` and the eval sums ``(K,)``."""
+    train = torch.stack([body(state, hypers, batches[s], None, generators) for s in range(batches.shape[0])])
+    return train, eval_scan(state, hypers, eval_batches, eval_weights)["loss_sum"]
+
+
+def _pack_pbt_books(books: dict, train: torch.Tensor, eval_sums: torch.Tensor) -> torch.Tensor:
+    """A generation's books as one f64 vector, so that one copy brings them
+    to the host: every value (lane indices, f32 sums and lrs) is exact in
+    f64."""
+    return torch.cat([books["order"].double(), books["exploited"].double(), books["src"].double(),
+                      books["new_lr"].double(), eval_sums.double(), train.reshape(-1).double()])
+
+
+def fetch_pbt_books(packed: torch.Tensor, lanes: int) -> dict:
+    """One host fetch of a generation's packed books: ``order``,
+    ``exploited``, ``src``, ``new_lr`` (f32), ``eval_loss_sum`` (K,) f32 and
+    ``train_loss_sum`` (S, K) f32, as numpy arrays."""
+    host = packed.cpu().numpy()
+    k = lanes
+    return {
+        "order": host[:k].astype(np.int64),
+        "exploited": host[k : 2 * k].astype(bool),
+        "src": host[2 * k : 3 * k].astype(np.int64),
+        "new_lr": host[3 * k : 4 * k].astype(np.float32),
+        "eval_loss_sum": host[4 * k : 5 * k].astype(np.float32),
+        "train_loss_sum": host[5 * k :].reshape(-1, k).astype(np.float32),
+    }
+
+
+class EagerPBTGeneration:
+    """A PBT generation run op by op."""
+
+    graphed = False
+    replays = 0
+    captures = 0
+
+    def __init__(self, fn: Callable):
+        self._fn = fn
+
+    def __call__(self, state, hypers, batches, eval_batches, eval_weights, factors, generators=None):
+        return self._fn(state, hypers, batches, eval_batches, eval_weights, factors, generators)
+
+
+class GraphedPBTGeneration(_GraphedChunks):
+    """A PBT generation as one CUDA graph per (state, hypers, chunk shape,
+    eval set, generators), captured before the first generation and
+    replayed for every one (:class:`_GraphedChunks`, with the warm-up on a
+    scratch copy of the state, so no generation runs eagerly). The graph
+    holds the stacked state, the hypers, the eval set and the lanes'
+    generators by address, and reads each generation's chunk and factors
+    from static copies."""
+
+    def __init__(self, fn: Callable, device: torch.device):
+        super().__init__(device)
+        self._fn = fn
+
+    def __call__(self, state, hypers, batches, eval_batches, eval_weights, factors, generators=None):
+        gens = tuple(generators or ())
+
+        def generation(b, f):
+            return self._fn(state, hypers, b, eval_batches, eval_weights, f, generators)
+
+        def warm():
+            # What capture needs made first (the kernels loaded, this
+            # stream's cuBLAS workspace, the allocator's blocks), on a copy:
+            # one step, one eval batch and an exchange.
+            scratch = StackedTrainState(
+                model=copy.deepcopy(state.model), exp_avg=[t.clone() for t in state.exp_avg],
+                exp_avg_sq=[t.clone() for t in state.exp_avg_sq], count=state.count.clone())
+            shypers = TrialHypers(hypers.lr.clone(), hypers.beta.clone(), hypers.active.clone())
+            sgens = [torch.Generator(device=self._device).manual_seed(0) for _ in gens] or None
+            return self._fn(scratch, shypers, batches[:1], eval_batches[:1], eval_weights[:1], factors, sgens)
+
+        def drop_grads():
+            for p in state.model.parameters():
+                p.grad = None
+
+        key = (id(state), id(hypers), tuple(batches.shape), batches.dtype, id(eval_batches), id(eval_weights),
+               tuple(id(g) for g in gens))
+        return self._chunk(state, key, generation, (batches, factors), gens, drop_grads,
+                           keep=(state, hypers, gens, eval_batches, eval_weights), warm=warm)
+
+
+def make_pbt_generation_step(group: TrialGroup, *, n_exploit: int, lr_min: float, lr_max: float) -> Callable:
+    """One whole PBT generation: ``gen(state, hypers, batches, eval_batches,
+    eval_weights, factors, generators=None) -> packed books`` with
+    ``batches`` ``(S, K, rows, ...)``, the eval set ``(E, rows, ...)`` and
+    ``(E, rows)`` shared by the lanes, and ``factors`` ``(K,)`` f32 the
+    generation's explore draws. It runs S stacked train steps, the eval and
+    :func:`pbt_exchange`, in place, and returns the books packed on the
+    device; :func:`fetch_pbt_books` brings them to the host in one copy.
+
+    By :func:`eager_reason`'s rule a one-rank group on a CUDA device runs
+    it as replays of one CUDA graph (:class:`GraphedPBTGeneration`, no
+    generation eager); elsewhere it runs op by op
+    (:class:`EagerPBTGeneration`), with the same numbers.
+    """
+    body = _build_stacked_body(group, True, 1)
+    eval_scan = make_stacked_eval_scan(group)
+
+    def generation(state, hypers, batches, eval_batches, eval_weights, factors, generators=None):
+        train, eval_sums = pbt_train_eval(body, eval_scan, state, hypers, batches, eval_batches, eval_weights,
+                                          generators)
+        books = pbt_exchange(state, hypers, eval_sums, factors, n_exploit=n_exploit, lr_min=lr_min, lr_max=lr_max)
+        return _pack_pbt_books(books, train, eval_sums)
+
+    if eager_reason(group) is None:
+        return GraphedPBTGeneration(generation, group.device)
+    return EagerPBTGeneration(generation)
