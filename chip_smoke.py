@@ -5,8 +5,10 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit; TF32 off for matmuls and cuDNN;
-2. build the CUDA kernels from ``multidisttorch_tpu_torch/ops/csrc``, one
-   ``nvcc`` per source, all started together;
+2. build the CUDA kernels from ``multidisttorch_tpu_torch/ops/csrc`` and
+   the data feed's native gatherer from
+   ``multidisttorch_tpu_torch/data/csrc/fastloader.cpp`` (``g++``), one
+   compiler per source, all started together;
 3. each ELBO kernel against its plain PyTorch version (value, the three
    gradients, identical bits on a rerun and on 100 replays of one captured
    call) at four timed shapes, with the kernel's, the plain version's and
@@ -97,7 +99,24 @@ Phases, in order; any failure exits non-zero and prints no result:
     last, never a source, each replay equal to the eager exchange; (d) an
     unstacked trial's lr set between chunks (``_set_lr``) drops its graphs,
     and the recaptured chunk equals the eager loop's;
-12. a ``kernels`` JSON line, then the result line.
+12. the input feed and remat: (a) the native gatherer against the numpy
+    gather, byte for byte, at the slice's chunk (10, 128, 784), the sweep's
+    (10, 8, 128, 784) and PBT's (50, 8, 128, 784), with host ms per chunk
+    (the consumer's blocked time) for the numpy, native, numpy-prefetched
+    and native-prefetched paths in turns, and the host-to-device copy of a
+    pinned PBT chunk; phases 6, 7, 10c and 11 must have built every train
+    iterator on the native path; (b) phase 11a's fused PBT with the feed on
+    (its defaults) and off (``use_native=False, prefetch=False``,
+    ``MDT_STACKED_PREFETCH=0``) in turns: bit-identical books, lrs and
+    lane states, each lane kernel once per stacked step, ms per generation,
+    blocked ms per chunk and the idle share; then phase 6's slice with the
+    feed on and off in turns: equal results, wall time; (c)
+    ``make_multi_step`` graphed with remat off and on at batch 128 and
+    8192, and the stacked graphed step at K 8: losses and parameters (and
+    the stacked moments and counts) bit-identical, or the first differing
+    tensor and rel 1e-6, each ELBO kernel once per step, ms per step and
+    the peak of device memory over the first chunk both ways;
+13. a ``kernels`` JSON line, then the result line.
 
 Exits 1 without a result when CUDA is unavailable or the port is not
 beside this script.
@@ -105,6 +124,7 @@ beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
@@ -1848,6 +1868,358 @@ def set_lr_recapture_check(group) -> None:
           "to the eager loop with the same change")
 
 
+# Phase 12, the input feed (data/native.py, data/sampler.py) and remat.
+# Iterator arguments of each gather path; "numpy" is the synchronous
+# reference, the path every run took before the feed.
+FEED_PATHS = {
+    "numpy": dict(use_native=False, prefetch=False),
+    "native": dict(use_native=True, prefetch=False),
+    "numpy+prefetch": dict(use_native=False, prefetch=True),
+    "native+prefetch": dict(use_native=True, prefetch=True),
+}
+# The gather paths of the train iterators that run_hpo and run_pbt built
+# since the last _check_feeds.
+FEEDS: list = []
+REMAT_BATCHES = (128, 8192)
+REMAT_CHUNKS = 3  # of 10 steps: the eager warm-up (then the capture) and two replays
+REMAT_TIMING_CHUNKS = {128: 20, 8192: 4}
+# Where remat's bits differ from remat off's on the card: the tolerance,
+# normwise per tensor (recomputed products may take other kernels).
+REMAT_RTOL = 1e-6
+
+
+def _watch_feeds() -> None:
+    """From here on, record the gather path of every train iterator that
+    ``run_hpo`` and ``run_pbt`` build (the driver's and PBT's names are
+    rebound to subclasses that note it)."""
+    from multidisttorch_tpu_torch.data import sampler
+    from multidisttorch_tpu_torch.hpo import driver, pbt
+
+    for mod, name in ((driver, "TrialDataIterator"), (driver, "StackedTrialDataIterator"),
+                      (pbt, "StackedTrialDataIterator")):
+
+        class Watched(getattr(sampler, name)):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                FEEDS.append(self.gather_path)
+
+        setattr(mod, name, Watched)
+
+
+def _check_feeds(phase: str, want: str = "native") -> None:
+    paths = list(FEEDS)
+    FEEDS.clear()
+    check(bool(paths) and set(paths) == {want},
+          f"phase {phase}: the train iterators took the gather paths {paths}, expected {want}")
+
+
+def feed_gatherer(group, smi: str, train) -> None:
+    """Phase 12a: the native gatherer against the numpy gather, byte for
+    byte on the card, at the slice's chunk (10, 128, 784: a whole epoch of
+    ``epoch_chunks``, its tail included), the sweep's (10, 8, 128, 784: a
+    whole round of ``round_chunks``) and PBT's (50, 8, 128, 784: 10 chunks
+    of ``stream_chunks``, across a round's edge); each path twice, in turns
+    (the paths, then the same in reverse). Host ms per chunk: the time the
+    consumer was blocked in each ``next()`` (the stacked iterators'
+    ``wait_hook``), median over both runs, with nothing else to do between
+    two chunks; and the wall ms per chunk to the last copy's end. Then the
+    host-to-device copy of a pinned PBT chunk."""
+    from multidisttorch_tpu_torch.data import native
+    from multidisttorch_tpu_torch.data.sampler import StackedTrialDataIterator, TrialDataIterator
+
+    check(native.available(), "phase 12a: the native gatherer did not build or load")
+    lanes = list(range(STACK_LANES))
+    stacked = ("numpy", "native", "numpy+prefetch", "native+prefetch")
+
+    def slice_chunks(kw, hook):
+        it = TrialDataIterator(train, group, 128, seed=0, use_native=kw["use_native"])
+        return it, (c for _, c in it.epoch_chunks(1, 10))
+
+    def sweep_chunks(kw, hook):
+        it = StackedTrialDataIterator(train, group, 128, lanes, wait_hook=hook, **kw)
+        return it, (c for _, c in it.round_chunks(10))
+
+    def pbt_chunks(kw, hook):
+        it = StackedTrialDataIterator(train, group, 128, lanes, wait_hook=hook, **kw)
+        return it, it.stream_chunks(50)
+
+    for name, shape, paths, make, n in (
+        ("slice", (10, 128, 784), ("numpy", "native"), slice_chunks, 47),
+        ("sweep", (10, STACK_LANES, 128, 784), stacked, sweep_chunks, 47),
+        ("PBT", (50, STACK_LANES, 128, 784), stacked, pbt_chunks, 10),
+    ):
+        ref, blocked, walls = None, {p: [] for p in paths}, {p: [] for p in paths}
+        for path in paths + paths[::-1]:
+            hook_times: list = []
+            it, chunks = make(FEED_PATHS[path], lambda s, nb, t=hook_times: t.append(s))
+            want = "native" if path.startswith("native") else "numpy"
+            check(it.gather_path == want, f"phase 12a {name} {path}: gather_path {it.gather_path}, expected {want}")
+            torch.cuda.synchronize()
+            got, t_start = [], time.perf_counter()
+            for _ in range(n):
+                t0 = time.perf_counter()
+                got.append(next(chunks))
+                if make is slice_chunks:
+                    hook_times.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            walls[path].append((time.perf_counter() - t_start) / n * 1e3)
+            chunks.close()
+            check(len(hook_times) == n, f"phase 12a {name} {path}: {len(hook_times)} blocked times for {n} chunks")
+            blocked[path] += [s * 1e3 for s in hook_times]
+            check(tuple(got[0].shape) == shape, f"phase 12a {name} {path}: chunk shape {tuple(got[0].shape)}")
+            if ref is None:
+                ref = got
+            same = len(got) == len(ref) and all(bool(torch.equal(a, b)) for a, b in zip(got, ref))
+            check(same, f"phase 12a {name}: the {path} path's chunks differ from the numpy path's")
+            del got
+        nbytes = math.prod(shape) * 4
+        print(f"feed, {name} chunk {shape} ({nbytes} bytes), {n} chunks a run, paths {', '.join(paths)} and "
+              "back: every path's chunks equal the numpy path's byte for byte; host ms per chunk (consumer "
+              "blocked in next(), median of both runs) " + ", ".join(
+                  f"{p} {statistics.median(blocked[p]):.3f}" for p in paths)
+              + "; wall ms per chunk to the last copy's end " + ", ".join(
+                  f"{p} {statistics.fmean(walls[p]):.3f} ({', '.join(f'{w:.3f}' for w in walls[p])})" for p in paths)
+              + f" ({smi})")
+
+    host = torch.empty((50, STACK_LANES, 128, 784), pin_memory=True).fill_(0.5)
+    dev_buf = torch.empty(host.shape, device=group.device)
+    dev_buf.copy_(host, non_blocking=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        dev_buf.copy_(host, non_blocking=True)
+    end.record()
+    torch.cuda.synchronize()
+    h2d = start.elapsed_time(end) / 5
+    print(f"feed: host-to-device copy of a pinned PBT chunk ({host.numel() * 4} bytes): {h2d:.3f} ms, "
+          f"{host.numel() * 4 / h2d / 1e6:.3f} GB/s (CUDA events, 5 copies) ({smi})")
+
+
+@contextlib.contextmanager
+def _feed(feed: str, blocked: list):
+    """``run_hpo``'s and ``run_pbt``'s train iterators, the stacked ones
+    with a wait hook that appends the consumer's blocked seconds to
+    ``blocked``; ``feed="off"`` also takes the synchronous numpy path
+    (``use_native=False``, ``prefetch=False`` and
+    ``MDT_STACKED_PREFETCH=0``)."""
+    from multidisttorch_tpu_torch.hpo import driver, pbt
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name in (
+        (driver, "TrialDataIterator"), (driver, "StackedTrialDataIterator"), (pbt, "StackedTrialDataIterator"))]
+    old_env = os.environ.get("MDT_STACKED_PREFETCH")
+    for mod, name, real in saved:
+
+        class Fed(real):
+            def __init__(self, *a, _stacked=name.startswith("Stacked"), **kw):
+                if _stacked:
+                    kw["wait_hook"] = lambda s, nb: blocked.append(s)
+                if feed == "off":
+                    kw.update(FEED_PATHS["numpy"] if _stacked else {"use_native": False})
+                super().__init__(*a, **kw)
+
+        setattr(mod, name, Fed)
+    if feed == "off":
+        os.environ["MDT_STACKED_PREFETCH"] = "0"
+    try:
+        yield
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+        if old_env is None:
+            os.environ.pop("MDT_STACKED_PREFETCH", None)
+        else:
+            os.environ["MDT_STACKED_PREFETCH"] = old_env
+
+
+def _same_pbt_result(a, b) -> bool:
+    """Books (every generation's sums, orders, lrs and edges), final lrs and
+    every lane's parameters, moments and step count, bit for bit."""
+    if a.history != b.history or a.final_lrs != b.final_lrs or len(a.final_states) != len(b.final_states):
+        return False
+    for sa, sb in zip(a.final_states, b.final_states):
+        if sa["count"] != sb["count"] or any(not torch.equal(sa["params"][k], sb["params"][k]) for k in sa["params"]):
+            return False
+        if any(not torch.equal(x, y) for x, y in zip(sa["exp_avg"] + sa["exp_avg_sq"],
+                                                      sb["exp_avg"] + sb["exp_avg_sq"])):
+            return False
+    return True
+
+
+def pbt_feed_on_off(E, group, smi: str, train, test, busy_ms) -> dict:
+    """Phase 12b: phase 11a's fused PBT (K 8, 5 generations of 50 steps)
+    with the feed's defaults (native gatherer, prefetch) and with the feed
+    off (the synchronous numpy path), in turns (on, off, off, on), the
+    counts set to 0 before each run: each lane kernel once per stacked step,
+    every run's books, lrs, parameters, moments and counts bit-identical;
+    ms per generation (median of generations 1-4), the consumer's blocked
+    ms per chunk, and the idle share against phase 11a's busy time per
+    generation (the same graph on the card, whichever feed)."""
+    from multidisttorch_tpu_torch.hpo import PBTConfig
+
+    cfg = PBTConfig(**PBT_FUSED)
+    runs: dict = {"on": [], "off": []}
+    for feed in ("on", "off", "off", "on"):
+        blocked: list = []
+        with _feed(feed, blocked):
+            res, launches, wall = _pbt_run_counted(E, f"fused (feed {feed})", cfg, train, test, warmups=1,
+                                                   groups=[group], fused=True, return_states=True)
+        _check_feeds(f"12b (feed {feed})", "native" if feed == "on" else "numpy")
+        gen_ms = [s * 1e3 for s in res.dispatch_book["generation_s"]]
+        runs[feed].append({"res": res, "launches": launches, "gen_ms": gen_ms,
+                           "steady": statistics.median(gen_ms[1:]), "blocked": [s * 1e3 for s in blocked],
+                           "wall": wall})
+    first = runs["on"][0]["res"]
+    for feed, rs in runs.items():
+        for i, r in enumerate(rs):
+            check(_same_pbt_result(first, r["res"]),
+                  f"PBT feed {feed} run {i + 1}: books, lrs or lane states differ from the first feed-on run")
+    out = {}
+    for feed, rs in runs.items():
+        steady = statistics.median([r["steady"] for r in rs])
+        idle = f"{1 - busy_ms / steady:.3f}" if busy_ms else "not measured"
+        out[feed] = {"ms_per_generation": steady, "idle": idle, "launches": rs[0]["launches"]}
+        print(f"PBT fused K {cfg.population}, feed {feed}: ms per generation " + "; ".join(
+            ", ".join(f"{v:.3f}" for v in r["gen_ms"]) + f" (median of 1-4 {r['steady']:.3f})" for r in rs)
+            + f"; median {steady:.3f} ms, idle share {idle} against busy {busy_ms} ms (phase 11a); consumer "
+            "blocked ms per chunk (the first before generation 0) " + "; ".join(
+                ", ".join(f"{v:.3f}" for v in r["blocked"]) for r in rs)
+            + f"; wall s {[round(r['wall'], 6) for r in rs]}; launches {rs[0]['launches']} ({smi})")
+    print("PBT fused, feed on vs off (runs on, off, off, on): books, lrs, parameters, moments and counts "
+          "bit-identical in every run")
+    return out
+
+
+def slice_feed_on_off(group, smi: str, train, test) -> None:
+    """Phase 12b, the single-trial main path: phase 6's slice (two trials,
+    checkpoints off) with the feed on (the native gatherer) and off (numpy),
+    in turns (on, off, off, on): the same histories and final losses, and
+    the wall time of each run."""
+    from multidisttorch_tpu_torch.hpo.driver import TrialConfig, run_hpo
+
+    configs = [TrialConfig(trial_id=g, epochs=1 + g, batch_size=128, seed=g, fused_steps=10) for g in range(2)]
+    walls, first = {"on": [], "off": []}, {}
+    for feed in ("on", "off", "off", "on"):
+        with _feed(feed, []), tempfile.TemporaryDirectory() as tmp:
+            t0 = time.time()
+            res = run_hpo(configs, train, test, groups=[group], out_dir=tmp, save_checkpoints=False, verbose=False)
+            torch.cuda.synchronize()
+            walls[feed].append(time.time() - t0)
+        _check_feeds(f"12b slice (feed {feed})", "native" if feed == "on" else "numpy")
+        first.setdefault(feed, [(r.status, r.steps, r.history, r.final_train_loss, r.final_test_loss) for r in res])
+    check(first["on"] == first["off"], f"slice, feed on vs off: results differ: {first['on']} vs {first['off']}")
+    steps = sum(r[1] for r in first["on"])
+    print(f"slice (2 trials, {steps} steps, checkpoints off), feed on vs off (runs on, off, off, on): histories and "
+          f"final losses equal; wall s on {walls['on']} (median {statistics.median(walls['on']):.6f}), off "
+          f"{walls['off']} (median {statistics.median(walls['off']):.6f}) ({smi})")
+
+
+def _compare_remat(what: str, off: dict, on: dict) -> str:
+    """Remat on against off: bit-identical, or else the first differing
+    tensor printed and every tensor held at :data:`REMAT_RTOL`, normwise."""
+    diff = [k for k in off if not torch.equal(off[k], on[k])]
+    if not diff:
+        return "bit-identical"
+    rel = {k: float((off[k] - on[k]).abs().max() / off[k].abs().max().clamp_min(1e-30)) for k in diff}
+    print(f"{what}: remat on vs off differ first in {diff[0]} (rel {rel[diff[0]]:.3e}); {len(diff)} of {len(off)} "
+          f"tensors differ, at most rel {max(rel.values()):.3e}")
+    check(max(rel.values()) <= REMAT_RTOL, f"{what}: remat on vs off beyond rel {REMAT_RTOL}: {rel}")
+    return f"within rel {max(rel.values()):.3e}"
+
+
+def remat_phase(E, group, smi: str) -> dict:
+    """Phase 12c: ``make_multi_step`` graphed with remat off and on, from
+    the same weights, batches and generator seed, in chunks of 10 (the
+    first one's eager warm-up, its capture, then replays), at batch 128
+    and 8192: losses and parameters compared (bit-identical, or the first
+    differing tensor and rel 1e-6), each ELBO kernel launched once per step
+    both ways, the peak of device memory allocated over the first chunk
+    (warm-up and capture) above what was allocated before it, and ms per
+    step of the replays in turns (off, on, on, off); then the stacked
+    graphed step at K 8, batch 128, likewise (losses, parameters, moments,
+    counts; each lane kernel once per step). Returns the launch counts by
+    run."""
+    from multidisttorch_tpu_torch.models.vae import VAE, init_vae_params
+    from multidisttorch_tpu_torch.train.steps import (
+        TrialHypers,
+        create_stacked_train_state,
+        create_train_state,
+        make_multi_step,
+        make_stacked_multi_step,
+    )
+
+    dev = group.device
+    launches: dict = {}
+
+    def run(make, b: int, stacked: bool) -> None:
+        rows = (STACK_LANES, b) if stacked else (b,)
+        chunks = torch.rand((REMAT_CHUNKS, 10, *rows, 784), generator=torch.Generator(device=dev).manual_seed(b),
+                            device=dev)
+        steps = REMAT_CHUNKS * 10
+        what = f"stacked K {STACK_LANES}, batch {b}" if stacked else f"single, batch {b}"
+        got = {}
+        for remat in (False, True):
+            state, multi, call = make(remat)
+            check(multi.graphed, f"remat {remat} ({what}): the multi-step is not graphed")
+            for k in E.LAUNCHES:
+                E.LAUNCHES[k] = 0
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            losses = []
+            for i, c in enumerate(chunks):
+                losses.append(call(state, multi, c))
+                if i == 0:
+                    torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated() - base
+            torch.cuda.synchronize()
+            for k, n in E.LAUNCHES.items():
+                want = steps if k.endswith("_lanes") == stacked else 0
+                check(n == want, f"remat {remat} ({what}): {k} launched {n} times in {steps} steps, expected {want}")
+            launches[f"remat_{'stacked_' if stacked else ''}b{b}_{'on' if remat else 'off'}"] = dict(E.LAUNCHES)
+            tensors = {"losses": torch.cat(losses)}
+            tensors.update({f"param {k}": v.detach().clone() for k, v in state.params.items()})
+            if stacked:
+                tensors.update({f"moment {i}": t.clone() for i, t in enumerate(state.exp_avg + state.exp_avg_sq)})
+                tensors["count"] = state.count.clone()
+            got[remat] = (state, multi, call, tensors, peak)
+        verdict = _compare_remat(what, got[False][3], got[True][3])
+        per = {False: [], True: []}
+        reps = REMAT_TIMING_CHUNKS[b]
+        for remat in (False, True, True, False):
+            state, multi, call, *_ = got[remat]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                call(state, multi, chunks[1])
+            torch.cuda.synchronize()
+            per[remat].append((time.perf_counter() - t0) / (reps * 10) * 1e3)
+        multi_on = got[True][1]
+        print(f"remat, graphed multi-step {what}, chunks of 10: {steps} steps both ways, losses and "
+              f"{'parameters, moments and counts' if stacked else 'parameters'} {verdict}; with remat "
+              f"{getattr(multi_on, 'captures', 0)} capture, {multi_on.replays} replays, each ELBO kernel once per step; ms per "
+              f"step off {statistics.fmean(per[False]):.6f} ({', '.join(f'{v:.6f}' for v in per[False])}), on "
+              f"{statistics.fmean(per[True]):.6f} ({', '.join(f'{v:.6f}' for v in per[True])}); peak device "
+              f"memory allocated over the first chunk off {got[False][4]} bytes, on {got[True][4]} bytes ({smi})")
+
+    def single(remat):
+        state = create_train_state(group, init_vae_params(VAE(), 0), 1e-3)
+        gen = torch.Generator(device=dev).manual_seed(1234)
+        return state, make_multi_step(group, remat=remat), lambda s, m, c: m(s, c, generator=gen)[1]["loss_sum"]
+
+    def stacked_k8(remat):
+        state = create_stacked_train_state(group, [init_vae_params(VAE(), s) for s in range(STACK_LANES)])
+        hypers = TrialHypers.stack([1e-3, 2e-3, 5e-4, 1e-3, 3e-3, 1e-3, 2e-3, 1e-3],
+                                   [1.0, 1.0, 2.0, 4.0, 1.0, 0.5, 1.0, 3.0], device=dev)
+        gens = [torch.Generator(device=dev).manual_seed(1000 + j) for j in range(STACK_LANES)]
+        multi = make_stacked_multi_step(group, remat=remat)
+        return state, multi, lambda s, m, c: m(s, hypers, c, generators=gens)[1]["loss_sum"]
+
+    for b in REMAT_BATCHES:
+        run(single, b, False)
+    run(stacked_k8, 128, True)
+    return launches
+
+
 class _Lines(logging.Handler):
     def __init__(self):
         super().__init__()
@@ -1897,6 +2269,7 @@ def main() -> None:
         built = _build.build_all()
         floor = floor_job.result()["empty"]
     print(f"built {[p.name for p in built]} and the ELBO launch-floor build in {time.time() - t0:.1f} s")
+    check(any(p.name.startswith("libfastloader_") for p in built), "phase 2: the native gatherer was not built")
     for name, log in _build.ptxas_reports.items():
         regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", log)})
         spills = sorted({int(s) for s in re.findall(r"(\d+) bytes spill stores", log)})
@@ -1948,7 +2321,8 @@ def main() -> None:
 
     # Phase 6: the slice, through run_hpo (graph replays), writing its
     # checkpoints (the default) into a temporary directory. Counts reset
-    # just before.
+    # just before. From here on every train iterator's gather path is noted.
+    _watch_feeds()
     train = synthetic_mnist(60000, seed=0)
     test = synthetic_mnist(10000, seed=1)
     configs = [
@@ -2010,8 +2384,11 @@ def main() -> None:
           f"off: {walls[False]} (median {statistics.median(walls[False]):.6f}) "
           f"(rounds off, on, on, off, twice; {smi})")
 
+    _check_feeds("6")
+
     # Phase 7: checkpoints, resume and a supervised retry on the main path.
     checkpoint_phase(E, group, smi, train, test)
+    _check_feeds("7")
 
 
     # Phase 8: each flash kernel against its plain version. Timed at the
@@ -2055,31 +2432,43 @@ def main() -> None:
     reseeded_generator_check()
     stacked_graph_vs_eager(E, group, smi)
     stack_launches = stacked_sweep(E, group, smi, train, test, slice_samples_s)
+    _check_feeds("10c")
 
     # Phase 11: population-based training; counts set to 0 inside (a) and
     # (b), just before each run.
     pbt = pbt_fused_path(E, group, smi, train, test)
-    pbt_generation_checks(group, smi, train, test, pbt["ms_per_generation"])
+    pbt_busy = pbt_generation_checks(group, smi, train, test, pbt["ms_per_generation"])["busy_ms"]
     pbt_b = pbt_per_group_vs_fused(E, group, smi, train, test)
+    _check_feeds("11")
     pbt_exchange_under_capture(group)
     set_lr_recapture_check(group)
 
-    # Phase 12: the kernels line, then the result.
+    # Phase 12: the input feed and remat; counts set to 0 inside (b) and (c),
+    # just before each run.
+    feed_gatherer(group, smi, train)
+    feed = pbt_feed_on_off(E, group, smi, train, test, pbt_busy)
+    slice_feed_on_off(group, smi, train, test)
+    remat_launches = remat_phase(E, group, smi)
+
+    # Phase 13: the kernels line, then the result.
     # "ms", "plain_ms" and "library_ms" are device time per call at the
     # slice's shape (batch 128, f32); "*_call_ms" add the host's per-call
     # cost; "graph_ms" is per call replayed from a CUDA graph, "cold_ms"
     # with a cold L2, "floor_ms" / "floor_graph_ms" the same launch of
     # kernels that return at once. "launches" counts the launches the slice's
-    # train steps ran (graph replays included), one per wrapper call.
+    # train steps (phase 6) and remat's graphed runs (phase 12c) ran, graph
+    # replays included, one per wrapper call; "launches_by_path" each.
     src = "multidisttorch_tpu_torch/ops/csrc/elbo.cu"
     m = main_shape
     kernels = []
     for name, key, line in (("elbo_fwd", "fwd", 134), ("elbo_bwd", "bwd", 163)):
         lib = f"{key}_library"
+        by_path = {"slice": launches[name], **{run: n[name] for run, n in remat_launches.items()
+                                               if "stacked" not in run}}
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": f"multidisttorch_tpu/ops/pallas_elbo.py:{line}",
-            "launches": launches[name], "max_abs_err": m[f"{key}_err"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path, "max_abs_err": m[f"{key}_err"],
             "ms": m[f"{key}_ms"], "plain_ms": m[f"{key}_plain_ms"],
             "bound_ms": m[f"{key}_bound_ms"], "bound_by": m[f"{key}_bound_by"],
             "library_ms": m[f"{lib}_ms"],
@@ -2111,11 +2500,15 @@ def main() -> None:
     # Lane rows: device time per call at the stacked path's shape (K 8, batch
     # 128, f32); "singles_ms" is 8 launches of the single-trial kernel on the
     # same operands; no single PyTorch call computes per-lane sums, so
-    # "library_ms" is null. "launches" counts the stacked sweep's (phase 10c)
-    # and PBT's (phase 11a, fused K 8; phase 11b, per-group and fused K 4),
-    # "launches_by_path" each.
+    # "library_ms" is null. "launches" counts the stacked sweep's (phase 10c),
+    # PBT's (phase 11a, fused K 8; phase 11b, per-group and fused K 4; phase
+    # 12b, the first fused K 8 run with the feed on and off) and the stacked
+    # remat runs' (phase 12c), "launches_by_path" each.
     by_path = {name: {"stacked_sweep": stack_launches[name], "pbt_fused": pbt["launches"][name],
-                      "pbt_per_group_k4": pbt_b["per_group"][name], "pbt_fused_k4": pbt_b["fused"][name]}
+                      "pbt_per_group_k4": pbt_b["per_group"][name], "pbt_fused_k4": pbt_b["fused"][name],
+                      "pbt_fused_feed_on": feed["on"]["launches"][name],
+                      "pbt_fused_feed_off": feed["off"]["launches"][name],
+                      **{run: n[name] for run, n in remat_launches.items() if "stacked" in run}}
                for name in ("elbo_fwd_lanes", "elbo_bwd_lanes")}
     for name, key, line in (("elbo_fwd_lanes", "fwd", 134), ("elbo_bwd_lanes", "bwd", 163)):
         m = lane_main

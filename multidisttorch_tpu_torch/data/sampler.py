@@ -9,18 +9,106 @@ are dropped. On a group of several ranks each rank takes its contiguous
 share of every batch (``batch_size / group.size`` rows, in group-rank
 order), which is how the JAX package's batch sharding splits rows.
 
+**The feed**, with the JAX package's defaults and settings:
+
+- *Gather.* The train iterators gather rows with the native gatherer
+  (``data/native.py``, a C++ thread) where it builds, else with numpy
+  (``use_native=None``; ``True`` requires it, ``False`` never uses it). The
+  native path writes a chunk straight into one pinned host buffer; the
+  numpy path indexes, stacks and pins. ``gather_path`` records which ran.
+  Both give the same bytes.
+- *Pipeline.* :class:`StackedTrialDataIterator` gathers chunks and copies
+  them to the device on a worker thread, up to ``prefetch_depth`` chunks
+  ahead of the consumer (``MDT_STACKED_PREFETCH=0`` turns it off,
+  ``MDT_STACKED_PREFETCH_DEPTH`` sets the depth, default 2). On a card the
+  worker issues the copy on a stream of its own and records an event; the
+  consumer's stream waits on it before the chunk is used. A lane's
+  permutation is fixed when its round's first step is gathered, so a
+  ``set_lane`` between two ``round_chunks`` calls reaches the next round
+  exactly as without the pipeline.
+
 Host-to-device copies go through pinned memory and do not block the host.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Optional
+import contextlib
+import os
+import queue as _queue
+import threading
+import time
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
 
+from multidisttorch_tpu_torch.data import native
 from multidisttorch_tpu_torch.data.datasets import Dataset
 from multidisttorch_tpu_torch.parallel.mesh import TrialGroup
+
+
+def _prefetch_default() -> bool:
+    """The stacked pipeline's switch: on unless ``MDT_STACKED_PREFETCH=0``
+    (the off path is the synchronous bit-parity reference)."""
+    return os.environ.get("MDT_STACKED_PREFETCH", "1") != "0"
+
+
+def _prefetch_depth() -> int:
+    """Pipeline depth (``MDT_STACKED_PREFETCH_DEPTH``, default 2): how many
+    produced chunks may wait ready ahead of the consumer; the one being
+    produced is one more."""
+    try:
+        return max(1, int(os.environ.get("MDT_STACKED_PREFETCH_DEPTH", "2")))
+    except ValueError:
+        return 2
+
+
+def _prefetched(source: Iterator, depth: int) -> Iterator:
+    """Run the generator ``source`` on a daemon worker thread, up to
+    ``depth`` items ahead of the consumer, and yield its items in order. An
+    exception in ``source`` re-raises at the consumer's ``next()``;
+    abandoning this generator (closed, collected, or a consumer's raise)
+    sets the stop flag and waits for the worker, which closes ``source``
+    (its ``finally`` blocks run on the worker) and ends."""
+    q: _queue.Queue = _queue.Queue(maxsize=max(1, int(depth)))
+    stop = threading.Event()
+    end = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except _queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in source:
+                if not put((None, item)):
+                    return
+            put((end, None))
+        except BaseException as e:  # noqa: BLE001 - re-raised at the consumer's next()
+            put((e, None))
+        finally:
+            source.close()
+
+    thread = threading.Thread(target=worker, name="mdt-stacked-prefetch", daemon=True)
+    thread.start()
+    try:
+        while True:
+            tag, item = q.get()
+            if tag is end:
+                return
+            if tag is not None:
+                raise tag
+            yield item
+    finally:
+        stop.set()
+        # The worker ends within the item it is producing: once this returns,
+        # no thread of the feed touches the device.
+        thread.join(timeout=60.0)
 
 
 def epoch_permutation(seed: int, epoch: int, indices: np.ndarray) -> np.ndarray:
@@ -38,6 +126,13 @@ def _to_device(rows: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.tensor(rows, device=device)
 
 
+def _staging(shape: tuple, device: torch.device) -> torch.Tensor:
+    """A host buffer that the native gatherer fills: pinned when its rows go
+    to a card (the caching host allocator hands a pinned block out again
+    only after the copies recorded on it have completed), plain otherwise."""
+    return torch.empty(shape, dtype=torch.float32, pin_memory=device.type == "cuda")
+
+
 def _check_divisible(batch_size: int, group: TrialGroup) -> None:
     if batch_size % group.size != 0:
         raise ValueError(
@@ -46,18 +141,51 @@ def _check_divisible(batch_size: int, group: TrialGroup) -> None:
         )
 
 
-def _local_rows(rows: np.ndarray, group: TrialGroup, axis: int = 0) -> np.ndarray:
-    """This rank's contiguous share of a group batch along ``axis``."""
+def _local_rows(rows, group: TrialGroup, axis: int = 0):
+    """This rank's contiguous share of a group batch along ``axis`` (a
+    numpy array, or a host tensor from the gatherer)."""
     if group.size == 1:
         return rows
     per = rows.shape[axis] // group.size
     lo = group.local_rank * per
+    if isinstance(rows, torch.Tensor):
+        return rows.narrow(axis, lo, per).contiguous()
     return rows.take(np.arange(lo, lo + per), axis=axis)
+
+
+def _put(rows, group: TrialGroup, axis: int) -> torch.Tensor:
+    """This rank's rows of a host chunk on the group's device: a numpy
+    chunk pinned and copied, a gatherer's buffer (pinned already on a card)
+    copied; on the CPU a gatherer's buffer is handed over as it is."""
+    rows = _local_rows(rows, group, axis)
+    if isinstance(rows, torch.Tensor):
+        return rows.to(group.device, non_blocking=True) if group.device.type == "cuda" else rows
+    return _to_device(rows, group.device)
+
+
+def _gather_path(use_native: Optional[bool]) -> str:
+    """``"native"`` or ``"numpy"``: ``use_native=None`` takes the gatherer
+    where it builds (else numpy, with the gatherer's warning), ``True``
+    requires it, ``False`` never uses it."""
+    if use_native is False:
+        return "numpy"
+    if use_native:
+        native.require()
+        return "native"
+    return "native" if native.available() else "numpy"
+
+
+def _check_chunk_size(k: int) -> None:
+    # Eager: a bad k fails at the call site, not at the first next().
+    if k < 1:
+        raise ValueError(f"chunk size must be >= 1, got {k}")
 
 
 class TrialDataIterator:
     """Per-trial epoch iterator yielding device-resident batches of this
-    rank's rows. Incomplete trailing batches are dropped."""
+    rank's rows. Incomplete trailing batches are dropped. ``use_native``
+    picks the gather (see the module's docstring); ``gather_path`` says
+    which runs."""
 
     def __init__(
         self,
@@ -68,6 +196,7 @@ class TrialDataIterator:
         seed: int = 0,
         shard_across_trials: bool = False,
         num_trials: Optional[int] = None,
+        use_native: Optional[bool] = None,
     ):
         _check_divisible(batch_size, group)
         self.dataset = dataset
@@ -86,40 +215,41 @@ class TrialDataIterator:
                 f"dataset shard of {len(self._indices)} rows smaller than "
                 f"one batch of {batch_size}"
             )
+        self.gather_path = _gather_path(use_native)
 
-    def _put(self, rows: np.ndarray, axis: int = 0) -> torch.Tensor:
-        return _to_device(_local_rows(rows, self.group, axis), self.group.device)
-
-    def _host_batches(self, epoch: int) -> Iterator[np.ndarray]:
-        """Host-side group batches of images in the (seed, epoch)
-        permutation order."""
+    def _host_chunks(self, epoch: int, k: int) -> Iterator[tuple]:
+        """Host ``(start_batch_index, (s, B, ...))`` chunks of ``k`` group
+        batches in the (seed, epoch) permutation order, the last possibly
+        shorter. Each call gathers with a gatherer of its own, so two live
+        epochs never share one."""
         perm = epoch_permutation(self.seed, epoch, self._indices)
-        for b in range(self.num_batches):
-            yield self.dataset.images[perm[b * self.batch_size : (b + 1) * self.batch_size]]
+        bs, nb, images = self.batch_size, self.num_batches, self.dataset.images
+        if self.gather_path == "numpy":
+            for start in range(0, nb, k):
+                yield start, np.stack([images[perm[b * bs : (b + 1) * bs]] for b in range(start, min(start + k, nb))])
+            return
+        g = native.NativeBatchGatherer(images)
+        try:
+            g.start_epoch(perm, bs)
+            for start in range(0, nb, k):
+                chunk = _staging((min(k, nb - start), bs, images.shape[1]), self.group.device)
+                for j in range(chunk.shape[0]):
+                    g.next_batch(chunk[j])
+                yield start, chunk
+        finally:
+            g.close()
 
     def epoch(self, epoch: int) -> Iterator[torch.Tensor]:
         """Iterate one epoch: this rank's rows of each batch."""
-        for imgs_np in self._host_batches(epoch):
-            yield self._put(imgs_np)
+        for _, chunk in self._host_chunks(epoch, 1):
+            yield _put(chunk[0], self.group, 0)
 
     def epoch_chunks(self, epoch: int, k: int) -> Iterator:
         """Iterate one epoch as stacked ``(k, rows, ...)`` chunks, yielding
         ``(start_batch_index, chunk)``; the last chunk may hold fewer than
         ``k`` batches. Same order and boundaries as :meth:`epoch`."""
-        if k < 1:
-            raise ValueError(f"chunk size must be >= 1, got {k}")
-
-        def chunks():
-            buf, start = [], 0
-            for i, imgs_np in enumerate(self._host_batches(epoch)):
-                buf.append(imgs_np)
-                if len(buf) == k:
-                    yield start, self._put(np.stack(buf), axis=1)
-                    start, buf = i + 1, []
-            if buf:
-                yield start, self._put(np.stack(buf), axis=1)
-
-        return chunks()
+        _check_chunk_size(k)
+        return ((start, _put(chunk, self.group, 1)) for start, chunk in self._host_chunks(epoch, k))
 
     @property
     def samples_per_epoch(self) -> int:
@@ -129,7 +259,7 @@ class TrialDataIterator:
 class StackedTrialDataIterator:
     """K lockstep trial data streams, gathered ``(K, B, ...)`` per step: the
     feed of a stacked bucket (``hpo/driver.py``; ``train/steps.py``'s
-    stacked steps).
+    stacked steps) and of PBT (``hpo/pbt.py``).
 
     Lane ``k`` replays exactly the stream of a :class:`TrialDataIterator`
     with ``seed=seeds[k]``: the same (seed, epoch) permutation and the same
@@ -137,16 +267,33 @@ class StackedTrialDataIterator:
     host gather and one copy to the device. Lanes advance in lockstep
     rounds of ``num_batches`` steps (they share the batch size and the
     dataset, so their epochs align to rounds); :meth:`set_lane` rebinds a
-    lane to a new seed mid-sweep (a refill starts its own epoch 1 while the
-    other lanes continue). On a group of several ranks each rank takes its
-    contiguous share of every lane's batch.
+    lane to a new seed between rounds (a refill starts its own epoch 1
+    while the other lanes continue). On a group of several ranks each rank
+    takes its contiguous share of every lane's batch.
+
+    ``use_native``, ``prefetch`` and ``prefetch_depth`` are the feed's
+    (module docstring), with the JAX package's defaults; ``gather_path``
+    says which gather runs. ``wait_hook(blocked_s, nbytes)``, when given, is
+    called once per device chunk with the time the consumer was blocked
+    obtaining it.
 
     Every lane reads the one ``dataset``: the JAX package's per-lane
     datasets (``datasets=``) wait for ROADMAP A.12, where
-    ``TrialConfig.dataset`` is ported, and its native gatherer for A.4b.
+    ``TrialConfig.dataset`` is ported.
     """
 
-    def __init__(self, dataset: Dataset, group: TrialGroup, batch_size: int, seeds):
+    def __init__(
+        self,
+        dataset: Dataset,
+        group: TrialGroup,
+        batch_size: int,
+        seeds,
+        *,
+        use_native: Optional[bool] = None,
+        prefetch: Optional[bool] = None,
+        prefetch_depth: Optional[int] = None,
+        wait_hook: Optional[Callable[[float, int], None]] = None,
+    ):
         _check_divisible(batch_size, group)
         if not seeds:
             raise ValueError("stacked iterator needs at least one lane")
@@ -159,9 +306,17 @@ class StackedTrialDataIterator:
             raise ValueError(f"dataset of {len(dataset)} rows smaller than one batch of {batch_size}")
         # (seed, epoch) determines a lane's permutation, as for one trial.
         self._lanes = [{"seed": s, "epoch": 1} for s in seeds]
+        self.wait_hook = wait_hook
+        self._prefetch = _prefetch_default() if prefetch is None else bool(prefetch)
+        self._depth = _prefetch_depth() if prefetch_depth is None else max(1, int(prefetch_depth))
+        self.gather_path = _gather_path(use_native)
+        # The pipeline's copies to a card run on a stream of their own.
+        self._copy_stream = (torch.cuda.Stream(group.device) if self._prefetch and group.device.type == "cuda"
+                             else None)
 
     def set_lane(self, k: int, seed: int, epoch: int = 1) -> None:
-        """Rebind lane ``k`` to a fresh (seed, epoch) stream (a refill)."""
+        """Rebind lane ``k`` to a fresh (seed, epoch) stream (a refill),
+        from the next round on."""
         self._lanes[k] = {"seed": seed, "epoch": epoch}
 
     @property
@@ -175,42 +330,113 @@ class StackedTrialDataIterator:
         rows = np.arange(len(self.dataset))
         return np.stack([epoch_permutation(lane["seed"], lane["epoch"], rows) for lane in self._lanes])
 
-    def _host_round(self):
-        """Host ``(K, B, D)`` arrays for one lockstep round, then every
-        lane's epoch advances."""
-        perms, bs = self._round_perms(), self.batch_size
-        for b in range(self.num_batches):
-            idx = perms[:, b * bs : (b + 1) * bs].reshape(-1)
-            yield self.dataset.images[idx].reshape(self.num_lanes, bs, -1)
-        for lane in self._lanes:
-            lane["epoch"] += 1
+    def _gather(self, perms: np.ndarray, b: int) -> np.ndarray:
+        """The numpy gather of stacked step ``b``: one fancy index, ``(K, B,
+        D)``."""
+        bs = self.batch_size
+        idx = perms[:, b * bs : (b + 1) * bs].reshape(-1)
+        return self.dataset.images[idx].reshape(self.num_lanes, bs, -1)
 
-    def _put(self, rows: np.ndarray, axis: int) -> torch.Tensor:
-        return _to_device(_local_rows(rows, self.group, axis), self.group.device)
+    def _host_chunks(self, k_steps: int, endless: bool) -> Iterator[tuple]:
+        """Host ``(start_batch_index, (s, K, B, D))`` chunks of one lockstep
+        round, the last possibly shorter; ``endless``: of every round, each
+        chunk full, crossing round edges. A round's permutations are fixed
+        when its first step is gathered, and every lane's epoch advances
+        after its last."""
+        shape = (self.num_lanes, self.batch_size, self.dataset.images.shape[1])
+        nb, chunk, start, j = self.num_batches, None, 0, 0
+        while True:
+            perms = self._round_perms()
+            g = native.StackedBatchGatherer(self.dataset.images) if self.gather_path == "native" else None
+            try:
+                if g is not None:
+                    g.start_round(perms, self.batch_size)
+                for b in range(nb):
+                    if chunk is None:
+                        s = k_steps if endless else min(k_steps, nb - b)
+                        chunk, start, j = [] if g is None else _staging((s, *shape), self.group.device), b, 0
+                    if g is None:
+                        chunk.append(self._gather(perms, b))
+                    else:
+                        g.next_stacked(chunk[j])
+                    j += 1
+                    if j == s:
+                        yield start, np.stack(chunk) if g is None else chunk
+                        chunk = None
+            finally:
+                if g is not None:
+                    g.close()
+            for lane in self._lanes:
+                lane["epoch"] += 1
+            if not endless:
+                return
+
+    def _stage(self, chunk) -> tuple:
+        """On the prefetch thread: this rank's rows of a host chunk on the
+        group's device, and on a card the event recorded after the copy,
+        which runs on the iterator's copy stream."""
+        dev = self.group.device
+        if dev.type != "cuda":
+            return _put(chunk, self.group, 2), None
+        with torch.cuda.device(dev), torch.cuda.stream(self._copy_stream):
+            x = _put(chunk, self.group, 2)
+            ready = torch.cuda.Event()
+            ready.record()
+        return x, ready
+
+    def _device_chunks(self, k_steps: int, endless: bool) -> Iterator[tuple]:
+        """``((start, device chunk), nbytes)`` pairs, pipelined when the
+        prefetch is on and there is more than one step to run."""
+        host = self._host_chunks(k_steps, endless)
+        if not (self._prefetch and (endless or self.num_batches > 1)):
+            with contextlib.closing(host):
+                for start, chunk in host:
+                    yield (start, _put(chunk, self.group, 2)), chunk.nbytes
+            return
+
+        def staged():
+            with contextlib.closing(host):
+                for start, chunk in host:
+                    yield start, *self._stage(chunk), chunk.nbytes
+
+        for start, x, ready, nbytes in _prefetched(staged(), self._depth):
+            if ready is not None:
+                consumer = torch.cuda.current_stream(self.group.device)
+                consumer.wait_event(ready)
+                # The copy stream allocated x: keep its memory until the
+                # consumer's work on it is done.
+                x.record_stream(consumer)
+            yield (start, x), nbytes
+
+    def _timed(self, pairs: Iterator[tuple]) -> Iterator:
+        """Unwrap ``(item, nbytes)`` pairs, giving the wait hook the time the
+        consumer was blocked obtaining each item (no clock reads without a
+        hook)."""
+        with contextlib.closing(pairs):
+            if self.wait_hook is None:
+                for item, _ in pairs:
+                    yield item
+                return
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item, nbytes = next(pairs)
+                except StopIteration:
+                    return
+                self.wait_hook(time.perf_counter() - t0, nbytes)
+                yield item
 
     def round_batches(self) -> Iterator[torch.Tensor]:
         """One lockstep round as per-step ``(K, rows, ...)`` device batches."""
-        for stacked in self._host_round():
-            yield self._put(stacked, axis=1)
+        for _, chunk in self._timed(self._device_chunks(1, endless=False)):
+            yield chunk[0]
 
     def round_chunks(self, k_steps: int) -> Iterator:
         """One lockstep round as ``(start_batch_index, (S, K, rows, ...))``
         chunks, the last possibly shorter: the same boundaries as
         :meth:`TrialDataIterator.epoch_chunks`."""
-        if k_steps < 1:
-            raise ValueError(f"chunk size must be >= 1, got {k_steps}")
-
-        def chunks():
-            buf, start = [], 0
-            for i, stacked in enumerate(self._host_round()):
-                buf.append(stacked)
-                if len(buf) == k_steps:
-                    yield start, self._put(np.stack(buf), axis=2)
-                    start, buf = i + 1, []
-            if buf:
-                yield start, self._put(np.stack(buf), axis=2)
-
-        return chunks()
+        _check_chunk_size(k_steps)
+        return self._timed(self._device_chunks(k_steps, endless=False))
 
     def stream_chunks(self, k_steps: int) -> Iterator[torch.Tensor]:
         """Endless full ``(S, K, rows, ...)`` chunks that cross round
@@ -218,20 +444,10 @@ class StackedTrialDataIterator:
         driven by step counts (PBT's generations of ``S`` steps,
         ``hpo/pbt.py``), where every chunk must be full so that one captured
         graph serves them all. Lane ``k`` replays the stream of a one-lane
-        iterator with ``seeds=[seeds[k]]``."""
-        if k_steps < 1:
-            raise ValueError(f"chunk size must be >= 1, got {k_steps}")
-
-        def chunks():
-            buf = []
-            while True:
-                for stacked in self._host_round():
-                    buf.append(stacked)
-                    if len(buf) == k_steps:
-                        yield self._put(np.stack(buf), axis=2)
-                        buf = []
-
-        return chunks()
+        iterator with ``seeds=[seeds[k]]``. The pipeline may run ahead across
+        a round edge, so :meth:`set_lane` does not apply to a live stream."""
+        _check_chunk_size(k_steps)
+        return (chunk for _, chunk in self._timed(self._device_chunks(k_steps, endless=True)))
 
 
 class EvalDataIterator:

@@ -57,7 +57,7 @@ def main(argv=None):
     )
     parser.add_argument(
         "--remat", action="store_true",
-        help="rematerialise activations in the backward pass (not ported yet)",
+        help="rematerialise activations in the backward pass",
     )
     parser.add_argument(
         "--device", default=None,

@@ -41,8 +41,8 @@ bucket's queue, or masked when it is dry, with no new capture.
 
 What this slice does not port raises ``NotImplementedError`` naming its
 ROADMAP item: fault plans, profiling, the compile farm, weight sharding and
-model parallel, pipeline stages, remat, other model families and
-per-trial dataset references.
+model parallel, pipeline stages, other model families and per-trial
+dataset references.
 """
 
 from __future__ import annotations
@@ -157,7 +157,6 @@ class TrialResult:
 
 # TrialConfig fields this slice does not port: (inert value, ROADMAP item).
 _UNPORTED_FIELDS = {
-    "remat": (False, "A.3b (train-step extras)"),
     "dataset": ("", "A.12 (service and its dataset store)"),
     "zero_update": (False, "A.13 (sharding)"),
     "pipeline_stages": (1, "A.14 (pipelines)"),
@@ -340,7 +339,7 @@ class _TrialRun:
         model = VAE(hidden_dim=cfg.hidden_dim, latent_dim=cfg.latent_dim)
         init_vae_params(model, cfg.seed)
         self.state = create_train_state(group, model, cfg.lr)
-        self.multi_step = make_multi_step(group, beta=cfg.beta, grad_accum=cfg.grad_accum)
+        self.multi_step = make_multi_step(group, beta=cfg.beta, grad_accum=cfg.grad_accum, remat=cfg.remat)
         self.eval_step = make_eval_step(group, beta=cfg.beta, with_recon=save_images)
         self.sample_step = make_sample_step(group)
         self.train_iter = TrialDataIterator(
@@ -767,7 +766,7 @@ class _StackedBucketRun:
             if test_data is not None and len(test_data) > 0
             else None
         )
-        self.multi = make_stacked_multi_step(group, grad_accum=template.grad_accum)
+        self.multi = make_stacked_multi_step(group, grad_accum=template.grad_accum, remat=template.remat)
         self.seval = make_stacked_eval_step(group) if self.test_iter is not None else None
         self.read_lane, self.write_lane = make_lane_ops(group)
         self.state = create_stacked_train_state(group, [self._init_model(c.seed) for _, c in first])

@@ -40,8 +40,11 @@ bits:
 Not ported here, each raising ``NotImplementedError`` or left out as
 named: ``model_builder=`` (ROADMAP A.16); the compile registry's
 ``pbt_gen`` admission (A.9: the graph table is per generation step); the
-``pbt_gen``/``pbt_exploit`` bus events and the population view (A.10);
-the stacked prefetch thread and the native gatherer (A.4b).
+``pbt_gen``/``pbt_exploit`` bus events and the population view (A.10).
+Both modes take their chunks from ``StackedTrialDataIterator.stream_chunks``
+with the feed's defaults (``data/sampler.py``): the native gatherer and the
+prefetch thread, which gathers and copies the next chunks while the card
+runs.
 """
 
 from __future__ import annotations
@@ -433,7 +436,7 @@ def _run_pbt_fused(
         book["program_calls"] += 1
         book["graph_replays"] += gen_step.replays - replays
         if gen + 1 < cfg.generations:
-            batches = next(chunks)  # the host gathers while the card runs
+            batches = next(chunks)  # gathered and copied ahead by the feed's thread
         host = fetch_pbt_books(packed, K)  # the generation's one host fetch
         book["host_fetches"] += 1
         sums, order, exploited, src = host["eval_loss_sum"], host["order"], host["exploited"], host["src"]

@@ -8,9 +8,18 @@ matmuls in that type while the parameters stay float32, as flax's
 ``Dense(dtype=..., param_dtype=float32)`` does.
 
 Reparameterisation noise is explicit: :meth:`VAE.reparameterize` takes
-``eps`` or draws it from a ``torch.Generator``. The JAX package draws it
-from flax's ``'reparam'`` stream, which torch cannot reproduce, so parity
-tests inject the same ``eps`` into both.
+``eps`` or draws it from a ``torch.Generator`` (:meth:`VAE.noise`). The JAX
+package draws it from flax's ``'reparam'`` stream, which torch cannot
+reproduce, so parity tests inject the same ``eps`` into both.
+
+``forward(..., remat=True)`` is the JAX package's ``jax.checkpoint`` of the
+forward (``TrialConfig.remat``): ``torch.utils.checkpoint`` keeps no
+activations and recomputes them in the backward pass. The noise is drawn
+before the recomputed region, with the draw the forward makes without
+remat: ``checkpoint`` restores only the default generators' states, so a
+draw inside would give the recomputation other noise from an explicit
+generator. Nothing inside draws, so no RNG state is stashed
+(``preserve_rng_state=False``), which also keeps it out of a CUDA graph.
 
 :func:`vae_params_from_flax` carries a flax parameter tree across (flax's
 ``kernel`` is (in, out), torch's ``weight`` is (out, in));
@@ -33,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 LAYERS = ("fc1", "fc21", "fc22", "fc3", "fc4")
 
@@ -70,6 +80,11 @@ class VAE(nn.Module):
         h1 = F.relu(self._dense(self.fc1, x))
         return self._dense(self.fc21, h1), self._dense(self.fc22, h1)
 
+    def noise(self, rows: int, device, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``(rows, latent)`` draws of N(0, I) in float32 from ``generator``
+        (the default generator when None)."""
+        return torch.randn((rows, self.latent_dim), generator=generator, device=device, dtype=torch.float32)
+
     def reparameterize(
         self,
         mu: torch.Tensor,
@@ -78,11 +93,9 @@ class VAE(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """``z = mu + eps * exp(0.5*logvar)``, with ``eps`` given or drawn
-        N(0, I) in float32 from ``generator``."""
+        by :meth:`noise` from ``generator``."""
         if eps is None:
-            eps = torch.randn(
-                mu.shape, generator=generator, device=mu.device, dtype=torch.float32
-            )
+            eps = self.noise(mu.shape[0], mu.device, generator)
         return mu + eps.to(mu.dtype) * torch.exp(0.5 * logvar)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
@@ -99,8 +112,17 @@ class VAE(nn.Module):
         x: torch.Tensor,
         eps: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        remat: bool = False,
     ):
-        """Returns ``(recon_logits, mu, logvar)``."""
+        """Returns ``(recon_logits, mu, logvar)``; ``remat`` recomputes the
+        activations in the backward pass (module docstring)."""
+        if not remat:
+            return self._forward(x, eps, generator)
+        if eps is None:
+            eps = self.noise(x.shape[0], x.device, generator)
+        return checkpoint(self._forward, x, eps, None, use_reentrant=False, preserve_rng_state=False)
+
+    def _forward(self, x, eps, generator):
         mu, logvar = self.encode(x)
         z = self.reparameterize(mu, logvar, eps=eps, generator=generator)
         return self.decode(z), mu, logvar
@@ -163,6 +185,14 @@ class StackedVAE(nn.Module):
         h1 = F.relu(self.fc1(x, self.dtype))
         return self.fc21(h1, self.dtype), self.fc22(h1, self.dtype)
 
+    def noise(self, rows: int, device, generators=None) -> torch.Tensor:
+        """``(K, rows, latent)`` draws of N(0, I) in float32, lane k's from
+        ``generators[k]`` (all from the default generator when None)."""
+        shape = (rows, self.latent_dim)
+        if generators is None:
+            return torch.randn((self.lanes, *shape), device=device, dtype=torch.float32)
+        return torch.stack([torch.randn(shape, generator=g, device=device, dtype=torch.float32) for g in generators])
+
     def reparameterize(
         self,
         mu: torch.Tensor,
@@ -170,18 +200,10 @@ class StackedVAE(nn.Module):
         eps: Optional[torch.Tensor] = None,
         generators=None,
     ) -> torch.Tensor:
-        """``z = mu + eps * exp(0.5*logvar)``; ``eps`` given, or drawn
-        N(0, I) in float32, lane k's from ``generators[k]`` (from the
-        default generator when None)."""
+        """``z = mu + eps * exp(0.5*logvar)``; ``eps`` given, or drawn by
+        :meth:`noise`."""
         if eps is None:
-            shape = mu.shape[1:]
-            if generators is None:
-                eps = torch.randn(mu.shape, device=mu.device, dtype=torch.float32)
-            else:
-                eps = torch.stack([
-                    torch.randn(shape, generator=g, device=mu.device, dtype=torch.float32)
-                    for g in generators
-                ])
+            eps = self.noise(mu.shape[1], mu.device, generators)
         return mu + eps.to(mu.dtype) * torch.exp(0.5 * logvar)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
@@ -189,8 +211,16 @@ class StackedVAE(nn.Module):
         h3 = F.relu(self.fc3(z.to(self.dtype), self.dtype))
         return self.fc4(h3, self.dtype)
 
-    def forward(self, x: torch.Tensor, eps: Optional[torch.Tensor] = None, generators=None):
-        """``(K, rows, ...)`` to ``(recon_logits, mu, logvar)``."""
+    def forward(self, x: torch.Tensor, eps: Optional[torch.Tensor] = None, generators=None, remat: bool = False):
+        """``(K, rows, ...)`` to ``(recon_logits, mu, logvar)``; ``remat`` as
+        for :meth:`VAE.forward`."""
+        if not remat:
+            return self._forward(x, eps, generators)
+        if eps is None:
+            eps = self.noise(x.shape[1], x.device, generators)
+        return checkpoint(self._forward, x, eps, None, use_reentrant=False, preserve_rng_state=False)
+
+    def _forward(self, x, eps, generators):
         mu, logvar = self.encode(x)
         z = self.reparameterize(mu, logvar, eps=eps, generators=generators)
         return self.decode(z), mu, logvar

@@ -1,19 +1,23 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's native libraries and load them with ``ctypes``.
 
 Each source under ``ops/csrc/`` has a plain C interface and is compiled on
-its own into a shared library for ``sm_90a`` (Hopper). Nothing here includes
-PyTorch's headers, so a build takes seconds. The libraries go to
+its own with ``nvcc`` into a shared library for ``sm_90a`` (Hopper). Nothing
+here includes PyTorch's headers, so a build takes seconds. The host C++
+sources (:data:`HOST_SOURCES`: the data feed's gatherer,
+``data/csrc/fastloader.cpp``) are compiled with ``g++`` and the JAX
+package's ``csrc/Makefile`` flags. The libraries go to
 ``build/torch_kernels/`` at the root of the checkout, named by a hash of the
-source, of every header under ``csrc/`` that it includes, and of the flags,
+source, of every header beside it that it includes, and of the flags,
 so an edited source or header is rebuilt and a stale library is never
 loaded. Builds happen at first use, never at import: :func:`build_all`
-starts one ``nvcc`` per source, all together, and waits for them;
+starts one compiler per source, all together, and waits for them;
 :func:`build` builds one source, and :func:`load` returns the loaded library.
 
 The ``ctypes`` signatures live beside the kernels' wrappers (``ops/elbo.py``,
 ``ops/attention.py``):
 every pointer and the stream as ``c_void_p``, and every entry returns
-``cudaGetLastError()`` as an ``int``.
+``cudaGetLastError()`` as an ``int``. The gatherer's live in
+``data/native.py``.
 """
 
 from __future__ import annotations
@@ -31,9 +35,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 # Kernel library name -> its source under csrc/.
 SOURCES = {"elbo": "elbo.cu", "flash_attention": "flash_attention.cu"}
+# Host library name -> its source, compiled with g++.
+HOST_SOURCES = {"fastloader": Path(__file__).resolve().parents[1] / "data" / "csrc" / "fastloader.cpp"}
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", "-Wall"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # name -> what ptxas said about registers, shared memory and spills.
@@ -60,38 +67,55 @@ def find_nvcc() -> str:
     )
 
 
+def find_cxx() -> str:
+    """Path of ``g++`` on ``PATH``; raises if there is none."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found on PATH: the port's host libraries are built from source at first use")
+    return cxx
+
+
+def _source(name: str) -> Path:
+    return HOST_SOURCES[name] if name in HOST_SOURCES else CSRC_DIR / SOURCES[name]
+
+
+def _flags(name: str) -> list[str]:
+    return HOST_CXX_FLAGS if name in HOST_SOURCES else ARCH_FLAGS + NVCC_FLAGS
+
+
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def _sources_of(name: str) -> list[Path]:
-    """The source of library ``name`` and every file under ``csrc/`` that
-    it includes with ``#include "..."``, directly or through another."""
+    """The source of library ``name`` and every file beside it that it
+    includes with ``#include "..."``, directly or through another."""
     seen: list[Path] = []
-    todo = [CSRC_DIR / SOURCES[name]]
+    todo = [_source(name)]
     while todo:
         path = todo.pop()
         if path in seen:
             continue
         seen.append(path)
         for inc in _INCLUDE.findall(path.read_bytes()):
-            dep = CSRC_DIR / inc.decode()
+            dep = path.parent / inc.decode()
             if dep.is_file():
                 todo.append(dep)
     return seen
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_flags(name)).encode())
     for path in _sources_of(name):
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> list[Path]:
-    """Build the kernel libraries ``names`` (all of :data:`SOURCES` by
-    default) that are not built yet, with one ``nvcc`` per source, all
-    started together; returns their paths in order."""
-    names = list(SOURCES) if names is None else list(names)
+    """Build the libraries ``names`` (all of :data:`SOURCES` and
+    :data:`HOST_SOURCES` by default) that are not built yet, with one
+    compiler per source, all started together; returns their paths in
+    order."""
+    names = [*SOURCES, *HOST_SOURCES] if names is None else list(names)
     jobs = []
     for name in names:
         out = library_path(name)
@@ -101,30 +125,33 @@ def build_all(names=None) -> list[Path]:
         # A private output name, renamed into place: concurrent builders (two
         # ranks of one group on one host) never load a half-written library.
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
+        compiler = find_cxx() if name in HOST_SOURCES else find_nvcc()
+        cmd = [compiler, *_flags(name), "-o", str(tmp), str(_source(name))]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((name, out, tmp, cmd, proc))
     failed = []
     for name, out, tmp, cmd, proc in jobs:
-        ptxas_reports[name] = proc.communicate()[0]
+        log = proc.communicate()[0]
+        if name not in HOST_SOURCES:
+            ptxas_reports[name] = log
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            failed.append(f"{' '.join(cmd)}\n{ptxas_reports[name]}")
+            failed.append(f"{' '.join(cmd)}\n{log}")
         else:
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        raise RuntimeError("native library build failed:\n" + "\n".join(failed))
     return [library_path(name) for name in names]
 
 
 def build(name: str) -> Path:
-    """Build kernel library ``name`` with ``nvcc`` unless it is built
-    already; returns its path."""
+    """Build library ``name`` unless it is built already; returns its
+    path."""
     return build_all([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built first if needed."""
+    """The loaded library ``name``, built first if needed."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib

@@ -14,7 +14,10 @@ is then the gradient of the global per-sample mean — the same estimator as
 the JAX package's kernel-per-shard plus ``psum`` (``steps.py:254-271``).
 
 ``optax.adam(lr)`` becomes ``torch.optim.Adam(lr, betas=(0.9, 0.999),
-eps=1e-8)``.
+eps=1e-8)``. ``remat=True`` (``TrialConfig.remat``) runs the model's forward
+under ``torch.utils.checkpoint`` (``models/vae.py``), the JAX package's
+``jax.checkpoint`` of the forward; the loss stays outside it, so each ELBO
+kernel still launches once per step, and the numbers are remat off's.
 
 **``use_fused_loss`` defaults to True here**, the one deliberate divergence
 from the JAX package, where it defaults to False. In the port the fused
@@ -122,7 +125,8 @@ def create_train_state(
     return TrainState(model=model, optimizer=optimizer, step=0, ddp=ddp)
 
 
-def _build_body(group: TrialGroup, beta: float, use_fused_loss: bool, grad_accum: int) -> Callable:
+def _build_body(group: TrialGroup, beta: float, use_fused_loss: bool, grad_accum: int,
+                remat: bool = False) -> Callable:
     """``body(state, batch, eps, generator) -> loss_sum``: one train step
     (gradients, the optimizer update, the group's summed loss) without
     the host's step count, so that a CUDA graph can hold it."""
@@ -133,7 +137,7 @@ def _build_body(group: TrialGroup, beta: float, use_fused_loss: bool, grad_accum
 
     def microbatch_loss(module, mb, eps, generator):
         m = mb.shape[0]
-        recon_logits, mu, logvar = module(mb, eps=eps, generator=generator)
+        recon_logits, mu, logvar = module(mb, eps=eps, generator=generator, remat=remat)
         return loss_impl(recon_logits, mb.reshape(m, -1), mu, logvar, beta) / m
 
     def body(state: TrainState, batch, eps=None, generator=None):
@@ -168,9 +172,9 @@ def _build_body(group: TrialGroup, beta: float, use_fused_loss: bool, grad_accum
 
 
 def _build_step_fn(
-    group: TrialGroup, beta: float, use_fused_loss: bool, grad_accum: int
+    group: TrialGroup, beta: float, use_fused_loss: bool, grad_accum: int, remat: bool
 ) -> Callable:
-    body = _build_body(group, beta, use_fused_loss, grad_accum)
+    body = _build_body(group, beta, use_fused_loss, grad_accum, remat)
 
     def step_fn(state: TrainState, batch, eps=None, generator=None):
         loss_sum = body(state, batch, eps, generator)
@@ -186,6 +190,7 @@ def make_train_step(
     beta: float = 1.0,
     use_fused_loss: bool = True,
     grad_accum: int = 1,
+    remat: bool = False,
 ) -> Callable:
     """Build ``step(state, batch, eps=None, generator=None) -> (state,
     metrics)``.
@@ -196,7 +201,7 @@ def make_train_step(
     summed negative ELBO over the group's batch, a 0-d f32 tensor left on
     the device.
     """
-    return _build_step_fn(group, beta, use_fused_loss, grad_accum)
+    return _build_step_fn(group, beta, use_fused_loss, grad_accum, remat)
 
 
 def eager_reason(group: TrialGroup, *, use_fused_loss: bool = True, grad_accum: int = 1) -> Optional[str]:
@@ -222,6 +227,7 @@ def make_multi_step(
     beta: float = 1.0,
     use_fused_loss: bool = True,
     grad_accum: int = 1,
+    remat: bool = False,
 ) -> Callable:
     """K chained train steps: ``multi(state, batches, eps=None,
     generator=None)`` with ``batches`` of shape ``(K, rows, ...)`` (and
@@ -236,7 +242,7 @@ def make_multi_step(
     The returned callable's ``graphed`` says which runs, and ``replays``
     counts the graph replays.
     """
-    body = _build_body(group, beta, use_fused_loss, grad_accum)
+    body = _build_body(group, beta, use_fused_loss, grad_accum, remat)
     if eager_reason(group, use_fused_loss=use_fused_loss, grad_accum=grad_accum) is None:
         return GraphedMultiStep(body, group.device)
     return EagerMultiStep(body)
@@ -303,6 +309,9 @@ class _GraphedChunks:
       it gives the graph a ticket counter and partials of its own, which no
       eager call or other graph shares, and it tallies the ELBO launches the
       graph holds, which each replay adds to ``ops.elbo.LAUNCHES``.
+    - *Other threads.* A capture prohibits unsafe CUDA calls only in its own
+      thread (``capture_error_mode="thread_local"``), so the input feed's
+      worker (``data/sampler.py``) goes on gathering and copying meanwhile.
     - *A warm-up that must not train* (a PBT generation, whose every run is
       to be a replay): the caller passes ``warm``, which runs the same work
       on a scratch copy of the state; the chunk is then captured and
@@ -342,8 +351,12 @@ class _GraphedChunks:
         for gen in generators:
             graph.register_generator_state(gen)
         drop_grads()
+        # "thread_local": the input feed's worker thread may allocate pinned
+        # memory and copy on a stream of its own while this thread captures;
+        # under the default "global" mode such a call in any thread fails the
+        # capture.
         with elbo_ops.capture_scope() as scope:
-            with torch.cuda.graph(graph, stream=self._stream):
+            with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
                 losses = steps(*statics)
         self.captures += 1
         return _Captured(graph, statics, losses, scope, keep)
@@ -649,7 +662,7 @@ def _stacked_adam_update(state: StackedTrainState, hypers: TrialHypers) -> None:
         torch.where(live, count, state.count, out=state.count)
 
 
-def _build_stacked_body(group: TrialGroup, use_fused_loss: bool, grad_accum: int) -> Callable:
+def _build_stacked_body(group: TrialGroup, use_fused_loss: bool, grad_accum: int, remat: bool = False) -> Callable:
     """``body(state, hypers, batch, eps, generators) -> (K,) loss sums``:
     one stacked train step (the JAX package's ``_stacked_lane_body`` over
     every lane), with no host-side count, so that a CUDA graph can hold it.
@@ -663,7 +676,7 @@ def _build_stacked_body(group: TrialGroup, use_fused_loss: bool, grad_accum: int
 
     def microbatch_loss(state, hypers, mb, eps, generators):
         k, m = mb.shape[:2]
-        recon_logits, mu, logvar = state.model(mb, eps=eps, generators=generators)
+        recon_logits, mu, logvar = state.model(mb, eps=eps, generators=generators, remat=remat)
         return loss_impl(recon_logits, mb.reshape(k, m, -1), mu, logvar, hypers.beta) / m
 
     def body(state: StackedTrainState, hypers: TrialHypers, batch, eps=None, generators=None):
@@ -696,7 +709,8 @@ def _build_stacked_body(group: TrialGroup, use_fused_loss: bool, grad_accum: int
     return body
 
 
-def make_stacked_train_step(group: TrialGroup, *, use_fused_loss: bool = True, grad_accum: int = 1) -> Callable:
+def make_stacked_train_step(group: TrialGroup, *, use_fused_loss: bool = True, grad_accum: int = 1,
+                            remat: bool = False) -> Callable:
     """One optimizer step of K stacked trials: ``step(state, hypers, batch,
     eps=None, generators=None) -> (state, metrics)``.
 
@@ -710,7 +724,7 @@ def make_stacked_train_step(group: TrialGroup, *, use_fused_loss: bool = True, g
     the JAX package computes its stacked loss in XLA, because its kernel
     bakes beta in at compile time; the port's kernels read beta per lane.
     """
-    body = _build_stacked_body(group, use_fused_loss, grad_accum)
+    body = _build_stacked_body(group, use_fused_loss, grad_accum, remat)
 
     def step_fn(state, hypers, batch, eps=None, generators=None):
         return state, {"loss_sum": body(state, hypers, batch, eps, generators)}
@@ -764,7 +778,8 @@ class GraphedStackedMultiStep(_GraphedChunks):
         return state, {"loss_sum": losses}
 
 
-def make_stacked_multi_step(group: TrialGroup, *, use_fused_loss: bool = True, grad_accum: int = 1) -> Callable:
+def make_stacked_multi_step(group: TrialGroup, *, use_fused_loss: bool = True, grad_accum: int = 1,
+                            remat: bool = False) -> Callable:
     """S chained stacked steps: ``multi(state, hypers, batches, eps=None,
     generators=None)`` with ``batches`` ``(S, K, rows, ...)`` (and ``eps``
     ``(S, K, rows, latent)``); ``metrics["loss_sum"]`` is ``(S, K)``.
@@ -774,7 +789,7 @@ def make_stacked_multi_step(group: TrialGroup, *, use_fused_loss: bool = True, g
     CUDA graph of its S steps for all K lanes
     (:class:`GraphedStackedMultiStep`); anything else keeps the eager loop
     (:class:`EagerStackedMultiStep`). Both give the same numbers."""
-    body = _build_stacked_body(group, use_fused_loss, grad_accum)
+    body = _build_stacked_body(group, use_fused_loss, grad_accum, remat)
     if eager_reason(group, use_fused_loss=use_fused_loss, grad_accum=grad_accum) is None:
         return GraphedStackedMultiStep(body, group.device)
     return EagerStackedMultiStep(body)

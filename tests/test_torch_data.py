@@ -141,3 +141,199 @@ def test_iterator_errors(data):
     pair = TrialGroup(0, (0, 1), torch.device("cpu"), True, 0, 0)
     with pytest.raises(ValueError, match="divide evenly"):
         EvalDataIterator(data, pair, 15)
+
+
+# --- the feed: gather paths and the prefetch pipeline -----------------------
+
+# Iterator arguments of each feed path; the first is the synchronous numpy
+# reference.
+FEEDS = {
+    "numpy": dict(use_native=False, prefetch=False),
+    "numpy+prefetch depth 1": dict(use_native=False, prefetch=True, prefetch_depth=1),
+    "numpy+prefetch depth 2": dict(use_native=False, prefetch=True, prefetch_depth=2),
+    "native": dict(use_native=True, prefetch=False),
+    "native+prefetch": dict(use_native=True, prefetch=True),
+}
+
+
+@pytest.mark.parametrize("feed", sorted(FEEDS))
+def test_feed_paths_give_the_same_chunks(data, feed):
+    from multidisttorch_tpu.data.sampler import StackedTrialDataIterator as JaxStacked
+
+    from multidisttorch_tpu_torch.data.sampler import StackedTrialDataIterator
+
+    group = setup_groups(1, devices=["cpu"])[0]
+    kw = FEEDS[feed]
+    # Per trial: epoch_chunks (the native gather has no prefetch there).
+    one = TrialDataIterator(data, group, 16, seed=5, use_native=kw["use_native"])
+    assert one.gather_path == ("native" if kw["use_native"] else "numpy")
+    ref = TrialDataIterator(data, group, 16, seed=5, use_native=False)
+    for (i, a), (j, b) in zip(one.epoch_chunks(2, 4), ref.epoch_chunks(2, 4), strict=True):
+        assert i == j and torch.equal(a, b)
+    # Stacked: two rounds of round_chunks (a tail chunk each: 6 batches in
+    # chunks of 4) against the JAX iterator's host arrays, then a stream.
+    seeds = [3, 8, 1]
+    it = StackedTrialDataIterator(data, group, 16, seeds, **kw)
+    jit = JaxStacked(data, jax_setup_groups(8)[0], 16, seeds, use_native=False, prefetch=False)
+    for _ in range(2):
+        got = [(i, c.numpy()) for i, c in it.round_chunks(4)]
+        want = [(i, np.asarray(c)) for i, c in jit.round_chunks(4)]
+        assert [i for i, _ in got] == [i for i, _ in want] == [0, 4]
+        for (_, a), (_, b) in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    stream = StackedTrialDataIterator(data, group, 16, seeds, **kw).stream_chunks(4)
+    ref_stream = StackedTrialDataIterator(data, group, 16, seeds, **FEEDS["numpy"]).stream_chunks(4)
+    for _ in range(5):  # 20 steps, across three round edges
+        assert torch.equal(next(stream), next(ref_stream))
+    stream.close()
+
+
+@pytest.mark.parametrize("feed", ["numpy", "native+prefetch", "numpy+prefetch depth 1"])
+def test_a_refill_between_rounds_reaches_the_next_round(data, feed):
+    from multidisttorch_tpu_torch.data.sampler import StackedTrialDataIterator
+
+    group = setup_groups(1, devices=["cpu"])[0]
+    it = StackedTrialDataIterator(data, group, 16, [0, 1], **FEEDS[feed])
+    list(it.round_chunks(4))  # round 1: both lanes' epoch 1
+    it.set_lane(1, seed=42)  # lane 1 refilled: its own epoch 1
+    got = torch.cat([c for _, c in it.round_chunks(4)])
+    lane0 = torch.stack(list(TrialDataIterator(data, group, 16, seed=0, use_native=False).epoch(2)))
+    lane1 = torch.stack(list(TrialDataIterator(data, group, 16, seed=42, use_native=False).epoch(1)))
+    assert torch.equal(got[:, 0], lane0) and torch.equal(got[:, 1], lane1)
+
+
+def test_a_producer_exception_surfaces_at_the_consumer(data, monkeypatch):
+    from multidisttorch_tpu_torch.data import sampler
+
+    def source():
+        yield 0
+        yield 1
+        raise KeyError("bad shard")
+
+    got = []
+    with pytest.raises(KeyError, match="bad shard"):
+        for item in sampler._prefetched(source(), 2):
+            got.append(item)
+    assert got == [0, 1]
+    # Through an iterator: a gather that fails raises at next().
+    group = setup_groups(1, devices=["cpu"])[0]
+    it = sampler.StackedTrialDataIterator(data, group, 16, [0], use_native=False, prefetch=True)
+    monkeypatch.setattr(it, "_gather", lambda perms, b: (_ for _ in ()).throw(OSError("disk gone")))
+    with pytest.raises(OSError, match="disk gone"):
+        next(it.round_chunks(2))
+
+
+def _prefetch_threads():
+    import threading
+
+    return [t for t in threading.enumerate() if t.name == "mdt-stacked-prefetch"]
+
+
+def test_an_abandoned_endless_stream_retires_its_worker(data):
+    import time
+
+    from multidisttorch_tpu_torch.data.sampler import StackedTrialDataIterator
+
+    group = setup_groups(1, devices=["cpu"])[0]
+    for close in (True, False):
+        stream = StackedTrialDataIterator(data, group, 16, [0, 1], use_native=True, prefetch=True).stream_chunks(2)
+        next(stream)
+        assert _prefetch_threads()
+        if close:
+            stream.close()
+        else:
+            del stream  # collected
+        deadline = time.time() + 5.0
+        while _prefetch_threads() and time.time() < deadline:
+            time.sleep(0.02)
+        assert not _prefetch_threads()
+
+
+def test_the_prefetch_settings(data, monkeypatch):
+    from multidisttorch_tpu_torch.data.sampler import StackedTrialDataIterator
+
+    group = setup_groups(1, devices=["cpu"])[0]
+    make = lambda **kw: StackedTrialDataIterator(data, group, 16, [0], **kw)
+    assert make()._prefetch and make()._depth == 2  # the JAX package's defaults
+    monkeypatch.setenv("MDT_STACKED_PREFETCH_DEPTH", "3")
+    assert make()._depth == 3 and make(prefetch_depth=1)._depth == 1
+    monkeypatch.setenv("MDT_STACKED_PREFETCH_DEPTH", "many")
+    assert make()._depth == 2
+    monkeypatch.setenv("MDT_STACKED_PREFETCH", "0")
+    it = make()
+    assert not it._prefetch and make(prefetch=True)._prefetch
+    chunks = it.round_chunks(2)
+    next(chunks)
+    assert not _prefetch_threads()  # the synchronous path starts no thread
+    chunks.close()
+
+
+def test_the_wait_hook_sees_every_chunk(data):
+    from multidisttorch_tpu_torch.data.sampler import StackedTrialDataIterator
+
+    group = setup_groups(1, devices=["cpu"])[0]
+    for feed in ("numpy", "native+prefetch"):
+        seen = []
+        it = StackedTrialDataIterator(data, group, 16, [0, 1], wait_hook=lambda s, nb: seen.append((s, nb)),
+                                      **FEEDS[feed])
+        chunks = list(it.round_chunks(4))  # 6 steps: chunks of 4 and 2
+        assert [nb for _, nb in seen] == [c.numel() * 4 for _, c in chunks] and all(s >= 0 for s, _ in seen)
+
+
+def _feed_off(monkeypatch) -> None:
+    """Every train iterator that run_hpo and run_pbt build from here on
+    takes the synchronous numpy path."""
+    import functools
+
+    from multidisttorch_tpu_torch.data import sampler
+    from multidisttorch_tpu_torch.hpo import driver, pbt
+
+    for mod in (driver, pbt):
+        for name in ("TrialDataIterator", "StackedTrialDataIterator"):
+            if hasattr(mod, name):
+                off = FEEDS["numpy"] if name.startswith("Stacked") else {"use_native": False}
+                monkeypatch.setattr(mod, name, functools.partial(getattr(sampler, name), **off))
+
+
+@pytest.mark.parametrize("stack", [False, True])
+def test_run_hpo_gives_the_same_results_with_the_feed_on_and_off(tmp_path, monkeypatch, stack):
+    from multidisttorch_tpu_torch.hpo.driver import TrialConfig, run_hpo
+
+    train, test = synthetic_mnist(96, seed=0), synthetic_mnist(40, seed=1)
+    configs = [TrialConfig(trial_id=i, epochs=1 + i % 2, batch_size=16, seed=i, lr=(1e-3, 3e-3, 2e-3)[i],
+                           hidden_dim=16, latent_dim=4, fused_steps=4) for i in range(3)]
+
+    def run(out):
+        return run_hpo(configs, train, test, groups=setup_groups(1, devices=["cpu"]), out_dir=str(tmp_path / out),
+                       save_images=False, verbose=False, stack_trials=stack)
+
+    on = run("on")
+    _feed_off(monkeypatch)
+    off = run("off")
+    assert [r.stacked for r in on] == [stack] * 3
+    for a, b in zip(on, off, strict=True):
+        assert (a.status, a.steps, a.history) == (b.status, b.steps, b.history) == ("completed", a.steps, a.history)
+        assert a.final_train_loss == b.final_train_loss and a.final_test_loss == b.final_test_loss
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_run_pbt_gives_the_same_results_with_the_feed_on_and_off(monkeypatch, fused):
+    from multidisttorch_tpu_torch.hpo import PBTConfig, run_pbt
+
+    train, test = synthetic_mnist(96, seed=0), synthetic_mnist(40, seed=1)
+    # 5 steps a generation over rounds of 6: the stream crosses round edges.
+    cfg = PBTConfig(population=4, generations=3, steps_per_generation=5, batch_size=16, hidden_dim=16, latent_dim=4,
+                    exploit_fraction=0.5, lr_min=1e-4, lr_max=1e-1)
+
+    def run():
+        groups = setup_groups(1 if fused else 4, devices=["cpu"] * (1 if fused else 4))
+        return run_pbt(cfg, train, test, groups=groups, fused=fused, verbose=False, return_states=True)
+
+    on = run()
+    _feed_off(monkeypatch)
+    off = run()
+    assert on.history == off.history and on.final_lrs == off.final_lrs
+    for a, b in zip(on.final_states, off.final_states, strict=True):
+        assert a["count"] == b["count"]
+        assert all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
+        assert all(torch.equal(x, y) for x, y in zip(a["exp_avg"] + a["exp_avg_sq"], b["exp_avg"] + b["exp_avg_sq"]))

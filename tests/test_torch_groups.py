@@ -9,9 +9,11 @@ Run as a script, this file is one rank of the two-process world
 import json
 import logging
 import os
+import random
 import socket
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -190,29 +192,63 @@ def _gloo_rank(out_path: str) -> None:
 
 
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A free port for a world's store, picked below the kernel's ephemeral
+    range: a port from inside it can be taken, between this probe and rank
+    0's bind, as the local end of another concurrent world's connection,
+    and rank 1 then waits for a store that never starts."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            ephemeral_lo = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        ephemeral_lo = 32768
+    rng = random.Random()
+    for _ in range(200):
+        port = rng.randrange(max(1024, ephemeral_lo - 12000), ephemeral_lo)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+    raise RuntimeError("no free port below the ephemeral range")
 
 
 def _launch(argv_for_rank, n: int, timeout: float) -> list[str]:
+    """Run an ``n``-process world, each rank given ``timeout`` seconds in
+    turn; every rank's output is kept in a file, so a rank that hangs is
+    reported with what every rank printed."""
     port = _free_port()
-    procs = []
-    for r in range(n):
-        env = dict(os.environ, WORLD_SIZE=str(n), RANK=str(r), LOCAL_RANK=str(r),
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), OMP_NUM_THREADS="1",
-                   PYTHONPATH=REPO)
-        procs.append(subprocess.Popen(argv_for_rank(r), env=env, cwd=REPO, text=True,
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    try:
-        outs = [p.communicate(timeout=timeout)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out}"
+    procs, logs = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for r in range(n):
+            env = dict(os.environ, WORLD_SIZE=str(n), RANK=str(r), LOCAL_RANK=str(r),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+                       PYTHONPATH=REPO)
+            logs.append(open(os.path.join(tmp, f"rank{r}.log"), "w+"))
+            procs.append(subprocess.Popen(argv_for_rank(r), env=env, cwd=REPO, text=True,
+                                          stdout=logs[-1], stderr=subprocess.STDOUT))
+        hung = None
+        try:
+            for r, p in enumerate(procs):
+                try:
+                    p.wait(timeout=timeout)
+                except subprocess.TimeoutExpired:
+                    hung = r
+                    break
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            outs = []
+            for f in logs:
+                f.seek(0)
+                outs.append(f.read())
+                f.close()
+    said = "".join(f"\n--- rank {r} (exit {p.returncode}):\n{out}" for r, (p, out) in enumerate(zip(procs, outs)))
+    assert hung is None, f"rank {hung} did not end within {timeout} s (port {port}){said}"
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}{said}"
     return outs
 
 

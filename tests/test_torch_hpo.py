@@ -221,7 +221,7 @@ def test_unported_run_hpo_arguments_raise(data, tmp_path, name):
                 out_dir=str(tmp_path), **{name: "set"})
 
 
-@pytest.mark.parametrize("field, value", [("remat", True), ("dataset", "cas:x"), ("zero_update", True), ("pipeline_stages", 2)])
+@pytest.mark.parametrize("field, value", [("dataset", "cas:x"), ("zero_update", True), ("pipeline_stages", 2)])
 def test_unported_config_fields_raise(data, tmp_path, field, value):
     cfg = TrialConfig(trial_id=0, **SMALL, **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
@@ -244,8 +244,12 @@ def test_example_cli_runs_on_cpu(tmp_path, capsys):
                             "--out-dir", str(tmp_path)])
     assert [r.steps for r in results] == [8]
     assert "trial 0: 8 steps" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="remat"):
-        vae_hpo.main(["--device", "cpu", "--ngroups", "1", "--synthetic-size", "256", "--remat"])
+    # --remat trains, to the same numbers as without it.
+    remat = vae_hpo.main(["--device", "cpu", "--ngroups", "1", "--epochs", "1",
+                          "--synthetic-size", "256", "--batch-size", "32",
+                          "--out-dir", str(tmp_path / "remat"), "--remat"])
+    assert remat[0].config.remat and [r.steps for r in remat] == [8]
+    assert remat[0].final_train_loss == results[0].final_train_loss
 
 
 def test_port_never_imports_jax():
