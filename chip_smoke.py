@@ -116,6 +116,28 @@ Phases, in order; any failure exits non-zero and prints no result:
     the stacked moments and counts) bit-identical, or the first differing
     tensor and rel 1e-6, each ELBO kernel once per step, ms per step and
     the peak of device memory over the first chunk both ways;
+14. the model families at full width (run before 13): (a) the conv
+    beta-VAE (latent 64, base channels 32, 32x32x3, batch 128): the ELBO
+    kernels against their plain versions at (128, 3072, 64) f32, timed,
+    and untimed at (100, 3072, 64) f32 and (128, 3072, 64) bf16; one
+    fused-vs-plain train step; ``make_multi_step`` graphed against its
+    eager loop (K 10, bit-identical under ``cudnn.deterministic``, ms per
+    step, device busy, idle share, top kernels; how far two eager runs
+    differ under the defaults is printed), then the graphed step under the
+    defaults with cuDNN TF32 off and on, in turns; ``run_hpo(model_builder=ConvVAE)``, two trials (beta 0.5
+    and 1) of one epoch of ``synthetic_cifar10`` at CIFAR size, counts set
+    to 0 before: every chunk but a trial's first a replay, each ELBO kernel
+    once per step, a checkpoint per trial; (b) the MoE VAE (784-400-20, 4
+    experts, capacity factor 2.0): graphed against eager, then
+    ``run_hpo(model_builder=MoEVAE)`` for one epoch at MNIST size, checked
+    alike, and a v1 checkpoint round trip on the card; (c) ResNet-18 (base
+    channels 64, batch 128) through ``make_classifier_multi_step`` at K 4:
+    graphed against eager under ``cudnn.deterministic`` (bit-identical, no
+    ELBO launch), ms per step, busy, idle share and top kernels, the
+    graphed step with cuDNN TF32 off and on in turns, then 100 graphed
+    steps of the ``resnet_hpo`` loop (the loss must fall) and the test
+    accuracy over the synthetic test set. Each timing line prints the TF32
+    and cuDNN settings it ran under;
 13. a ``kernels`` JSON line, then the result line.
 
 Exits 1 without a result when CUDA is unavailable or the port is not
@@ -2220,6 +2242,540 @@ def remat_phase(E, group, smi: str) -> dict:
     return launches
 
 
+# Phase 14, the model families at full width (models/conv_vae.py,
+# models/moe_vae.py, models/resnet.py, train/classifier.py). The
+# convolutions run under phase 1's TF32 setting unless a line says
+# otherwise; every timing line prints the setting it ran under.
+FAMILY_CHUNKS = 4  # chunks in a graphed-vs-eager comparison
+SPREAD_RUNS = 6  # eager runs under the defaults, whose pairwise spread bounds the graphed run
+SPREAD_FACTOR = 4.0  # the graphed run may differ from each eager run by this times the spread
+SPREAD_VALUE_FLOOR = 1e-3  # ... or by this times the largest |per-step value|
+FAMILY_TIMING_CHUNKS = 5  # chunks per timing round (4 rounds, in turns)
+RESNET_LOOP_STEPS = 100
+
+
+def _conv_flags() -> str:
+    b = torch.backends
+    return (f"cuDNN TF32 {'on' if b.cudnn.allow_tf32 else 'off'}, matmul TF32 "
+            f"{'on' if b.cuda.matmul.allow_tf32 else 'off'}, cudnn.deterministic {b.cudnn.deterministic}, "
+            f"cudnn.benchmark {b.cudnn.benchmark}")
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    """cuDNN's deterministic algorithms for a bitwise comparison: under the
+    defaults a conv's backward may sum with atomics, so two eager runs
+    differ (``_graph_within_spread`` measures by how much)."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def _run_chunks(fresh_state, multi, chunks: list, call, group) -> tuple:
+    """One run of ``multi`` over ``chunks`` from a fresh state with the
+    generator at seed 1234: the per-step values and every parameter."""
+    state = fresh_state()
+    gen = torch.Generator(device=group.device).manual_seed(1234)
+    vals = [call(multi, state, c, gen)[1] for c in chunks]
+    torch.cuda.synchronize()
+    return torch.cat(vals), {n: p.detach().clone() for n, p in state.params.items()}
+
+
+def _distance(a: tuple, b: tuple) -> tuple:
+    """Max |diff| of two runs' per-step values and of their parameters."""
+    (va, pa), (vb, pb) = a, b
+    return float((va - vb).abs().max()), max(float((pa[n] - pb[n]).abs().max()) for n in pa)
+
+
+def _graph_within_spread(what: str, fresh_state, make_eager, make_graph, chunks: list, call, group) -> dict:
+    """The graphed multi-step against the eager loop under cuDNN's defaults
+    (``cudnn.deterministic`` off), where a conv's backward may sum with
+    atomics and two eager runs differ: ``SPREAD_RUNS`` eager runs over the
+    same chunks, state and generator seed give the spread (the largest
+    pairwise |diff| of the per-step values and of the parameters), and the
+    graphed run must be within ``SPREAD_FACTOR`` times it of every eager
+    run, with one replay per chunk but the first.
+
+    The runs fall into a few trajectories, by the step at which the atomics
+    first summed in another order, so all the eager runs can share one
+    while the graphed run takes another (40 ConvVAE steps: pairs 1.6e-2 to
+    26 apart). The bound therefore never goes below two floors that such
+    rounding does not reach and a fault of the graph (a stale input, a lost
+    update, a repeated draw) passes at once: ``SPREAD_VALUE_FLOOR`` times
+    the largest |per-step value|, and for the parameters lr times the
+    steps (Adam moves a weight by about lr a step)."""
+    lr = fresh_state().optimizer.param_groups[0]["lr"]
+    eager = [_run_chunks(fresh_state, make_eager(), chunks, call, group) for _ in range(SPREAD_RUNS)]
+    pairs = [_distance(eager[i], eager[j]) for i in range(SPREAD_RUNS) for j in range(i + 1, SPREAD_RUNS)]
+    spread = (max(p[0] for p in pairs), max(p[1] for p in pairs))
+    steps = chunks[0][0].shape[0] * len(chunks)
+    floors = (SPREAD_VALUE_FLOOR * max(float(e[0].abs().max()) for e in eager), lr * steps)
+    bound = tuple(max(SPREAD_FACTOR * s, f) for s, f in zip(spread, floors))
+    multi = make_graph()
+    graph = _run_chunks(fresh_state, multi, chunks, call, group)
+    check(multi.graphed and multi.replays == len(chunks) - 1,
+          f"{what} defaults: graphed {multi.graphed}, {multi.replays} replays in {len(chunks)} chunks")
+    check(bool(torch.isfinite(graph[0]).all()), f"{what} defaults: non-finite graphed values")
+    to_eager = [_distance(graph, e) for e in eager]
+    for k, name in ((0, "per-step values"), (1, "parameters")):
+        worst = max(d[k] for d in to_eager)
+        check(worst <= bound[k],
+              f"{what} defaults: graphed vs eager {name} max |diff| {worst:.3e}, beyond the bound {bound[k]:.3e} "
+              f"({SPREAD_FACTOR:g} x the eager runs' spread {spread[k]:.3e}, floor {floors[k]:.3e}; pairwise "
+              + ", ".join(f"{p[k]:.3e}" for p in pairs) + ")")
+    print(f"{what}: under the defaults, {SPREAD_RUNS} eager runs of {len(chunks)} chunks ({steps} steps), same state, "
+          "data and seed, differ pairwise by " + ", ".join(f"{v:.3e}" for v, _ in pairs) + " in the per-step values "
+          "and " + ", ".join(f"{p:.3e}" for _, p in pairs) + " in the parameters; the graphed run differs from each "
+          "by " + ", ".join(f"{v:.3e}" for v, _ in to_eager) + " and " + ", ".join(f"{p:.3e}" for _, p in to_eager)
+          + f" (bounds {bound[0]:.3e}, {bound[1]:.3e}: the larger of {SPREAD_FACTOR:g} x the spread and the floors "
+          f"{floors[0]:.3e}, {floors[1]:.3e}; {multi.replays} replays; {_conv_flags()})")
+    return {"eager_pairs": pairs, "graph_to_eager": to_eager, "bound": bound}
+
+
+def _profile_steps(run, steps: int, guard: str = "") -> tuple:
+    """torch.profiler over ``run()``, which runs ``steps`` train steps:
+    device busy ms per step and the kernels by device time (ms per step,
+    launches per step, name). With ``guard``, a trace counts only if it
+    holds one such kernel per step (the profiler can drop part of a replay),
+    in three tries; busy is None if none did."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        seen = sum(e.count for e in prof.key_averages() if guard and guard in e.key and e.device_time_total > 0)
+        if not guard or seen == steps:
+            break
+    by_kernel = sorted(((e.device_time_total / steps / 1e3, e.count / steps, e.key) for e in prof.key_averages()
+                        if e.device_time_total > 0), reverse=True)
+    busy = sum(k[0] for k in by_kernel) if (not guard or seen == steps) else None
+    return busy, by_kernel
+
+
+def _family_graph_vs_eager(E, group, smi: str, what: str, fresh_state, builders: dict, chunks: list, call,
+                           guard: str = "") -> dict:
+    """A family's multi-step as CUDA-graph replays against its eager loop:
+    the same initial weights, chunks and generator seed; the graphed run's
+    first chunk is its warm-up, its second the capture, the rest replays.
+    Per-step values, every parameter and the launch counts must be equal to
+    the last bit. Then ms per step of both in turns (eager, graph, graph,
+    eager) and, from torch.profiler, the device's busy time per step, the
+    idle share and the top kernels. ``call(multi, state, chunk, gen) ->
+    (state, per-step values)``."""
+    k = chunks[0][0].shape[0]
+    steps = k * len(chunks)
+    runs, kept = {}, {}
+    for mode in ("eager", "graph"):
+        state = fresh_state()
+        multi = builders[mode]()
+        check(multi.graphed == (mode == "graph"), f"{what} {mode}: graphed is {multi.graphed}")
+        gen = torch.Generator(device=group.device).manual_seed(1234)
+        for key in E.LAUNCHES:
+            E.LAUNCHES[key] = 0
+        vals = []
+        for c in chunks:
+            state, v = call(multi, state, c, gen)
+            vals.append(v)
+        torch.cuda.synchronize()
+        runs[mode] = (torch.cat(vals), {n: p.detach().clone() for n, p in state.params.items()},
+                      dict(E.LAUNCHES), multi.replays)
+        kept[mode] = [multi, state, gen]
+    (ve, pe, le, _), (vg, pg, lg, replays) = runs["eager"], runs["graph"]
+    check(replays == len(chunks) - 1, f"{what} graph: {replays} replays, expected {len(chunks) - 1}")
+    check(bool(torch.isfinite(vg).all()), f"{what} graph: non-finite values {vg}")
+    check(bool(torch.equal(ve, vg)), f"{what} graph vs eager: per-step values differ "
+          f"(max {float((ve - vg).abs().max()):.3e})")
+    for n in pe:
+        check(bool(torch.equal(pe[n], pg[n])),
+              f"{what} graph vs eager: param {n} differs (max {float((pe[n] - pg[n]).abs().max()):.3e})")
+    check(le == lg, f"{what}: launches eager {le}, graph {lg}")
+    print(f"{what}: graphed multi-step vs eager loop, {len(chunks)} chunks of K {k}: {steps} steps' values and "
+          f"every parameter bit-identical; {replays} replays; launches {lg} ({_conv_flags()})")
+
+    per = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        multi, state, gen = kept[mode]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FAMILY_TIMING_CHUNKS):
+            state, _ = call(multi, state, chunks[0], gen)
+        torch.cuda.synchronize()
+        per[mode].append((time.perf_counter() - t0) / (FAMILY_TIMING_CHUNKS * k) * 1e3)
+    res = {}
+    for mode in ("eager", "graph"):
+        multi, state, gen = kept[mode]
+        busy, by_kernel = _profile_steps(lambda: [call(multi, state, c, gen) for c in chunks[:2]], 2 * k, guard)
+        ms = statistics.fmean(per[mode])
+        res[mode] = {"ms_per_step": ms, "rounds": per[mode], "busy_ms": busy,
+                     "idle": None if busy is None else 1 - busy / ms, "kernels": by_kernel}
+        busy_s = _busy_text(busy, ms)
+        print(f"{what} step ({mode}{f', one CUDA graph per chunk of {k}' if mode == 'graph' else ' loop'}): "
+              f"{ms:.6f} ms/step (rounds " + ", ".join(f"{v:.6f}" for v in per[mode]) + f"), {busy_s}; "
+              f"{sum(x[1] for x in by_kernel):.0f} device kernels per step ({_conv_flags()}; {smi})")
+        if mode == "graph":
+            print(f"{what} step (graph): device us per step by kernel (launches per step), top 12: "
+                  + "; ".join(f"{t * 1e3:.3f} ({n:g}) {key[:70]}" for t, n, key in by_kernel[:12]))
+    return res
+
+
+def _busy_text(busy, ms: float) -> str:
+    if busy is None:
+        return "device busy not measured, idle share not measured (the profiler dropped kernels)"
+    if busy > ms:
+        return (f"device kernel time {busy * 1e3:.3f} us/step, more than the step's wall time (kernels that "
+                "overlap, or the profiler's accounting of a replay), so the idle share is not measured")
+    return f"device busy {busy * 1e3:.3f} us/step, idle share {1 - busy / ms:.3f}"
+
+
+def _settings_timing(group, smi: str, what: str, fresh_state, make_multi, chunks: list, call,
+                     flops: float = 0.0, guard: str = "") -> dict:
+    """The graphed multi-step under the defaults (``cudnn.deterministic``
+    off) with cuDNN TF32 off (phase 1's setting) and on: each captured under
+    its setting, then timed in turns (off, on, on, off), ms per step, and,
+    from torch.profiler, each one's busy time, idle share and top kernels.
+    ``flops`` per step, when given, gives the rate."""
+    k = chunks[0][0].shape[0]
+    before = torch.backends.cudnn.allow_tf32
+    runs = {}
+    try:
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            state, multi = fresh_state(), make_multi()
+            gen = torch.Generator(device=group.device).manual_seed(99)
+            for c in chunks[:2]:  # the warm-up, then the capture
+                state, _ = call(multi, state, c, gen)
+            runs[tf32] = [multi, state, gen]
+        per = {False: [], True: []}
+        for tf32 in (False, True, True, False):
+            multi, state, gen = runs[tf32]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(FAMILY_TIMING_CHUNKS):
+                state, v = call(multi, state, chunks[0], gen)
+            torch.cuda.synchronize()
+            per[tf32].append((time.perf_counter() - t0) / (FAMILY_TIMING_CHUNKS * k) * 1e3)
+            check(bool(torch.isfinite(v).all()), f"{what}, TF32 {tf32}: non-finite values")
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    out = {}
+    for tf32 in (False, True):
+        multi, state, gen = runs[tf32]
+        busy, by_kernel = _profile_steps(lambda: [call(multi, state, c, gen) for c in chunks[:2]], 2 * k, guard)
+        ms = statistics.fmean(per[tf32])
+        rate = f", {flops / ms / 1e9:.1f} TFLOP/s at {flops / 1e12:.4f} TFLOP a step" if flops else ""
+        print(f"{what} graphed step, cudnn.deterministic False, cuDNN TF32 {'on' if tf32 else 'off'}: {ms:.6f} ms/step "
+              "(rounds " + ", ".join(f"{v:.6f}" for v in per[tf32]) + f"){rate}, {_busy_text(busy, ms)}; top 8 "
+              "device us per step (launches per step): "
+              + "; ".join(f"{t * 1e3:.3f} ({n:g}) {key[:60]}" for t, n, key in by_kernel[:8]) + f" ({smi})")
+        out[tf32] = {"ms_per_step": ms, "busy_ms": busy}
+    return out
+
+
+def _vae_call(multi, state, chunk, gen):
+    state, m = multi(state, chunk[0], generator=gen)
+    return state, m["loss_sum"]
+
+
+def _classifier_call(multi, state, chunk, gen):
+    state, m = multi(state, chunk[0], chunk[1])
+    return state, torch.stack([m["loss"], m["accuracy"]], dim=-1)
+
+
+def _classifier_loss_call(multi, state, chunk, gen):
+    """The per-step losses alone, for a spread: a step's accuracy moves in
+    steps of 1/128, and one row's flip would stand for the whole spread."""
+    state, m = multi(state, chunk[0], chunk[1])
+    return state, m["loss"]
+
+
+def _counted_hpo(E, what: str, configs, train, test, group, **kw) -> tuple:
+    """``run_hpo`` with the launch counts set to 0 just before and read just
+    after: each ELBO kernel once per train step, the lane kernels never;
+    each trial's chunks a replay but its first; each trial's checkpoint
+    written. Returns the results, the counts and the wall seconds."""
+    from multidisttorch_tpu_torch.hpo.driver import run_hpo
+
+    for key in E.LAUNCHES:
+        E.LAUNCHES[key] = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        results = run_hpo(configs, train, test, groups=[group], out_dir=tmp, verbose=False, **kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        for r in results:
+            check(os.path.exists(os.path.join(tmp, f"trial-{r.trial_id}", "state.msgpack.json")),
+                  f"{what}: trial {r.trial_id} wrote no checkpoint")
+    launches = dict(E.LAUNCHES)
+    steps = sum(r.steps for r in results)
+    for key, n in launches.items():
+        want = 0 if key.endswith("_lanes") else steps
+        check(n == want, f"{what}: {key} launched {n} times in {steps} train steps, expected {want}")
+    for r in results:
+        chunks = -(-r.steps // r.config.fused_steps)
+        check(r.status == "completed", f"{what}: trial {r.trial_id} {r.status} {r.error}")
+        check(r.graph_replays == chunks - 1, f"{what}: trial {r.trial_id}: {r.graph_replays} graph replays in "
+              f"{chunks} chunks, expected {chunks - 1} (the first is the warm-up)")
+        check(math.isfinite(r.final_train_loss) and math.isfinite(r.final_test_loss),
+              f"{what}: trial {r.trial_id}: non-finite losses {r.final_train_loss}, {r.final_test_loss}")
+    return results, launches, wall
+
+
+def conv_vae_phase(E, F, group, smi: str, floor) -> dict:
+    """Phase 14a: the conv β-VAE (BASELINE.md config 3) at full width: the
+    ELBO kernels at its width, one fused-vs-plain step, the graphed
+    multi-step against its eager loop (under the defaults within the eager
+    runs' spread, and bit-identical under ``cudnn.deterministic``), and
+    the ``run_hpo(model_builder=)`` slice under the defaults."""
+    from multidisttorch_tpu_torch.data.datasets import synthetic_cifar10
+    from multidisttorch_tpu_torch.hpo.driver import TrialConfig
+    from multidisttorch_tpu_torch.models import ConvVAE
+    from multidisttorch_tpu_torch.train.steps import (
+        EagerMultiStep, _build_body, create_train_state, make_multi_step, make_train_step,
+    )
+
+    print(f"phase 14a, conv beta-VAE (latent 64, base channels 32, 32x32x3, batch 128): {_conv_flags()}")
+    # The ELBO kernels at 3072 logits a row: timed at the main shape, then a
+    # ragged batch and bf16 activations untimed.
+    kernels = kernel_vs_plain(E, F, 128, 3072, 64, torch.float32, smi=smi, floor=floor)
+    kernel_vs_plain(E, F, 100, 3072, 64, torch.float32, timed=False)
+    kernel_vs_plain(E, F, 128, 3072, 64, torch.bfloat16, timed=False)
+
+    dev = group.device
+    train = synthetic_cifar10(50000, seed=0)
+    test = synthetic_cifar10(10000, seed=1)
+    weights = ConvVAE().init_params(0).state_dict()
+
+    def fresh(lr=1e-3):
+        model = ConvVAE()
+        model.load_state_dict(weights)
+        return create_train_state(group, model, lr)
+
+    # One step, fused kernels against the plain loss, same weights and noise.
+    # At lr 0 the step leaves the weights and its gradients behind: Adam's
+    # first update, about lr times the gradient's sign, would magnify the
+    # rounding of gradients near zero.
+    batch = torch.from_numpy(train.images[:128]).to(dev)
+    eps = torch.randn(128, 64, generator=torch.Generator(device="cpu").manual_seed(3)).to(dev)
+    out = {}
+    for fused in (True, False):
+        state = fresh(lr=0.0)
+        state, m = make_train_step(group, use_fused_loss=fused)(state, batch, eps=eps)
+        out[fused] = (float(m["loss_sum"]), {n: p.grad.detach().clone() for n, p in state.params.items()})
+    (lf, gf), (lp, gp) = out[True], out[False]
+    rel = abs(lf - lp) / abs(lp)
+    check(math.isfinite(lf) and rel <= 1e-5, f"14a train step: fused loss {lf} vs plain {lp} (rel {rel:.2e})")
+    worst = 0.0
+    for n in gf:
+        diff = (gf[n] - gp[n]).abs()
+        check(bool(torch.all(diff <= 1e-6 + 1e-4 * gp[n].abs())),
+              f"14a train step: gradient of {n} differs beyond rtol 1e-4 / atol 1e-6 (max {float(diff.max()):.3e})")
+        worst = max(worst, float(diff.max()))
+    print(f"14a train step: fused loss_sum {lf:.6f} plain {lp:.6f} rel {rel:.3e}; gradients max |diff| "
+          f"{worst:.3e} (rtol 1e-4 / atol 1e-6)")
+
+    k = 10
+    imgs = torch.from_numpy(train.images[: 128 * k * FAMILY_CHUNKS]).to(dev)
+    chunks = [(c,) for c in imgs.reshape(FAMILY_CHUNKS, k, 128, -1)]
+    eager = lambda: EagerMultiStep(_build_body(group, 1.0, True, 1))  # noqa: E731
+    spread = _graph_within_spread("14a ConvVAE", fresh, eager, lambda: make_multi_step(group), chunks, _vae_call, group)
+    with _cudnn_deterministic():
+        step_res = _family_graph_vs_eager(
+            E, group, smi, "14a ConvVAE", fresh, {"graph": lambda: make_multi_step(group), "eager": eager},
+            chunks, _vae_call, guard="elbo_fwd")
+    step_res["spread"] = spread
+    step_res["defaults"] = _settings_timing(group, smi, "14a ConvVAE", fresh, lambda: make_multi_step(group), chunks,
+                                            _vae_call, guard="elbo_fwd")
+
+    # The slice: two trials of BASELINE.md config 3's beta sweep, one epoch.
+    configs = [TrialConfig(trial_id=g, epochs=1, batch_size=128, lr=1e-3, beta=b, seed=g, fused_steps=10)
+               for g, b in enumerate((0.5, 1.0))]
+    results, launches, wall = _counted_hpo(
+        E, "14a run_hpo(ConvVAE)", configs, train, test, group,
+        model_builder=lambda cfg: ConvVAE(latent_dim=64, base_channels=32))
+    steps = sum(r.steps for r in results)
+    check(steps == 2 * 390, f"14a: {steps} train steps, expected {2 * 390}")
+    for r in results:
+        print(f"14a trial {r.trial_id} (beta {r.config.beta}): {r.steps} steps, train {r.final_train_loss:.4f}, "
+              f"test {r.final_test_loss:.4f} (79 eval batches), {r.graph_replays} graph replays, checkpoint written, "
+              f"wall {r.wall_s:.3f} s ({smi})")
+    print(f"14a run_hpo(model_builder=ConvVAE): {steps} steps in {wall:.3f} s, {steps * 128 / wall:.1f} train "
+          f"samples/s (eval, samples and checkpoints included); launches {launches} ({_conv_flags()}; {smi})")
+    return {"kernels": kernels, "launches": launches, "step": step_res}
+
+
+def moe_vae_phase(E, group, smi: str, train, test) -> dict:
+    """Phase 14b: the MoE VAE (784-400-20, 4 experts, capacity factor 2.0)
+    through ``run_hpo(model_builder=)``, its graphed multi-step against the
+    eager loop, and a v1 checkpoint round trip on the card."""
+    from multidisttorch_tpu_torch.hpo.driver import TrialConfig
+    from multidisttorch_tpu_torch.models import MoEVAE
+    from multidisttorch_tpu_torch.train import checkpoint as ck
+    from multidisttorch_tpu_torch.train.steps import EagerMultiStep, _build_body, create_train_state, make_multi_step
+
+    dev = group.device
+    weights = MoEVAE().init_params(0).state_dict()
+
+    def fresh(lr=1e-3):
+        model = MoEVAE()
+        model.load_state_dict(weights)
+        return create_train_state(group, model, lr)
+
+    k = 10
+    imgs = torch.from_numpy(train.images[: 128 * k * FAMILY_CHUNKS]).to(dev)
+    chunks = [(c,) for c in imgs.reshape(FAMILY_CHUNKS, k, 128, -1)]
+    step_res = _family_graph_vs_eager(
+        E, group, smi, "14b MoEVAE", fresh,
+        {"graph": lambda: make_multi_step(group), "eager": lambda: EagerMultiStep(_build_body(group, 1.0, True, 1))},
+        chunks, _vae_call, guard="elbo_fwd")
+
+    configs = [TrialConfig(trial_id=0, epochs=1, batch_size=128, seed=0, fused_steps=10)]
+    results, launches, wall = _counted_hpo(
+        E, "14b run_hpo(MoEVAE)", configs, train, test, group, save_images=False,
+        model_builder=lambda cfg: MoEVAE(hidden_dim=cfg.hidden_dim, latent_dim=cfg.latent_dim, num_experts=4,
+                                         capacity_factor=2.0))
+    r = results[0]
+    check(r.steps == 468, f"14b: {r.steps} train steps, expected 468")
+    print(f"14b run_hpo(model_builder=MoEVAE): {r.steps} steps, train {r.final_train_loss:.4f}, test "
+          f"{r.final_test_loss:.4f}, {r.graph_replays} graph replays, checkpoint written, wall {wall:.3f} s, "
+          f"{r.steps * 128 / wall:.1f} train samples/s; launches {launches} ({smi})")
+
+    # A v1 save of a trained state, restored into another state on the card.
+    state = fresh()
+    multi = make_multi_step(group)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for c in chunks[:2]:
+        state, _ = multi(state, c[0], generator=gen)
+    other = create_train_state(group, MoEVAE().init_params(1), 1e-3)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.msgpack")
+        ck.save_state(state, path, metadata={"step": state.step}, format="v1")
+        with open(path, "rb") as f:
+            check(f.read(1) == b"\x83", "14b: not a v1 msgpack file")
+        ck.restore_state(other, path)
+    a, b = ck.train_state_to_tree(state), ck.train_state_to_tree(other)
+
+    def leaves(tree, prefix=""):
+        if not isinstance(tree, dict):
+            return {prefix: tree}
+        return {k2: v for key, sub in tree.items() for k2, v in leaves(sub, f"{prefix}/{key}").items()}
+
+    import numpy as np
+
+    la, lb = leaves(a), leaves(b)
+    check(list(la) == list(lb) and all(np.array_equal(la[key], lb[key]) for key in la) and other.step == state.step,
+          "14b: the v1 restore differs from the saved state")
+    print(f"14b v1 checkpoint: a MoE state at step {state.step} saved and restored on the card, every leaf of "
+          f"{len(la)} (parameters, Adam moments, count, step) bit-identical")
+    return {"launches": launches, "step": step_res}
+
+
+def resnet_phase(E, group, smi: str) -> dict:
+    """Phase 14c: ResNet-18 (base channels 64, GroupNorm, batch 128) through
+    ``make_classifier_multi_step`` at K 4: graphed against eager, under the
+    defaults within the eager runs' spread and under
+    ``cudnn.deterministic`` (whose algorithms give the same bits on every
+    run) bit-identical, with no ELBO kernel launches; ms per step, busy, idle share and top
+    kernels; then the graphed step under the defaults with cuDNN TF32 off
+    and on, in turns, with its rate; then 100 graphed steps of the ``resnet_hpo`` loop (one trial) and the
+    test accuracy over the synthetic test set."""
+    import numpy as np
+
+    from multidisttorch_tpu_torch.data.datasets import synthetic_cifar10
+    from multidisttorch_tpu_torch.data.sampler import TrialDataIterator
+    from multidisttorch_tpu_torch.models import ResNet18
+    from multidisttorch_tpu_torch.train.classifier import (
+        _build_classifier_body, _EagerClassifierMultiStep, create_classifier_state, make_classifier_eval_step,
+        make_classifier_multi_step,
+    )
+
+    dev = group.device
+    train = synthetic_cifar10(50000, seed=0)
+    test = synthetic_cifar10(10000, seed=1)
+    weights = ResNet18(base_channels=64).init_params(0).state_dict()
+    n_params = sum(v.numel() for v in weights.values())
+
+    def fresh(lr=1e-3):
+        model = ResNet18(base_channels=64)
+        model.load_state_dict(weights)
+        return create_classifier_state(group, model, lr)
+
+    k = 4
+    rows = 128 * k * FAMILY_CHUNKS
+    imgs = torch.from_numpy(train.images[:rows]).to(dev).reshape(FAMILY_CHUNKS, k, 128, -1)
+    labels = torch.from_numpy(train.labels[:rows].astype(np.int64)).to(dev).reshape(FAMILY_CHUNKS, k, 128)
+    chunks = list(zip(imgs, labels))
+    print(f"phase 14c, ResNet-18 (base channels 64, {n_params} parameters, GroupNorm, 32x32x3, batch 128)")
+    eager = lambda: _EagerClassifierMultiStep(_build_classifier_body(group, 1))  # noqa: E731
+    spread = _graph_within_spread("14c ResNet-18", fresh, eager, lambda: make_classifier_multi_step(group), chunks,
+                                  _classifier_loss_call, group)
+    with _cudnn_deterministic():
+        step_res = _family_graph_vs_eager(
+            E, group, smi, "14c ResNet-18", fresh, {"graph": lambda: make_classifier_multi_step(group), "eager": eager},
+            chunks, _classifier_call)
+
+    step_res["spread"] = spread
+    flops = 3 * 2 * _resnet_macs(ResNet18(base_channels=64)) * 128
+    step_res["defaults"] = _settings_timing(group, smi, "14c ResNet-18", fresh, lambda: make_classifier_multi_step(group),
+                                            chunks, _classifier_call, flops=flops)
+
+    # 100 graphed steps of the resnet_hpo loop, one trial (lr 1e-3, seed 0),
+    # under the defaults.
+    print(f"14c resnet_hpo loop: {_conv_flags()}")
+    state = create_classifier_state(group, ResNet18(num_classes=10, base_channels=64), 1e-3, seed=0)
+    multi = make_classifier_multi_step(group)
+    it = TrialDataIterator(train, group, 128, seed=0, with_labels=True)
+    losses, n_chunks = [], 0
+    t0 = time.time()
+    for _, x, y in it.epoch_chunks(0, k):
+        state, m = multi(state, x, y)
+        losses.append(m["loss"])
+        n_chunks += 1
+        if n_chunks * k == RESNET_LOOP_STEPS:
+            break
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    losses = torch.cat(losses).cpu()
+    check(bool(torch.isfinite(losses).all()), "14c loop: non-finite loss")
+    check(multi.replays == n_chunks - 1, f"14c loop: {multi.replays} replays in {n_chunks} chunks")
+    first, last = float(losses[:k].mean()), float(losses[-k:].mean())
+    check(last < first, f"14c loop: loss did not fall ({first} -> {last})")
+    eval_step = make_classifier_eval_step(group)
+    correct, total = 0.0, 0
+    for x, y in TrialDataIterator(test, group, 128, with_labels=True).epoch(0):
+        correct += float(eval_step(state, x, y)["correct"])
+        total += x.shape[0]
+    acc = correct / total
+    check(0.1 < acc <= 1.0, f"14c loop: test accuracy {acc} not above chance")
+    print(f"14c resnet_hpo loop: {state.step} steps ({multi.replays} graph replays) in {wall:.3f} s, loss "
+          f"{first:.4f} -> {last:.4f} (means of the first and last {k}); test accuracy {acc:.4f} "
+          f"({int(correct)}/{total} synthetic test rows, drop-tail batches of 128) ({smi})")
+    return {"step": step_res, "accuracy": acc}
+
+
+def _resnet_macs(model) -> int:
+    """Multiply-adds of one forward pass of one 32x32 image: every conv's
+    output elements times its kernel's fan-in, and the head."""
+    from multidisttorch_tpu_torch.models.layers import Conv
+
+    macs, hooks = [0], []
+
+    def hook(mod, inp, out):
+        macs[0] += out.numel() * mod.weight[0].numel()
+
+    for mod in model.modules():
+        if isinstance(mod, Conv):
+            hooks.append(mod.register_forward_hook(hook))
+    with torch.no_grad():
+        model(torch.zeros(1, 32 * 32 * 3))
+    for h in hooks:
+        h.remove()
+    return macs[0] + model.head.weight.numel()
+
+
 class _Lines(logging.Handler):
     def __init__(self):
         super().__init__()
@@ -2450,21 +3006,32 @@ def main() -> None:
     slice_feed_on_off(group, smi, train, test)
     remat_launches = remat_phase(E, group, smi)
 
+    # Phase 14: the model families at full width; counts set to 0 inside,
+    # just before each family's run_hpo.
+    conv = conv_vae_phase(E, F, group, smi, floor)
+    moe = moe_vae_phase(E, group, smi, train, test)
+    _check_feeds("14")
+    resnet_phase(E, group, smi)
+
     # Phase 13: the kernels line, then the result.
     # "ms", "plain_ms" and "library_ms" are device time per call at the
     # slice's shape (batch 128, f32); "*_call_ms" add the host's per-call
     # cost; "graph_ms" is per call replayed from a CUDA graph, "cold_ms"
     # with a cold L2, "floor_ms" / "floor_graph_ms" the same launch of
     # kernels that return at once. "launches" counts the launches the slice's
-    # train steps (phase 6) and remat's graphed runs (phase 12c) ran, graph
-    # replays included, one per wrapper call; "launches_by_path" each.
+    # train steps (phase 6), remat's graphed runs (phase 12c) and the conv
+    # and MoE VAE slices (phase 14a, 14b) ran, graph replays included, one
+    # per wrapper call; "launches_by_path" each. "conv_vae_width" holds the
+    # same times at the conv beta-VAE's shape, (128, 3072, 64) f32.
     src = "multidisttorch_tpu_torch/ops/csrc/elbo.cu"
     m = main_shape
     kernels = []
     for name, key, line in (("elbo_fwd", "fwd", 134), ("elbo_bwd", "bwd", 163)):
         lib = f"{key}_library"
         by_path = {"slice": launches[name], **{run: n[name] for run, n in remat_launches.items()
-                                               if "stacked" not in run}}
+                                               if "stacked" not in run},
+                   "conv_vae_slice": conv["launches"][name], "moe_vae_slice": moe["launches"][name]}
+        c = conv["kernels"]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": f"multidisttorch_tpu/ops/pallas_elbo.py:{line}",
@@ -2481,6 +3048,13 @@ def main() -> None:
             "floor_graph_ms": m[f"{key}_floor_graph_ms"],
             "grid_launches_per_call": m[f"{key}_kernels_per_call"],
             "launch": m["fwd_route"] if key == "fwd" else f"{m['bwd_grid']} CTAs of 256",
+            "conv_vae_width": {
+                "shape": [128, 3072, 64], "ms": c[f"{key}_ms"], "plain_ms": c[f"{key}_plain_ms"],
+                "bound_ms": c[f"{key}_bound_ms"], "bound_by": c[f"{key}_bound_by"],
+                "library_ms": c[f"{lib}_ms"], "graph_ms": c[f"{key}_graph_ms"], "cold_ms": c[f"{key}_cold_ms"],
+                "call_ms": c[f"{key}_call_ms"], "max_abs_err": c[f"{key}_err"],
+                "grid_launches_per_call": c[f"{key}_kernels_per_call"],
+            },
         })
     # Flash rows: device time per call at the LM training path's shape
     # ((128, 512, 64) causal bf16), whose variant "variant" names ("simt_ms":

@@ -1,19 +1,21 @@
-"""MNIST from local IDX files, with a deterministic synthetic fallback, and
-token corpora for the LM.
+"""MNIST from local IDX files and CIFAR-10 from its python pickles, each
+with a deterministic synthetic fallback, and token corpora for the LM.
 
 A copy of ``Dataset``, ``_read_idx``, ``synthetic_mnist``, ``load_mnist``,
-``TokenCorpus``, ``byte_corpus`` and ``synthetic_corpus`` from
-``multidisttorch_tpu/data/datasets.py`` (numpy only, so the port imports
-none of the JAX package). One difference: the port never
-downloads. ``load_mnist`` reads IDX files under ``data_dir`` or, failing
-that, returns the labelled synthetic stand-in (``Dataset.synthetic`` is
-True), so every result says which data it came from.
+``synthetic_cifar10``, ``load_cifar10``, ``TokenCorpus``, ``byte_corpus``
+and ``synthetic_corpus`` from ``multidisttorch_tpu/data/datasets.py``
+(numpy only, so the port imports none of the JAX package). One
+difference: the port never downloads. ``load_mnist`` and ``load_cifar10``
+read files under ``data_dir`` or, failing that, return the labelled
+synthetic stand-in (``Dataset.synthetic`` is True), so every result says
+which data it came from. Image rows are flattened HWC (NHWC batches).
 """
 
 from __future__ import annotations
 
 import gzip
 import os
+import pickle
 import struct
 import warnings
 from dataclasses import dataclass
@@ -119,6 +121,60 @@ def load_mnist(
     n = synthetic_size if synthetic_size is not None else (60000 if train else 10000)
     warnings.warn("Using synthetic MNIST stand-in (no local data)")
     return synthetic_mnist(n, seed=0 if train else 1)
+
+
+def synthetic_cifar10(n: int, seed: int = 0) -> Dataset:
+    """Deterministic CIFAR-shaped stand-in: 32x32x3 class-coloured
+    gradients plus texture noise. The same rows as the JAX package's for
+    the same ``(n, seed)``."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 10, size=n).astype(np.int32)
+    yy, xx = np.mgrid[0:32, 0:32].astype(np.float32)
+    base = np.zeros((n, 32, 32, 3), np.float32)
+    for cls in range(10):
+        idx = np.where(labels == cls)[0]
+        if idx.size == 0:
+            continue
+        hue = np.array(
+            [np.sin(cls * 0.7), np.sin(cls * 0.7 + 2.1), np.sin(cls * 0.7 + 4.2)],
+            np.float32,
+        ) * 0.3 + 0.5
+        grad = (yy * np.cos(cls) + xx * np.sin(cls)) / 64.0 + 0.5
+        base[idx] = grad[None, :, :, None] * hue[None, None, None, :]
+    base += rng.normal(0, 0.05, base.shape).astype(np.float32)
+    base = np.clip(base, 0.0, 1.0)
+    return Dataset(base.reshape(n, -1), labels, "synthetic-cifar10", synthetic=True)
+
+
+def load_cifar10(
+    train: bool = True,
+    data_dir: str = "data",
+    *,
+    allow_synthetic: bool = True,
+    synthetic_size: int | None = None,
+) -> Dataset:
+    """CIFAR-10 from the ``cifar-10-batches-py`` pickles under ``data_dir``
+    (``data_batch_1``..``5`` or ``test_batch``): NCHW bytes as flattened
+    NHWC rows over 255. Else the synthetic stand-in (CIFAR-sized unless
+    ``synthetic_size``), or raise when ``allow_synthetic=False``. Never
+    downloads."""
+    batch_dir = os.path.join(data_dir, "cifar-10-batches-py")
+    names = [f"data_batch_{i}" for i in range(1, 6)] if train else ["test_batch"]
+    if all(os.path.exists(os.path.join(batch_dir, b)) for b in names):
+        xs, ys = [], []
+        for b in names:
+            with open(os.path.join(batch_dir, b), "rb") as f:
+                d = pickle.load(f, encoding="bytes")
+            xs.append(d[b"data"])
+            ys.extend(d[b"labels"])
+        imgs = np.concatenate(xs).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1).astype(np.float32) / 255.0
+        return Dataset(imgs.reshape(len(imgs), -1), np.asarray(ys, np.int32), "cifar10")
+
+    if not allow_synthetic:
+        raise FileNotFoundError(f"CIFAR-10 not found under {data_dir!r}")
+    n = synthetic_size if synthetic_size is not None else (50000 if train else 10000)
+    warnings.warn("Using synthetic CIFAR-10 stand-in (no local data)")
+    return synthetic_cifar10(n, seed=0 if train else 1)
 
 
 @dataclass(frozen=True)

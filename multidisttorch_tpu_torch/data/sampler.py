@@ -185,7 +185,9 @@ class TrialDataIterator:
     """Per-trial epoch iterator yielding device-resident batches of this
     rank's rows. Incomplete trailing batches are dropped. ``use_native``
     picks the gather (see the module's docstring); ``gather_path`` says
-    which runs."""
+    which runs. ``with_labels=True`` (the classifiers') pairs every batch
+    with its rows' labels, int64 on the device, indexed from the same
+    permutation with the same batch edges."""
 
     def __init__(
         self,
@@ -196,6 +198,7 @@ class TrialDataIterator:
         seed: int = 0,
         shard_across_trials: bool = False,
         num_trials: Optional[int] = None,
+        with_labels: bool = False,
         use_native: Optional[bool] = None,
     ):
         _check_divisible(batch_size, group)
@@ -203,6 +206,7 @@ class TrialDataIterator:
         self.group = group
         self.batch_size = batch_size
         self.seed = seed
+        self.with_labels = with_labels
         if shard_across_trials:
             if num_trials is None:
                 raise ValueError("shard_across_trials requires num_trials")
@@ -218,15 +222,24 @@ class TrialDataIterator:
         self.gather_path = _gather_path(use_native)
 
     def _host_chunks(self, epoch: int, k: int) -> Iterator[tuple]:
-        """Host ``(start_batch_index, (s, B, ...))`` chunks of ``k`` group
-        batches in the (seed, epoch) permutation order, the last possibly
-        shorter. Each call gathers with a gatherer of its own, so two live
-        epochs never share one."""
+        """Host ``(start_batch_index, (s, B, ...), labels)`` chunks of ``k``
+        group batches in the (seed, epoch) permutation order, the last
+        possibly shorter; ``labels`` is ``(s, B)`` int64, or None without
+        ``with_labels``. Each call gathers with a gatherer of its own, so
+        two live epochs never share one."""
         perm = epoch_permutation(self.seed, epoch, self._indices)
         bs, nb, images = self.batch_size, self.num_batches, self.dataset.images
+
+        def labels(start: int, stop: int):
+            if not self.with_labels:
+                return None
+            return self.dataset.labels[perm[start * bs : stop * bs]].astype(np.int64).reshape(stop - start, bs)
+
         if self.gather_path == "numpy":
             for start in range(0, nb, k):
-                yield start, np.stack([images[perm[b * bs : (b + 1) * bs]] for b in range(start, min(start + k, nb))])
+                stop = min(start + k, nb)
+                yield start, np.stack([images[perm[b * bs : (b + 1) * bs]] for b in range(start, stop)]), \
+                    labels(start, stop)
             return
         g = native.NativeBatchGatherer(images)
         try:
@@ -235,21 +248,26 @@ class TrialDataIterator:
                 chunk = _staging((min(k, nb - start), bs, images.shape[1]), self.group.device)
                 for j in range(chunk.shape[0]):
                     g.next_batch(chunk[j])
-                yield start, chunk
+                yield start, chunk, labels(start, start + chunk.shape[0])
         finally:
             g.close()
 
-    def epoch(self, epoch: int) -> Iterator[torch.Tensor]:
-        """Iterate one epoch: this rank's rows of each batch."""
-        for _, chunk in self._host_chunks(epoch, 1):
-            yield _put(chunk[0], self.group, 0)
+    def epoch(self, epoch: int) -> Iterator:
+        """Iterate one epoch: this rank's rows of each batch, or ``(images,
+        labels)`` with labels."""
+        for _, chunk, labels in self._host_chunks(epoch, 1):
+            images = _put(chunk[0], self.group, 0)
+            yield images if labels is None else (images, _put(labels[0], self.group, 0))
 
     def epoch_chunks(self, epoch: int, k: int) -> Iterator:
         """Iterate one epoch as stacked ``(k, rows, ...)`` chunks, yielding
-        ``(start_batch_index, chunk)``; the last chunk may hold fewer than
-        ``k`` batches. Same order and boundaries as :meth:`epoch`."""
+        ``(start_batch_index, chunk)``, or ``(start_batch_index, images,
+        labels)`` with labels; the last chunk may hold fewer than ``k``
+        batches. Same order and boundaries as :meth:`epoch`."""
         _check_chunk_size(k)
-        return ((start, _put(chunk, self.group, 1)) for start, chunk in self._host_chunks(epoch, k))
+        return ((start, _put(chunk, self.group, 1)) if labels is None
+                else (start, _put(chunk, self.group, 1), _put(labels, self.group, 1))
+                for start, chunk, labels in self._host_chunks(epoch, k))
 
     @property
     def samples_per_epoch(self) -> int:

@@ -30,8 +30,14 @@ their states (one per group rank) under ``"torch_generators"``, so a
 resume draws the noise the uninterrupted run would have drawn; a
 checkpoint the JAX package wrote has none, and the generators then start
 from the seed (ROADMAP C.5). Initial weights come from the module-level
-:func:`init_vae_params`, so a test can substitute weights carried across
-from the JAX package.
+:func:`init_vae_params`, or for a ``model_builder`` family from its
+``init_params``, so a test can substitute weights carried across from the
+JAX package.
+
+``model_builder(cfg)`` swaps the model family (the conv β-VAE, the MoE
+VAE, or any module with the VAE's method contract), as in the JAX package:
+every step, the checkpoints (the family converts its own flax tree) and
+the image grids take it unchanged.
 
 ``stack_trials=True`` runs same-shape configs K at a time on one group
 (:class:`_StackedBucketRun`, the JAX package's trial stacking): one stacked
@@ -41,8 +47,7 @@ bucket's queue, or masked when it is dry, with no new capture.
 
 What this slice does not port raises ``NotImplementedError`` naming its
 ROADMAP item: fault plans, profiling, the compile farm, weight sharding and
-model parallel, pipeline stages, other model families and per-trial
-dataset references.
+model parallel, pipeline stages and per-trial dataset references.
 """
 
 from __future__ import annotations
@@ -169,7 +174,6 @@ _UNPORTED_ARGS = {
     "profile_dir": (None, "A.10 (faults and telemetry)"),
     "model_parallel": (1, "A.13 (sharding)"),
     "param_shardings_builder": (None, "A.13 (sharding)"),
-    "model_builder": (None, "A.16 (other model families)"),
 }
 
 
@@ -308,6 +312,7 @@ class _TrialRun:
         agree_failures: bool = False,
         agree_timeout_s: Optional[float] = None,
         ckpt_keep_last: int = 1,
+        model_builder=None,
     ):
         _check_config(cfg)
         self.group = group
@@ -336,8 +341,12 @@ class _TrialRun:
         self._ckpt_keep_last = ckpt_keep_last
         self._ckpt_format = default_format()
 
-        model = VAE(hidden_dim=cfg.hidden_dim, latent_dim=cfg.latent_dim)
-        init_vae_params(model, cfg.seed)
+        if model_builder is None:
+            model = VAE(hidden_dim=cfg.hidden_dim, latent_dim=cfg.latent_dim)
+            init_vae_params(model, cfg.seed)
+        else:
+            model = model_builder(cfg)
+            model.init_params(cfg.seed)
         self.state = create_train_state(group, model, cfg.lr)
         self.multi_step = make_multi_step(group, beta=cfg.beta, grad_accum=cfg.grad_accum, remat=cfg.remat)
         self.eval_step = make_eval_step(group, beta=cfg.beta, with_recon=save_images)
@@ -1044,7 +1053,11 @@ def run_hpo(
       place; unstackable configs and lone members run one per group. A
       bucket too large to leave every group work is split. It raises on
       contradictory settings (``resume``, ``shard_across_trials``, a
-      ``model_builder``), and stacked buckets write no image files.
+      ``model_builder``, ``param_shardings_builder`` or ``model_parallel``),
+      and stacked buckets write no image files.
+    - ``model_builder(cfg)`` builds each trial's model (any family with the
+      VAE's method contract and ``init_params``), initialised from
+      ``cfg.seed`` by its family's ``init_params``.
 
     Returns results for the trials run here (or settled in the ledger), in
     config order.
@@ -1059,8 +1072,11 @@ def run_hpo(
             )
         if shard_across_trials:
             raise ValueError("stack_trials is incompatible with shard_across_trials (stacked lanes each see the full dataset)")
-        if model_builder is not None:
-            raise ValueError("stack_trials supports the default VAE only (a custom model_builder cannot share one stacked program)")
+        if model_builder is not None or param_shardings_builder is not None or model_parallel != 1:
+            raise ValueError(
+                "stack_trials supports the default VAE family with replicated weights only (custom "
+                "model_builder / param_shardings_builder / model_parallel cannot share one stacked program)"
+            )
         if stack_max_lanes < 1:
             raise ValueError(f"stack_max_lanes must be >= 1, got {stack_max_lanes}")
     for name, (inert, item) in _UNPORTED_ARGS.items():
@@ -1137,6 +1153,7 @@ def run_hpo(
             agree_failures=needs_agreement(g),
             agree_timeout_s=agree_timeout_s,
             ckpt_keep_last=ckpt_keep_last,
+            model_builder=model_builder,
         )
 
     def build_items() -> list:

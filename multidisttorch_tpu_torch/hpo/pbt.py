@@ -37,10 +37,20 @@ bits:
   draw, written out in numpy (``hpo/_threefry.py``), so the factors, and
   the lrs wherever the scores rank alike, are the JAX package's bits.
 
+``model_builder(cfg)`` swaps the model family in the per-group mode, as
+in the JAX package: each member is then the family's model in an unstacked
+``TrainState`` (:class:`_FamilyMember`: ``make_multi_step``, a CUDA graph
+on a one-rank card group, and ``make_eval_step`` over the staged eval
+set), initialised by the family's ``init_params(seed + k)``, with the
+same noise, data and lr contract.
+
 Not ported here, each raising ``NotImplementedError`` or left out as
-named: ``model_builder=`` (ROADMAP A.16); the compile registry's
-``pbt_gen`` admission (A.9: the graph table is per generation step); the
-``pbt_gen``/``pbt_exploit`` bus events and the population view (A.10).
+named: the fused mode with a ``model_builder`` (ROADMAP A.16b: the JAX
+package vmaps any family over the lanes, while the port's fused mode is
+written over ``StackedVAE``, and a lane-stacked form of each family is
+work of its own); the compile registry's ``pbt_gen`` admission (A.9: the
+graph table is per generation step); the ``pbt_gen``/``pbt_exploit`` bus
+events and the population view (A.10).
 Both modes take their chunks from ``StackedTrialDataIterator.stream_chunks``
 with the feed's defaults (``data/sampler.py``): the native gatherer and the
 prefetch thread, which gathers and copies the next chunks while the card
@@ -63,14 +73,18 @@ from multidisttorch_tpu_torch.data.datasets import Dataset
 from multidisttorch_tpu_torch.data.sampler import EvalDataIterator, StackedTrialDataIterator, _local_rows, _to_device
 from multidisttorch_tpu_torch.hpo._threefry import pbt_explore_key, pbt_perturb_factor, pbt_perturb_factors
 from multidisttorch_tpu_torch.models.vae import VAE, StackedVAE, init_vae_params
-from multidisttorch_tpu_torch.parallel.cluster import default_device, process_world
-from multidisttorch_tpu_torch.parallel.mesh import TrialGroup, setup_groups
+from multidisttorch_tpu_torch.parallel.cluster import process_world
+from multidisttorch_tpu_torch.parallel.mesh import TrialGroup, default_groups, setup_groups
+from multidisttorch_tpu_torch.train.checkpoint import _adam_state
 from multidisttorch_tpu_torch.train.steps import (
     StackedTrainState,
     TrainState,
     TrialHypers,
     create_stacked_train_state,
+    create_train_state,
     fetch_pbt_books,
+    make_eval_step,
+    make_multi_step,
     make_pbt_generation_step,
     make_stacked_eval_scan,
     make_stacked_multi_step,
@@ -243,11 +257,97 @@ class _Member:
         return torch.cat([t.detach().reshape(-1) for t in _state_tensors(self.state)])
 
     def load_flat(self, buf: torch.Tensor) -> None:
+        _load_flat(_state_tensors(self.state), buf)
+
+    def final_state(self) -> dict:
+        return _lane_state(self.state, 0)
+
+
+def _load_flat(tensors: list, buf: torch.Tensor) -> None:
+    with torch.no_grad():
+        i = 0
+        for t in tensors:
+            t.copy_(buf[i : i + t.numel()].view_as(t))
+            i += t.numel()
+
+
+class _FamilyMember:
+    """One per-group member of a ``model_builder`` family: the family's
+    model in an unstacked ``TrainState``, trained by ``make_multi_step`` (a
+    CUDA graph on a one-rank card group) on lane 0 of a one-lane stacked
+    stream (the VAE member's data), and scored by ``make_eval_step`` over the
+    staged eval set, the batch sums added in order in f32 as the stacked
+    eval adds them. An exploit copies the parameters, Adam's moments and
+    step counts in place, and an lr change drops the member's graphs
+    (:func:`_set_lr`)."""
+
+    def __init__(self, group: TrialGroup, member_id: int, cfg: PBTConfig, model_builder, train_data: Dataset,
+                 eval_host: tuple[np.ndarray, np.ndarray], lr: float):
+        self.group = group
+        self.member_id = member_id
+        seed = cfg.seed + member_id
+        model = model_builder(cfg)
+        model.init_params(seed)
+        self.state = create_train_state(group, model, lr)
+        self.generator = torch.Generator(device=group.device).manual_seed(
+            _noise_seed(cfg.seed, member_id, group.local_rank))
+        self.multi_step = make_multi_step(group, beta=cfg.beta)
+        self.eval_step = make_eval_step(group, beta=cfg.beta, with_recon=False)
+        self._chunks = StackedTrialDataIterator(train_data, group, cfg.batch_size, [seed]).stream_chunks(
+            cfg.steps_per_generation)
+        self.eval_batches, self.eval_weights = _place_eval(group, *eval_host)
+
+    def run_generation(self, book: dict) -> None:
+        replays = self.multi_step.replays
+        self.state, _ = self.multi_step(self.state, next(self._chunks)[:, 0], generator=self.generator)
+        book["program_calls"] += 1
+        book["graph_replays"] += self.multi_step.replays - replays
+
+    def eval_loss_sum(self, book: dict) -> np.float32:
+        total = None
+        for batch, weights in zip(self.eval_batches, self.eval_weights):
+            s = self.eval_step(self.state, batch, weights)["loss_sum"]
+            total = s if total is None else total + s
+        book["program_calls"] += len(self.eval_batches)
+        book["host_fetches"] += 1
+        return np.float32(total.cpu().numpy())
+
+    def set_lr(self, lr: np.float32) -> None:
+        _set_lr(self.state, float(lr), self.multi_step)
+
+    def _tensors(self) -> list[torch.Tensor]:
+        params = list(self.state.model.parameters())
+        adam = [_adam_state(self.state.optimizer, p) for p in params]
+        return [*params, *(st["exp_avg"] for st in adam), *(st["exp_avg_sq"] for st in adam),
+                *(st["step"] for st in adam)]
+
+    @staticmethod
+    def flat_size(model: torch.nn.Module) -> int:
+        """Floats in a member's flat state: parameters, two moments, a step
+        count per parameter."""
+        return sum(3 * p.numel() + 1 for p in model.parameters())
+
+    def copy_from(self, other: "_FamilyMember") -> None:
         with torch.no_grad():
-            i = 0
-            for t in _state_tensors(self.state):
-                t.copy_(buf[i : i + t.numel()].view_as(t))
-                i += t.numel()
+            for dst, src in zip(self._tensors(), other._tensors()):
+                dst.copy_(src)
+        self.state.step = other.state.step
+
+    def flat(self) -> torch.Tensor:
+        return torch.cat([t.detach().reshape(-1).to(self.group.device) for t in self._tensors()])
+
+    def load_flat(self, buf: torch.Tensor) -> None:
+        _load_flat(self._tensors(), buf)
+
+    def final_state(self) -> dict:
+        params = list(self.state.model.parameters())
+        adam = [_adam_state(self.state.optimizer, p) for p in params]
+        return {
+            "params": {k: v.detach().cpu().clone() for k, v in self.state.model.state_dict().items()},
+            "exp_avg": [st["exp_avg"].cpu().clone() for st in adam],
+            "exp_avg_sq": [st["exp_avg_sq"].cpu().clone() for st in adam],
+            "count": float(adam[0]["step"]),
+        }
 
 
 def _flat_size(cfg: PBTConfig, input_dim: int) -> int:
@@ -275,15 +375,6 @@ def _gather_sums(local: np.ndarray) -> np.ndarray:
     return np.stack([p.cpu().numpy() for p in parts]).min(axis=0)
 
 
-def _default_groups(n: int, device) -> list[TrialGroup]:
-    """``n`` groups: one per rank block in a multi-process world; in one
-    process, ``n`` slots on this process's device."""
-    world, _ = process_world()
-    if world > 1:
-        return setup_groups(n, device=device)
-    return setup_groups(n, devices=[default_device(device)] * n)
-
-
 def run_pbt(
     cfg: PBTConfig,
     train_data: Dataset,
@@ -307,24 +398,31 @@ def run_pbt(
     one group of ``groups`` (default: ``setup_groups(1, device=device)``),
     one graph replay per generation on a card. ``device`` is the card
     unless ``"cpu"`` is asked for. ``return_states=True`` attaches each
-    member's final state (the parity surface).
+    member's final state (the parity surface). ``model_builder(cfg)``
+    swaps the model family (per-group mode only; module docstring).
     """
-    if model_builder is not None:
-        raise NotImplementedError("run_pbt(model_builder=...) is not ported yet: ROADMAP A.16")
+    if fused and model_builder is not None:
+        raise NotImplementedError(
+            "run_pbt(fused=True, model_builder=...) is not ported yet: ROADMAP A.16b (the fused lanes are "
+            "written over StackedVAE; run the family per group with fused=False)")
     if fused:
         return _run_pbt_fused(cfg, train_data, eval_data, groups=groups, out_dir=out_dir, verbose=verbose,
                               return_states=return_states, device=device)
     world, rank = process_world()
     if groups is None:
-        groups = _default_groups(cfg.population, device)
+        groups = default_groups(cfg.population, device)
     if len(groups) != cfg.population:
         raise ValueError(f"population {cfg.population} but {len(groups)} trial groups")
     K = cfg.population
     lrs = _init_lrs(cfg)  # every process draws the same
     eval_imgs, eval_w, num_rows = _stage_eval_host(eval_data, groups[0], cfg.batch_size)
-    members = {i: _Member(g, i, cfg, train_data, (eval_imgs, eval_w), float(lrs[i]))
+    members = {i: (_Member(g, i, cfg, train_data, (eval_imgs, eval_w), float(lrs[i])) if model_builder is None
+                   else _FamilyMember(g, i, cfg, model_builder, train_data, (eval_imgs, eval_w), float(lrs[i])))
                for i, g in enumerate(groups) if g.is_local_member}
-    n_flat = _flat_size(cfg, int(train_data.images.shape[1])) if world > 1 else 0
+    n_flat = 0
+    if world > 1:
+        n_flat = (_flat_size(cfg, int(train_data.images.shape[1])) if model_builder is None
+                  else _FamilyMember.flat_size(model_builder(cfg)))
     n_exploit = n_exploit_for(cfg)
     explore_key = pbt_explore_key(cfg.seed)
     book = _new_book()
@@ -381,7 +479,7 @@ def run_pbt(
         book["generation_s"].append(time.perf_counter() - tg)
         _record_generation(result, gen, sums, scores, order, lrs_before, exploits)
 
-    final_states = ([_lane_state(members[i].state, 0) if i in members else None for i in range(K)]
+    final_states = ([members[i].final_state() if i in members else None for i in range(K)]
                     if return_states else None)
     _finish_run(result, cfg, book, lrs, t0, out_dir, final_states)
     return result

@@ -44,41 +44,15 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from multidisttorch_tpu_torch.models.layers import Dense
+
 LAYERS = ("fc1", "fc21", "fc22", "fc3", "fc4")
 
 
-class VAE(nn.Module):
-    """MLP VAE: input-hidden-(latent) encoder, (latent)-hidden-input decoder.
-    Defaults are the reference's (784, 400, 20)."""
-
-    def __init__(
-        self,
-        input_dim: int = 784,
-        hidden_dim: int = 400,
-        latent_dim: int = 20,
-        dtype: torch.dtype = torch.float32,
-    ):
-        super().__init__()
-        self.input_dim = input_dim
-        self.hidden_dim = hidden_dim
-        self.latent_dim = latent_dim
-        self.dtype = dtype
-        self.fc1 = nn.Linear(input_dim, hidden_dim)
-        self.fc21 = nn.Linear(hidden_dim, latent_dim)
-        self.fc22 = nn.Linear(hidden_dim, latent_dim)
-        self.fc3 = nn.Linear(latent_dim, hidden_dim)
-        self.fc4 = nn.Linear(hidden_dim, input_dim)
-
-    def _dense(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-        if self.dtype == torch.float32:
-            return layer(x)
-        return F.linear(x.to(self.dtype), layer.weight.to(self.dtype), layer.bias.to(self.dtype))
-
-    def encode(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """Flatten and encode to ``(mu, logvar)``."""
-        x = x.reshape(x.shape[0], -1).to(self.dtype)
-        h1 = F.relu(self._dense(self.fc1, x))
-        return self._dense(self.fc21, h1), self._dense(self.fc22, h1)
+class VAEMethods:
+    """The VAE method contract, which the train, eval and sample steps call
+    and every VAE family shares (``ConvVAE``, ``MoEVAE``): a family gives
+    ``encode``, ``decode`` and ``latent_dim``; these give the rest."""
 
     def noise(self, rows: int, device, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``(rows, latent)`` draws of N(0, I) in float32 from ``generator``
@@ -97,11 +71,6 @@ class VAE(nn.Module):
         if eps is None:
             eps = self.noise(mu.shape[0], mu.device, generator)
         return mu + eps.to(mu.dtype) * torch.exp(0.5 * logvar)
-
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
-        """Decode to logits over pixels."""
-        h3 = F.relu(self._dense(self.fc3, z.to(self.dtype)))
-        return self._dense(self.fc4, h3)
 
     def decode_probs(self, z: torch.Tensor) -> torch.Tensor:
         """Decode to pixel probabilities (the reference's decode output)."""
@@ -126,6 +95,51 @@ class VAE(nn.Module):
         mu, logvar = self.encode(x)
         z = self.reparameterize(mu, logvar, eps=eps, generator=generator)
         return self.decode(z), mu, logvar
+
+
+class VAE(VAEMethods, nn.Module):
+    """MLP VAE: input-hidden-(latent) encoder, (latent)-hidden-input decoder.
+    Defaults are the reference's (784, 400, 20)."""
+
+    def __init__(
+        self,
+        input_dim: int = 784,
+        hidden_dim: int = 400,
+        latent_dim: int = 20,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.input_dim = input_dim
+        self.hidden_dim = hidden_dim
+        self.latent_dim = latent_dim
+        self.dtype = dtype
+        self.fc1 = Dense(input_dim, hidden_dim, dtype=dtype)
+        self.fc21 = Dense(hidden_dim, latent_dim, dtype=dtype)
+        self.fc22 = Dense(hidden_dim, latent_dim, dtype=dtype)
+        self.fc3 = Dense(latent_dim, hidden_dim, dtype=dtype)
+        self.fc4 = Dense(hidden_dim, input_dim, dtype=dtype)
+
+    def encode(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Flatten and encode to ``(mu, logvar)``."""
+        x = x.reshape(x.shape[0], -1).to(self.dtype)
+        h1 = F.relu(self.fc1(x))
+        return self.fc21(h1), self.fc22(h1)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """Decode to logits over pixels."""
+        h3 = F.relu(self.fc3(z.to(self.dtype)))
+        return self.fc4(h3)
+
+    # What `hpo/driver.py` and the checkpoints ask of every model family
+    # (``models/_flax.py::FlaxParams`` for the others).
+    def init_params(self, seed: int) -> "VAE":
+        return init_vae_params(self, seed)
+
+    def params_to_flax(self, state_dict) -> dict:
+        return vae_params_to_flax(state_dict)
+
+    def params_from_flax(self, tree) -> dict[str, torch.Tensor]:
+        return vae_params_from_flax(tree)
 
 
 class StackedLinear(nn.Module):

@@ -9,6 +9,7 @@ math). The reconstruction term is computed from logits,
 ``beta=1`` is the reference's ``loss_function``. The ``_lanes`` forms take
 K stacked trials on a leading lane axis and a ``(K,)`` beta, and return one
 sum per lane: lane k's value is the single-trial function's.
+:func:`softmax_cross_entropy_mean` is the classifiers' loss.
 """
 
 from __future__ import annotations
@@ -19,7 +20,10 @@ import torch
 def bernoulli_recon_per_sample(recon_logits: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Per-sample binary cross-entropy from logits, shape ``(n,)``."""
     l = recon_logits
-    per_elem = torch.clamp_min(l, 0.0) - l * x + torch.log1p(torch.exp(-torch.abs(l)))
+    # relu, not clamp_min: at a logit of exactly 0 (a decoder whose hidden
+    # row is all zeros, say) their gradients differ, and relu's with
+    # abs's is the JAX package's (``-x`` there).
+    per_elem = torch.relu(l) - l * x + torch.log1p(torch.exp(-torch.abs(l)))
     return per_elem.reshape(per_elem.shape[0], -1).sum(dim=1)
 
 
@@ -88,3 +92,11 @@ def elbo_loss_weighted_sum_lanes(recon_logits, x, mu, logvar, weights, beta: tor
     # One dot per lane, as the single-trial function takes it: a batched
     # product would sum the rows in another order.
     return torch.stack([torch.dot(row, w) for row in per_sample])
+
+
+def softmax_cross_entropy_mean(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy with integer labels (classifier HPO,
+    BASELINE.md config 4): log-softmax in f32, then the mean negative
+    log-likelihood of each row's label."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(1, labels.long().reshape(-1, 1)).mean()

@@ -150,3 +150,14 @@ def setup_groups(
             )
         )
     return groups
+
+
+def default_groups(num_groups: int, device=None) -> list[TrialGroup]:
+    """``num_groups`` groups for an entry point: carved from the world in a
+    multi-process world (one per rank block), else ``num_groups`` one-slot
+    groups on this process's device, which share it, their trials taking
+    turns."""
+    world, _ = process_world()
+    if world > 1:
+        return setup_groups(num_groups, device=device)
+    return setup_groups(num_groups, devices=[default_device(device)] * num_groups)

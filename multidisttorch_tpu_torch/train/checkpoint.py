@@ -4,11 +4,15 @@ Counterpart of ``multidisttorch_tpu/train/checkpoint.py``, with the same
 files on disk, so either package restores the other's checkpoints:
 
 - **The state tree.** A checkpoint holds the JAX package's ``TrainState``
-  state dict: ``params/{fc1..fc4}/{bias,kernel}`` (a flax ``kernel`` is a
-  torch ``weight`` transposed), ``opt_state/0/{count,mu,nu}`` (optax's
-  Adam state: ``count`` int32, ``mu``/``nu`` torch Adam's ``exp_avg``/
-  ``exp_avg_sq``, transposed like the kernels), ``opt_state/1`` (optax's
-  empty state, an empty map) and ``step`` (int32).
+  state dict: ``params`` (the model's flax tree: for the VAE
+  ``{fc1..fc4}/{bias,kernel}``, a flax ``kernel`` being a torch ``weight``
+  transposed), ``opt_state/0/{count,mu,nu}`` (optax's Adam state:
+  ``count`` int32, ``mu``/``nu`` torch Adam's ``exp_avg``/``exp_avg_sq``
+  in the parameters' tree and layout), ``opt_state/1`` (optax's empty
+  state, an empty map) and ``step`` (int32). The model family converts
+  its own tree: ``model.params_to_flax`` / ``model.params_from_flax``
+  (``models/vae.py``, and ``models/_flax.py`` for the conv β-VAE, the MoE
+  VAE and ResNet), for the parameters and Adam's moments alike.
   :func:`train_state_to_tree` builds it from a live port
   :class:`~multidisttorch_tpu_torch.train.steps.TrainState`, as host
   copies; :func:`load_train_state_tree` writes one into a live state in
@@ -50,7 +54,6 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
-from multidisttorch_tpu_torch.models.vae import vae_params_from_flax, vae_params_to_flax
 from multidisttorch_tpu_torch.train import _msgpack, ckpt_store
 from multidisttorch_tpu_torch.train.steps import TrainState
 
@@ -105,16 +108,17 @@ def train_state_to_tree(state: TrainState) -> dict:
     """The JAX package's ``TrainState`` state dict for ``state``, as host
     copies (numpy arrays that no later step changes). A fresh optimizer
     with no Adam state yet gives zero moments, as ``optax.adam``'s init."""
-    named = dict(state.model.named_parameters())
+    model = state.model
+    named = dict(model.named_parameters())
     opt_state = state.optimizer.state
     moments = {}
     for key, optax_key in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
-        moments[optax_key] = vae_params_to_flax(
+        moments[optax_key] = model.params_to_flax(
             {n: opt_state[p][key] if opt_state.get(p) else torch.zeros_like(p) for n, p in named.items()}
         )
     step = np.array(state.step, dtype=np.int32)
     return {
-        "params": vae_params_to_flax(state.model.state_dict()),
+        "params": model.params_to_flax(model.state_dict()),
         "opt_state": {"0": {"count": step.copy(), "mu": moments["mu"], "nu": moments["nu"]}, "1": {}},
         "step": step,
     }
@@ -145,14 +149,13 @@ def load_train_state_tree(state: TrainState, tree: dict) -> TrainState:
     adam = tree["opt_state"]["0"]
     if tree["opt_state"]["1"] != {}:
         raise ValueError("opt_state/1 must be optax's empty state")
-    parts = {
-        "param": vae_params_from_flax(tree["params"]),
-        "exp_avg": vae_params_from_flax(adam["mu"]),
-        "exp_avg_sq": vae_params_from_flax(adam["nu"]),
-    }
+    from_flax = state.model.params_from_flax
+    parts = {"param": from_flax(tree["params"]), "exp_avg": from_flax(adam["mu"]), "exp_avg_sq": from_flax(adam["nu"])}
     named = dict(state.model.named_parameters())
     for what, values in parts.items():
         for n, p in named.items():
+            if n not in values:
+                raise ValueError(f"{what} {n}: not in the checkpoint")
             if values[n].shape != p.shape:
                 raise ValueError(f"{what} {n}: checkpoint shape {tuple(values[n].shape)}, state {tuple(p.shape)}")
     count = int(np.asarray(adam["count"]))

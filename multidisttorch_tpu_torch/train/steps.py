@@ -107,7 +107,11 @@ def create_train_state(
     it an Adam optimizer; on a multi-rank group, wrap it in DDP, which
     broadcasts the group-rank-0 weights to every member. The optimizer is
     ``capturable`` (its step count on the device, so a CUDA graph can hold
-    the update) by default on a CUDA device, never on the CPU."""
+    the update) by default on a CUDA device, never on the CPU. A model
+    with a ``bind_group(pg, size, rank)`` method is bound to a multi-rank
+    group (the MoE VAE's router: ``ops/moe.py``).
+    Every model family takes it; the classifiers' own is
+    ``train/classifier.py::create_classifier_state``."""
     _require_trainable(group)
     model = model.to(group.device)
     if capturable is None:
@@ -117,6 +121,11 @@ def create_train_state(
     )
     ddp = None
     if group.size > 1:
+        # A family whose forward spans the group's batch (an MoE router's
+        # capacity and queues) binds to the group.
+        bind = getattr(model, "bind_group", None)
+        if bind is not None:
+            bind(group.pg, group.size, group.local_rank)
         ddp = DistributedDataParallel(
             model,
             device_ids=[group.device] if group.device.type == "cuda" else None,

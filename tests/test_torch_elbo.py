@@ -75,13 +75,19 @@ def _bf16_ulp(v: np.ndarray) -> np.ndarray:
     return np.ldexp(np.float32(1.0), e - 8)
 
 
+# The widths the port's VAEs run at: the MLP VAE's 784 pixels and 20
+# latents, the conv beta-VAE's 32x32x3 and 64.
+WIDTHS = [(784, 20), (3072, 64)]
+
+
 @pytest.mark.parametrize("beta", [1.0, 2.0, 4.0])
 @pytest.mark.parametrize("batch", [16, 96])
-def test_value_and_grads_match_jax(batch, beta, monkeypatch):
+@pytest.mark.parametrize("d, lat", WIDTHS)
+def test_value_and_grads_match_jax(d, lat, batch, beta, monkeypatch):
     if batch == 96:
         # The JAX kernel's multi-block grid (test_pallas_elbo.py:52-80).
-        monkeypatch.setattr(pallas_elbo, "_VMEM_BUDGET_BYTES", 64 * 1024)
-    logits, x, mu, logvar = _arrays(batch, seed=batch + int(beta))
+        monkeypatch.setattr(pallas_elbo, "_VMEM_BUDGET_BYTES", 64 * 1024 * d // 784)
+    logits, x, mu, logvar = _arrays(batch, seed=batch + int(beta), d=d, lat=lat)
     j = tuple(jnp.asarray(a) for a in (logits, x, mu, logvar))
     if batch == 96:
         assert pallas_elbo._block_rows(*j) < batch
@@ -108,10 +114,11 @@ def test_fused_matches_plain_loss_in_port():
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
 
 
-def test_bf16_activations_with_f32_targets_match_jax():
+@pytest.mark.parametrize("d, lat", WIDTHS)
+def test_bf16_activations_with_f32_targets_match_jax(d, lat):
     # The mixed case the JAX package's TPU train path feeds: bf16 logits,
     # mu and logvar, f32 x. Math is f32; cotangents come back in bf16.
-    logits, x, mu, logvar = _arrays(16, seed=11)
+    logits, x, mu, logvar = _arrays(16, seed=11, d=d, lat=lat)
     jl, jm, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (logits, mu, logvar))
     jx = jnp.asarray(x)
     scale = 1.0 / 16  # the per-sample mean's cotangent, exact in bf16

@@ -252,11 +252,20 @@ def test_example_cli_runs_on_cpu(tmp_path, capsys):
     assert remat[0].final_train_loss == results[0].final_train_loss
 
 
+# Modules the walks below must reach (the model families' slice among them).
+PORT_MODULES = (
+    "models.conv_vae", "models.moe_vae", "models.resnet", "models.layers", "models._flax", "ops.moe",
+    "train.classifier", "examples.beta_vae_cifar", "examples.moe_vae_hpo", "examples.resnet_hpo",
+)
+
+
 def test_port_never_imports_jax():
     code = (
         "import sys, pkgutil, importlib, multidisttorch_tpu_torch as m\n"
-        "for i in pkgutil.walk_packages(m.__path__, 'multidisttorch_tpu_torch.'):\n"
-        "    importlib.import_module(i.name)\n"
+        "names = [i.name for i in pkgutil.walk_packages(m.__path__, 'multidisttorch_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        f"assert not set('multidisttorch_tpu_torch.' + n for n in {PORT_MODULES!r}) - set(names), names\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not {'msgpack', 'flax', 'optax'} & set(sys.modules), 'msgpack, flax or optax imported'\n"
         "assert not [k for k in sys.modules if k.split('.')[0] == 'multidisttorch_tpu']\n"
@@ -275,6 +284,8 @@ def test_port_sources_name_no_jax():
     for root, _, files in os.walk(os.path.join(REPO, "multidisttorch_tpu_torch")):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(sources) > 15
+    for name in PORT_MODULES:
+        assert os.path.join(REPO, "multidisttorch_tpu_torch", *name.split(".")) + ".py" in sources, name
     for path in sources:
         with open(path) as f:
             hits = pattern.findall(f.read())

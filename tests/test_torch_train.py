@@ -14,6 +14,7 @@ package's own for fused against plain training (test_pallas_elbo.py:
 differences in the gradients show at the 1e-4 level.
 """
 
+import gc
 import json
 import sys
 
@@ -231,6 +232,12 @@ def _gloo_multi_step_rank(out_path: str) -> None:
     }
     with open(out_path, "w") as f:
         json.dump(got, f)
+    # Free the DDP states while the group is alive: left to the frame's
+    # end, their teardown hung now and then after the rank had written its
+    # result (likely a reducer holding the gloo group's last reference and
+    # joining gloo's threads with the GIL held).
+    del multi, s1, s2
+    gc.collect()
     cluster.shutdown_runtime()
 
 
