@@ -138,6 +138,24 @@ Phases, in order; any failure exits non-zero and prints no result:
     steps of the ``resnet_hpo`` loop (the loss must fall) and the test
     accuracy over the synthetic test set. Each timing line prints the TF32
     and cuDNN settings it ran under;
+15. fault plans, the chaos drill and the event bus (run before 13): (a)
+    ``faults.harness.run_chaos_bench`` at the reference's widths (6 trials
+    of 784-400-20, batch 128, 4 epochs of 8 steps, chunks of 4): the
+    fault-free sweep, then the standard plan with its preemption and the
+    driver restart: every fault recovered, the DIVERGE trial diverged with
+    its NaN in a replayed chunk, the control and retried trials
+    bit-identical to the fault-free run, goodput at least 0.8, every fired
+    fault and retry a tagged event of the trace, every attempt's graphs
+    freed, the wall times and what each capture cost; (b) the same drill
+    stacked (2 buckets of 3 lanes): one capture per bucket, lanes refilled
+    in place, the poisoned lane diverged alone, the others bit-identical
+    (or within phase 10's rel 1e-3, printed); (c) phase 6's slice with an
+    empty plan against none (bit-identical, same replays and host syncs),
+    then with telemetry off and on in turns: wall time, events per step and
+    device busy; (d) a ConvVAE trial (phase 14a's) crashed mid-epoch 2 and
+    retried from its epoch-1 checkpoint: bit-identical under
+    ``cudnn.deterministic``, within ``_graph_within_spread``'s bound of the
+    uninterrupted runs under the defaults (ROADMAP C.18);
 13. a ``kernels`` JSON line, then the result line.
 
 Exits 1 without a result when CUDA is unavailable or the port is not
@@ -1010,11 +1028,11 @@ def lm_slice(A, group, smi: str) -> dict:
     return totals, by_variant
 
 
-def _same_checkpoint(ck, a_dir: str, b_dir: str, what: str) -> None:
+def _same_checkpoint(ck, a_dir: str, b_dir: str, what: str, trial_id: int = 0) -> None:
     """Two runs' final checkpoints hold the same state, bit for bit: every
     leaf, and the sidecar's step, history and generator states."""
     def load(d):
-        path = os.path.join(d, "trial-0", "state.msgpack")
+        path = os.path.join(d, f"trial-{trial_id}", "state.msgpack")
         with open(path + ".json") as f:
             return ck._read_tree(path), json.load(f)
 
@@ -1035,6 +1053,24 @@ def _same_checkpoint(ck, a_dir: str, b_dir: str, what: str) -> None:
         check(fa[k].dtype == fb[k].dtype and (fa[k] == fb[k]).all(), f"{what}: {k} differs from the straight run")
     for key in ("step", "completed_epochs", "history", "torch_generators"):
         check(ma[key] == mb[key], f"{what}: the sidecar's {key} differs from the straight run")
+
+
+def _warm_pool_streams(device) -> None:
+    """Give every stream of PyTorch's pool its cuBLAS workspace, which lives
+    as long as the process, so that a later ``memory_allocated`` reading
+    holds a run's own tensors only."""
+    import gc
+
+    from multidisttorch_tpu_torch.models.vae import VAE, init_vae_params
+
+    x = torch.rand(128, 784, device=device)
+    m = init_vae_params(VAE(), 0).to(device)
+    for _ in range(32):
+        with torch.cuda.stream(torch.cuda.Stream(device)):
+            m(x, eps=torch.zeros(128, 20, device=device))[0].sum().backward()
+    del m, x
+    gc.collect()
+    torch.cuda.synchronize()
 
 
 def checkpoint_phase(E, group, smi: str, train, test) -> None:
@@ -1160,14 +1196,7 @@ def checkpoint_phase(E, group, smi: str, train, test) -> None:
 
             # (d) a failed write and one retry. Every pool stream first gets
             # its cuBLAS workspace, so what is left after is the run's own.
-            x = torch.rand(128, 784, device=group.device)
-            m = init_vae_params(VAE(), 0).to(group.device)
-            for _ in range(32):
-                with torch.cuda.stream(torch.cuda.Stream(group.device)):
-                    m(x, eps=torch.zeros(128, 20, device=group.device))[0].sum().backward()
-            del m, x
-            gc.collect()
-            torch.cuda.synchronize()
+            _warm_pool_streams(group.device)
             before = torch.cuda.memory_allocated(group.device)
             multis.clear()
             fail_epochs.add(2)
@@ -2776,6 +2805,315 @@ def _resnet_macs(model) -> int:
     return macs[0] + model.head.weight.numel()
 
 
+# Phase 15: fault plans, the chaos drill and the event bus. The drills run
+# the JAX harness's sweep at the reference's widths: 6 trials of the
+# 784-400-20 VAE, batch 128, 4 epochs of 8 steps (1024 synthetic MNIST rows),
+# chunks of 4 steps, so the standard plan's faults land inside a chunk.
+CHAOS = dict(trials=6, epochs=4, data_rows=1024, batch_size=128, hidden_dim=400, latent_dim=20, fused_steps=4)
+MEMORY_MARGIN = 8 << 20  # bytes memory_allocated may grow across the drill's retries
+TELEMETRY_ROUNDS = ("off", "on", "on", "off", "off", "on")
+CONV_RESUME_CRASH = 390 + 195  # the ConvVAE's mid-epoch-2 step (390 steps an epoch)
+
+
+def chaos_drill(E, smi: str, *, stacked: bool) -> dict:
+    """Phase 15a (unstacked, with the preemption and the driver restart) and
+    15b (``stacked=True``: two buckets of 3 lanes): ``run_chaos_bench`` on
+    the card, the fault-free sweep then the same sweep under the standard
+    plan, counts set to 0 just before and read just after the drill.
+
+    Every fired fault must be recovered, the DIVERGE trial must settle as
+    ``diverged`` (in 15a its NaN went through the ELBO kernels in a graph
+    replay: past the trial's first, eager, chunk), and goodput must reach
+    0.8. 15a: the control and every retried trial end bit-identical to the
+    fault-free run; every attempt's multi-step (and so its graphs) is freed
+    and ``memory_allocated`` ends within 8 MiB of the fault-free run's; each
+    ELBO kernel launched once per executed step of both runs. 15b: every
+    bucket captured one graph, the faulted lanes refilled with no new
+    capture, and the other lanes end bit-identical to the fault-free run or,
+    printed, within phase 10's rel 1e-3; each lane kernel once per stacked
+    step. Every fired fault and retry is a tagged event of the trace."""
+    import gc
+    import weakref
+
+    from multidisttorch_tpu_torch.faults.harness import run_chaos_bench
+    from multidisttorch_tpu_torch.faults.plan import CKPT_CORRUPT, DIVERGE
+    from multidisttorch_tpu_torch.hpo import driver
+
+    what = "15b stacked drill" if stacked else "15a chaos drill"
+    real_multi, real_stacked = driver.make_multi_step, driver.make_stacked_multi_step
+    real_wrap = driver._TrialRun._wrap_multi
+    multis, buckets, poisoned = [], [], []
+
+    def tracked_multi(g, **kw):
+        m = real_multi(g, **kw)
+        multis.append(weakref.ref(m))
+        return m
+
+    def watched_wrap(run, fn):
+        # Notes each poisoned chunk: its trial, first step, and whether the
+        # trial's multi-step was warm (so the chunk ran as a graph replay).
+        hooked = real_wrap(run, fn)
+        if hooked is fn:
+            return fn
+        transform, ref = hooked._transform, weakref.ref(fn)
+
+        def watched(b):
+            out = transform(b)
+            if out is not b:
+                poisoned.append((run.cfg.trial_id, run.state.step, bool(ref()._warm)))
+            return out
+
+        hooked._transform = watched
+        return hooked
+
+    def tracked_stacked(g, **kw):
+        m = real_stacked(g, **kw)
+        buckets.append(m)
+        return m
+
+    _warm_pool_streams("cuda:0")
+    driver.make_multi_step, driver.make_stacked_multi_step = tracked_multi, tracked_stacked
+    driver._TrialRun._wrap_multi = watched_wrap
+    for k in E.LAUNCHES:
+        E.LAUNCHES[k] = 0
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            report = run_chaos_bench(tmp, stacked=stacked, device="cuda", **CHAOS)
+            torch.cuda.synchronize()
+    finally:
+        driver.make_multi_step, driver.make_stacked_multi_step = real_multi, real_stacked
+        driver._TrialRun._wrap_multi = real_wrap
+    launches = dict(E.LAUNCHES)
+    tel = report["telemetry"]
+    specs = report["plan"]["specs"]
+    div = next(s for s in specs if s["kind"] == DIVERGE)
+    fired = sorted((f["kind"], f["trial_id"]) for f in report["faults_fired"])
+    want = sorted((s["kind"], s["trial_id"]) for s in specs if not (stacked and s["kind"] == CKPT_CORRUPT))
+    check(fired == want, f"{what}: fired {fired}, planned {want}")
+    check(report["all_infra_faults_recovered"], f"{what}: not every fault was recovered: {report['recovered']}")
+    check(report["statuses"][div["trial_id"]] == "diverged",
+          f"{what}: the DIVERGE trial {div['trial_id']} settled as {report['statuses'][div['trial_id']]}")
+    check(report["goodput"] >= 0.8, f"{what}: goodput {report['goodput']} below 0.8")
+    check(tel["all_faults_traced"] and tel["trace_monotonic"] and tel["faults_traced"] == len(fired),
+          f"{what}: traced {tel['faults_traced']} of {len(fired)} faults, monotonic {tel['trace_monotonic']}")
+    check(tel["retries_traced"] >= 3, f"{what}: {tel['retries_traced']} retries traced")
+    parity = "; ".join(f"trial {p['trial_id']} attempt {p['attempts']}: {p['chaos_loss']!r} vs {p['fault_free_loss']!r}"
+                       for p in report["parity"])
+    if stacked:
+        check(len(buckets) == 4 and all(m.graphed and m.captures == 1 for m in buckets),
+              f"{what}: buckets {len(buckets)}, captures {[m.captures for m in buckets]} (one each)")
+        lane_steps = sum(CHAOS["fused_steps"] * (m.replays + 1) for m in buckets)
+        for k in ("elbo_fwd_lanes", "elbo_bwd_lanes"):
+            check(launches[k] == lane_steps, f"{what}: {k} launched {launches[k]} times in {lane_steps} stacked steps")
+        check(launches["elbo_fwd"] == launches["elbo_bwd"] == 0, f"{what}: single-trial kernels launched {launches}")
+        check(tel["lane_refills_traced"] >= 3, f"{what}: {tel['lane_refills_traced']} lane refills traced")
+        if not report["final_metrics_bit_identical"]:
+            worst = max(abs(p["chaos_loss"] - p["fault_free_loss"]) / abs(p["fault_free_loss"]) for p in report["parity"])
+            check(worst <= STACK_LOSS_RTOL, f"{what}: lanes beyond rel {STACK_LOSS_RTOL}: {parity}")
+            print(f"{what}: lanes not bit-identical to the fault-free stacked run, worst rel {worst:.3e} "
+                  f"(within {STACK_LOSS_RTOL}): {parity}")
+        del buckets
+    else:
+        check(report["final_metrics_bit_identical"], f"{what}: not bit-identical to the fault-free run: {parity}")
+        check(report["restarts_after_preemption"] == 1, f"{what}: {report['restarts_after_preemption']} restarts")
+        chunk0 = div["step"] - div["step"] % CHAOS["fused_steps"]
+        check(poisoned == [(div["trial_id"], chunk0, True)],
+              f"{what}: poisoned chunks {poisoned} (trial, first step, replayed), expected "
+              f"[({div['trial_id']}, {chunk0}, True)]")
+        gc.collect()
+        alive = sum(r() is not None for r in multis)
+        check(alive == 0, f"{what}: {alive} of {len(multis)} multi-steps (and their graphs) still alive")
+        mem = report["memory_allocated"]
+        check(mem["after_chaos"] - mem["after_fault_free"] <= MEMORY_MARGIN,
+              f"{what}: memory_allocated grew from {mem['after_fault_free']} to {mem['after_chaos']} bytes")
+        ff_steps = CHAOS["trials"] * CHAOS["epochs"] * CHAOS["data_rows"] // CHAOS["batch_size"]
+        for k in ("elbo_fwd", "elbo_bwd"):
+            check(launches[k] == ff_steps + report["executed_steps"],
+                  f"{what}: {k} launched {launches[k]} times, expected {ff_steps} fault-free + "
+                  f"{report['executed_steps']} executed under the plan")
+        print(f"{what}: {len(multis)} multi-steps over both runs, all freed; memory_allocated "
+              f"{mem['after_fault_free']} -> {mem['after_chaos']} bytes (margin {MEMORY_MARGIN})")
+    books = tel["captures"]
+    print(f"{what}: poisoned chunks (trial, first step, replayed) {poisoned}; fired {fired}; statuses {report['statuses']}; restarts {report['restarts_after_preemption']}; "
+          f"goodput {report['goodput']} ({report['useful_steps']} useful / {report['executed_steps']} executed steps); "
+          f"faults traced {tel['faults_traced']}, retries traced {tel['retries_traced']}, lane refills traced "
+          f"{tel['lane_refills_traced']}, {tel['events_recorded']} events; launches {launches}")
+    print(f"{what}: final train losses, chaos vs fault-free: {parity}")
+    print(f"{what}: wall s fault-free {report['wall_fault_free_s']}, chaos {report['wall_chaos_s']} (telemetry on, "
+          f"restart included); captures (warm-up s, capture s) by program: "
+          + ", ".join(f"{p} x{b['captures']}: {b['warmup_s']:.6f}, {b['capture_s']:.6f}" for p, b in sorted(books.items()))
+          + f" ({smi})")
+    return {"launches": launches, "captures": books, "report": report}
+
+
+def empty_plan_and_telemetry(E, group, smi: str, train, test) -> dict:
+    """Phase 15c, on phase 6's slice (two trials, 1 and 2 epochs, chunks of
+    10): with ``fault_plan=FaultPlan(specs=())`` (counts set to 0 just before,
+    read just after) against no plan: the same histories, losses, step
+    counts, graph replays, host syncs and final checkpoints, bit for bit.
+    Then, after one untimed run, the slice with telemetry off and on, in
+    turns (off, on, on, off, off, on): wall time of each run and events per
+    step; and one epoch of
+    the first trial under the profiler each way: device busy ms per step.
+    No limit is set."""
+    from multidisttorch_tpu_torch import telemetry
+    from multidisttorch_tpu_torch.faults.plan import FaultPlan
+    from multidisttorch_tpu_torch.hpo.driver import TrialConfig, run_hpo
+    from multidisttorch_tpu_torch.train import checkpoint as ck
+
+    configs = [TrialConfig(trial_id=g, epochs=1 + g, batch_size=128, seed=g, fused_steps=10) for g in range(2)]
+
+    def summary(res):
+        return [(r.status, r.steps, r.history, r.final_train_loss, r.final_test_loss, r.graph_replays, r.host_syncs)
+                for r in res]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        plain = run_hpo(configs, train, test, groups=[group], out_dir=os.path.join(tmp, "none"), verbose=False)
+        for k in E.LAUNCHES:
+            E.LAUNCHES[k] = 0
+        armed = run_hpo(configs, train, test, groups=[group], out_dir=os.path.join(tmp, "empty"), verbose=False,
+                        fault_plan=FaultPlan(specs=()))
+        torch.cuda.synchronize()
+        launches = dict(E.LAUNCHES)
+        check(summary(armed) == summary(plain), f"15c: an empty plan changed the slice: {summary(armed)} vs "
+              f"{summary(plain)}")
+        for r in plain:
+            _same_checkpoint(ck, os.path.join(tmp, "none"), os.path.join(tmp, "empty"), "15c empty plan", r.trial_id)
+    steps = sum(r.steps for r in plain)
+    for k in ("elbo_fwd", "elbo_bwd"):
+        check(launches[k] == steps, f"15c empty plan: {k} launched {launches[k]} times in {steps} steps")
+    print(f"15c: fault_plan=FaultPlan(specs=()) against no plan: histories, losses, steps, graph replays "
+          f"{[r.graph_replays for r in plain]}, host syncs {[r.host_syncs for r in plain]} and final checkpoints "
+          f"bit-identical; launches {launches}")
+
+    # One untimed run first: the first run after the drills has taken 1.4x
+    # the time of the runs after it.
+    with tempfile.TemporaryDirectory() as tmp:
+        run_hpo(configs, train, test, groups=[group], out_dir=tmp, verbose=False)
+    walls, per_step = {"off": [], "on": []}, []
+    for mode in TELEMETRY_ROUNDS:
+        with tempfile.TemporaryDirectory() as tmp:
+            scope = telemetry.telemetry_run(os.path.join(tmp, "tel")) if mode == "on" else contextlib.nullcontext()
+            with scope as bus:
+                t0 = time.time()
+                res = run_hpo(configs, train, test, groups=[group], out_dir=tmp, verbose=False)
+                torch.cuda.synchronize()
+                walls[mode].append(time.time() - t0)
+                if bus is not None:
+                    per_step.append(bus.emitted / sum(r.steps for r in res))
+            check(summary(res) == summary(plain), f"15c: telemetry {mode} changed the slice's results")
+    busy = {}
+    for mode in ("off", "on"):
+        with tempfile.TemporaryDirectory() as tmp:
+            scope = telemetry.telemetry_run(os.path.join(tmp, "tel")) if mode == "on" else contextlib.nullcontext()
+            with scope:
+                busy[mode], _ = _profile_steps(
+                    lambda: run_hpo(configs[:1], train, test, groups=[group], out_dir=tmp, verbose=False),
+                    len(train) // 128, guard="elbo_fwd")
+    med = {m: statistics.median(w) for m, w in walls.items()}
+    print(f"15c telemetry off vs on, phase 6's slice ({steps} steps, checkpoints on), rounds {TELEMETRY_ROUNDS}: wall s "
+          f"off {walls['off']} (median {med['off']:.6f}), on {walls['on']} (median {med['on']:.6f}), on/off "
+          f"{med['on'] / med['off']:.4f}; events per step {per_step}; device busy ms per step over one epoch "
+          f"of trial 0 (468 steps) off {busy['off']}, on {busy['on']} ({smi})")
+    return {"launches": launches, "walls": walls, "busy": busy}
+
+
+def conv_resume(E, group, smi: str) -> dict:
+    """Phase 15d (ROADMAP C.18): a ConvVAE trial (phase 14a's: latent 64,
+    base channels 32, batch 128, chunks of 10) of 2 epochs of
+    ``synthetic_cifar10`` at CIFAR size, with a CRASH from a ``FaultPlan``
+    at step 585 (mid-epoch 2); the supervised retry resumes from the epoch-1
+    checkpoint. Under ``cudnn.deterministic`` (set here, then restored) it
+    ends bit-identical to the uninterrupted run (the final checkpoint, its
+    history and generator states). Under cuDNN's defaults, which the port
+    keeps, it ends within ``_graph_within_spread``'s bound of every
+    uninterrupted run: the larger of 4x the spread of ``SPREAD_RUNS``
+    uninterrupted runs and the floors, over the per-epoch train and test
+    losses and the final parameters. Counts set to 0 just before the
+    faulted run under the defaults and read just after: each ELBO kernel
+    once per executed step of both attempts."""
+    from multidisttorch_tpu_torch.data.datasets import synthetic_cifar10
+    from multidisttorch_tpu_torch.faults.plan import CRASH, FaultPlan, FaultSpec
+    from multidisttorch_tpu_torch.hpo.driver import TrialConfig, run_hpo
+    from multidisttorch_tpu_torch.hpo.ledger import SweepLedger
+    from multidisttorch_tpu_torch.hpo.supervision import RetryPolicy
+    from multidisttorch_tpu_torch.models import ConvVAE
+    from multidisttorch_tpu_torch.train import checkpoint as ck
+
+    train = synthetic_cifar10(50000, seed=0)
+    test = synthetic_cifar10(10000, seed=1)
+    cfg = TrialConfig(trial_id=0, epochs=2, batch_size=128, lr=1e-3, beta=1.0, seed=0, fused_steps=10)
+    per_epoch = len(train) // 128
+
+    def run(out, plan=None):
+        (r,) = run_hpo([cfg], train, test, groups=[group], out_dir=out, verbose=False, save_images=False,
+                       model_builder=lambda c: ConvVAE(latent_dim=64, base_channels=32), resilient=True,
+                       retry=RetryPolicy(max_retries=1, backoff_base_s=0.01), fault_plan=plan)
+        torch.cuda.synchronize()
+        check(r.status == "completed" and r.steps == 2 * per_epoch, f"15d: {r.status} {r.steps} steps {r.error}")
+        if plan is not None:
+            check(r.attempt == 2 and r.resumed_from_step == per_epoch,
+                  f"15d: attempt {r.attempt}, resumed from step {r.resumed_from_step}, expected 2 and {per_epoch}")
+        return r
+
+    def values(r, out):
+        tree = ck._read_tree(os.path.join(out, "trial-0", "state.msgpack"))
+        params = {}
+
+        def walk(t, prefix):
+            for k, v in t.items():
+                if isinstance(v, dict):
+                    walk(v, f"{prefix}/{k}")
+                else:
+                    params[f"{prefix}/{k}"] = torch.as_tensor(v, dtype=torch.float64)
+
+        walk(tree["params"], "params")
+        hist = torch.tensor([h[k] for h in r.history for k in ("avg_train_loss", "test_loss")], dtype=torch.float64)
+        return hist, params
+
+    plan = FaultPlan(specs=(FaultSpec(CRASH, 0, step=CONV_RESUME_CRASH),))
+    with tempfile.TemporaryDirectory() as tmp:
+        with _cudnn_deterministic():
+            run(os.path.join(tmp, "det_straight"))
+            run(os.path.join(tmp, "det_retry"), plan)
+            _same_checkpoint(ck, os.path.join(tmp, "det_straight"), os.path.join(tmp, "det_retry"),
+                             "15d under cudnn.deterministic")
+        check(not torch.backends.cudnn.deterministic, "15d: cudnn.deterministic was not restored")
+        straight = []
+        for i in range(SPREAD_RUNS):
+            out = os.path.join(tmp, f"straight{i}")
+            straight.append(values(run(out), out))
+        for k in E.LAUNCHES:
+            E.LAUNCHES[k] = 0
+        out = os.path.join(tmp, "retry")
+        r = run(out, plan)
+        launches = dict(E.LAUNCHES)
+        retried = values(r, out)
+        failed = [e for e in SweepLedger(out).load() if e.get("status") == "retrying"]
+    check(len(failed) == 1, f"15d: {len(failed)} retrying records, expected 1")
+    executed = failed[0]["summary"]["steps_at_failure"] + per_epoch
+    for k in ("elbo_fwd", "elbo_bwd"):
+        check(launches[k] == executed, f"15d: {k} launched {launches[k]} times in {executed} executed steps")
+    pairs = [_distance(straight[i], straight[j]) for i in range(SPREAD_RUNS) for j in range(i + 1, SPREAD_RUNS)]
+    spread = (max(p[0] for p in pairs), max(p[1] for p in pairs))
+    floors = (SPREAD_VALUE_FLOOR * max(float(s[0].abs().max()) for s in straight), cfg.lr * 2 * per_epoch)
+    bound = tuple(max(SPREAD_FACTOR * s, f) for s, f in zip(spread, floors))
+    to_straight = [_distance(retried, s) for s in straight]
+    for k, name in ((0, "per-epoch losses"), (1, "final parameters")):
+        worst = max(d[k] for d in to_straight)
+        check(worst <= bound[k], f"15d defaults: retried vs uninterrupted {name} max |diff| {worst:.3e}, beyond the "
+              f"bound {bound[k]:.3e} (spread {spread[k]:.3e}, floor {floors[k]:.3e})")
+    print(f"15d ConvVAE resume (ROADMAP C.18): CRASH at step {CONV_RESUME_CRASH}, retry from the epoch-1 checkpoint; "
+          f"under cudnn.deterministic bit-identical to the uninterrupted run (distance 0); under the defaults "
+          f"{SPREAD_RUNS} uninterrupted runs differ pairwise by " + ", ".join(f"{v:.3e}" for v, _ in pairs)
+          + " in the per-epoch losses and " + ", ".join(f"{p:.3e}" for _, p in pairs) + " in the final parameters; "
+          "the retried run differs from each by " + ", ".join(f"{v:.3e}" for v, _ in to_straight) + " and "
+          + ", ".join(f"{p:.3e}" for _, p in to_straight) + f" (bounds {bound[0]:.3e}, {bound[1]:.3e}: the larger of "
+          f"{SPREAD_FACTOR:g} x the spread and the floors {floors[0]:.3e}, {floors[1]:.3e}); launches {launches} "
+          f"({_conv_flags()}; {smi})")
+    return {"launches": launches, "spread": spread, "to_straight": to_straight, "bound": bound}
+
+
 class _Lines(logging.Handler):
     def __init__(self):
         super().__init__()
@@ -3013,6 +3351,14 @@ def main() -> None:
     _check_feeds("14")
     resnet_phase(E, group, smi)
 
+    # Phase 15: fault plans, the chaos drill and the event bus; counts set to
+    # 0 inside, just before each drill.
+    chaos = chaos_drill(E, smi, stacked=False)
+    chaos_stacked = chaos_drill(E, smi, stacked=True)
+    tele = empty_plan_and_telemetry(E, group, smi, train, test)
+    resume = conv_resume(E, group, smi)
+    _check_feeds("15")
+
     # Phase 13: the kernels line, then the result.
     # "ms", "plain_ms" and "library_ms" are device time per call at the
     # slice's shape (batch 128, f32); "*_call_ms" add the host's per-call
@@ -3020,8 +3366,9 @@ def main() -> None:
     # with a cold L2, "floor_ms" / "floor_graph_ms" the same launch of
     # kernels that return at once. "launches" counts the launches the slice's
     # train steps (phase 6), remat's graphed runs (phase 12c) and the conv
-    # and MoE VAE slices (phase 14a, 14b) ran, graph replays included, one
-    # per wrapper call; "launches_by_path" each. "conv_vae_width" holds the
+    # and MoE VAE slices (phase 14a, 14b), and the chaos drill (15a, both of
+    # its runs), the empty-plan slice (15c) and the conv resume (15d) ran,
+    # graph replays included, one per wrapper call; "launches_by_path" each. "conv_vae_width" holds the
     # same times at the conv beta-VAE's shape, (128, 3072, 64) f32.
     src = "multidisttorch_tpu_torch/ops/csrc/elbo.cu"
     m = main_shape
@@ -3030,7 +3377,9 @@ def main() -> None:
         lib = f"{key}_library"
         by_path = {"slice": launches[name], **{run: n[name] for run, n in remat_launches.items()
                                                if "stacked" not in run},
-                   "conv_vae_slice": conv["launches"][name], "moe_vae_slice": moe["launches"][name]}
+                   "conv_vae_slice": conv["launches"][name], "moe_vae_slice": moe["launches"][name],
+                   "chaos": chaos["launches"][name], "empty_plan": tele["launches"][name],
+                   "conv_resume": resume["launches"][name]}
         c = conv["kernels"]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
@@ -3076,13 +3425,15 @@ def main() -> None:
     # same operands; no single PyTorch call computes per-lane sums, so
     # "library_ms" is null. "launches" counts the stacked sweep's (phase 10c),
     # PBT's (phase 11a, fused K 8; phase 11b, per-group and fused K 4; phase
-    # 12b, the first fused K 8 run with the feed on and off) and the stacked
-    # remat runs' (phase 12c), "launches_by_path" each.
+    # 12b, the first fused K 8 run with the feed on and off), the stacked
+    # remat runs' (phase 12c) and the stacked chaos drill's (15b, both of its
+    # runs), "launches_by_path" each.
     by_path = {name: {"stacked_sweep": stack_launches[name], "pbt_fused": pbt["launches"][name],
                       "pbt_per_group_k4": pbt_b["per_group"][name], "pbt_fused_k4": pbt_b["fused"][name],
                       "pbt_fused_feed_on": feed["on"]["launches"][name],
                       "pbt_fused_feed_off": feed["off"]["launches"][name],
-                      **{run: n[name] for run, n in remat_launches.items() if "stacked" in run}}
+                      **{run: n[name] for run, n in remat_launches.items() if "stacked" in run},
+                      "chaos_stacked": chaos_stacked["launches"][name]}
                for name in ("elbo_fwd_lanes", "elbo_bwd_lanes")}
     for name, key, line in (("elbo_fwd_lanes", "fwd", 134), ("elbo_bwd_lanes", "bwd", 163)):
         m = lane_main

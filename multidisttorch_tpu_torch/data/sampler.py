@@ -200,6 +200,7 @@ class TrialDataIterator:
         num_trials: Optional[int] = None,
         with_labels: bool = False,
         use_native: Optional[bool] = None,
+        fault_hook: Optional[Callable[[int, int], None]] = None,
     ):
         _check_divisible(batch_size, group)
         self.dataset = dataset
@@ -207,6 +208,11 @@ class TrialDataIterator:
         self.batch_size = batch_size
         self.seed = seed
         self.with_labels = with_labels
+        # Fault-injection seam (faults/inject.py via hpo/driver.py): called
+        # as fault_hook(epoch, batch_index) for each batch of a chunk, when
+        # the consumer takes the chunk; it may raise (an injected loader
+        # failure).
+        self.fault_hook = fault_hook
         if shard_across_trials:
             if num_trials is None:
                 raise ValueError("shard_across_trials requires num_trials")
@@ -255,7 +261,8 @@ class TrialDataIterator:
     def epoch(self, epoch: int) -> Iterator:
         """Iterate one epoch: this rank's rows of each batch, or ``(images,
         labels)`` with labels."""
-        for _, chunk, labels in self._host_chunks(epoch, 1):
+        for start, chunk, labels in self._host_chunks(epoch, 1):
+            self._hook(epoch, start, 1)
             images = _put(chunk[0], self.group, 0)
             yield images if labels is None else (images, _put(labels[0], self.group, 0))
 
@@ -265,9 +272,19 @@ class TrialDataIterator:
         labels)`` with labels; the last chunk may hold fewer than ``k``
         batches. Same order and boundaries as :meth:`epoch`."""
         _check_chunk_size(k)
-        return ((start, _put(chunk, self.group, 1)) if labels is None
-                else (start, _put(chunk, self.group, 1), _put(labels, self.group, 1))
-                for start, chunk, labels in self._host_chunks(epoch, k))
+        return self._chunks(epoch, k)
+
+    def _chunks(self, epoch: int, k: int) -> Iterator:
+        for start, chunk, labels in self._host_chunks(epoch, k):
+            self._hook(epoch, start, len(chunk))
+            images = _put(chunk, self.group, 1)
+            yield (start, images) if labels is None else (start, images, _put(labels, self.group, 1))
+
+    def _hook(self, epoch: int, start: int, n: int) -> None:
+        """Run the fault hook for batches ``start .. start + n - 1``."""
+        if self.fault_hook is not None:
+            for b in range(start, start + n):
+                self.fault_hook(epoch, b)
 
     @property
     def samples_per_epoch(self) -> int:
@@ -293,7 +310,11 @@ class StackedTrialDataIterator:
     (module docstring), with the JAX package's defaults; ``gather_path``
     says which gather runs. ``wait_hook(blocked_s, nbytes)``, when given, is
     called once per device chunk with the time the consumer was blocked
-    obtaining it.
+    obtaining it. ``fault_hook(batch_index, stacked) -> stacked``, when
+    given, sees each step's ``(K, rows, ...)`` device batch on the consumer
+    side, after the prefetch worker has handed the chunk over (so an
+    injected fault fires at the step it names, and a poisoned lane never
+    races the copy stream), and may return a replacement.
 
     Every lane reads the one ``dataset``: the JAX package's per-lane
     datasets (``datasets=``) wait for ROADMAP A.12, where
@@ -311,6 +332,7 @@ class StackedTrialDataIterator:
         prefetch: Optional[bool] = None,
         prefetch_depth: Optional[int] = None,
         wait_hook: Optional[Callable[[float, int], None]] = None,
+        fault_hook: Optional[Callable] = None,
     ):
         _check_divisible(batch_size, group)
         if not seeds:
@@ -325,6 +347,7 @@ class StackedTrialDataIterator:
         # (seed, epoch) determines a lane's permutation, as for one trial.
         self._lanes = [{"seed": s, "epoch": 1} for s in seeds]
         self.wait_hook = wait_hook
+        self.fault_hook = fault_hook
         self._prefetch = _prefetch_default() if prefetch is None else bool(prefetch)
         self._depth = _prefetch_depth() if prefetch_depth is None else max(1, int(prefetch_depth))
         self.gather_path = _gather_path(use_native)
@@ -409,7 +432,7 @@ class StackedTrialDataIterator:
         if not (self._prefetch and (endless or self.num_batches > 1)):
             with contextlib.closing(host):
                 for start, chunk in host:
-                    yield (start, _put(chunk, self.group, 2)), chunk.nbytes
+                    yield (start, self._faulted(start, _put(chunk, self.group, 2))), chunk.nbytes
             return
 
         def staged():
@@ -424,7 +447,22 @@ class StackedTrialDataIterator:
                 # The copy stream allocated x: keep its memory until the
                 # consumer's work on it is done.
                 x.record_stream(consumer)
-            yield (start, x), nbytes
+            yield (start, self._faulted(start, x)), nbytes
+
+    def _faulted(self, start: int, x: torch.Tensor) -> torch.Tensor:
+        """The chunk after the fault hook has seen each of its steps (a
+        clone where the hook replaced one; the chunk itself when not)."""
+        if self.fault_hook is None:
+            return x
+        out = x
+        for j in range(x.shape[0]):
+            step = out[j]
+            got = self.fault_hook(start + j, step)
+            if got is not step:
+                if out is x:
+                    out = x.clone()
+                out[j] = got
+        return out
 
     def _timed(self, pairs: Iterator[tuple]) -> Iterator:
         """Unwrap ``(item, nbytes)`` pairs, giving the wait hook the time the

@@ -53,59 +53,66 @@ def main(argv=None):
         synthetic_size=args.synthetic_size and max(args.batch_size, args.synthetic_size // 6),
     )
     try:
-        groups = default_groups(args.ngroups, args.device)
-        # lr sweep: trial g trains with lr = 1e-3 * 2^g
-        lrs = [1e-3 * (2.0**g) for g in range(args.ngroups)]
-        trials = []
-        for g, lr in zip(groups, lrs):
-            if not g.is_local_member:
-                continue
-            model = ResNet18(num_classes=10, base_channels=args.base_channels)
-            trials.append({
-                "trial": g, "lr": lr,
-                "state": create_classifier_state(g, model, lr, seed=g.group_id),
-                "step": make_classifier_multi_step(g),
-                "tail_step": make_classifier_train_step(g),
-                "eval": make_classifier_eval_step(g),
-                "iter": TrialDataIterator(train_data, g, args.batch_size, seed=g.group_id, with_labels=True),
-            })
-
-        # Cooperative round robin across the groups, one chunk per turn; an
-        # epoch's shorter tail chunk runs step by step through the single
-        # step rather than capturing a graph for its length.
-        t0 = time.time()
-        for epoch in range(args.epochs):
-            iters = [t["iter"].epoch_chunks(epoch, args.fused_steps) for t in trials]
-            live = list(range(len(trials)))
-            while live:
-                for i in list(live):
-                    try:
-                        _, images, labels = next(iters[i])
-                    except StopIteration:
-                        live.remove(i)
-                        continue
-                    t = trials[i]
-                    if images.shape[0] == args.fused_steps:
-                        t["state"], m = t["step"](t["state"], images, labels)
-                    else:
-                        for j in range(images.shape[0]):
-                            t["state"], m = t["tail_step"](t["state"], images[j], labels[j])
-                    t["last_metrics"] = m
-
-        out = []
-        for t in trials:
-            g = t["trial"]
-            correct, total = 0.0, 0
-            ev_iter = TrialDataIterator(test_data, g, args.batch_size, with_labels=True)
-            for images, labels in ev_iter.epoch(0):
-                correct += float(t["eval"](t["state"], images, labels)["correct"])
-                total += images.shape[0] * g.size
-            log0(f"trial {g.group_id} (lr={t['lr']:.0e}): test acc {correct / total:.3f} "
-                 f"({int(correct)}/{total}), wall {time.time() - t0:.1f}s", trial=g)
-            out.append({"trial": g.group_id, "lr": t["lr"], "steps": t["state"].step,
-                        "test_accuracy": correct / total, "graph_replays": t["step"].replays})
+        # The trials' states (DDP reducers on a multi-rank group) live in
+        # _sweep's frame and are gone when it returns, before the process
+        # group is torn down (ROADMAP C.17).
+        return _sweep(args, train_data, test_data)
     finally:
         shutdown_runtime()
+
+
+def _sweep(args, train_data, test_data) -> list:
+    groups = default_groups(args.ngroups, args.device)
+    # lr sweep: trial g trains with lr = 1e-3 * 2^g
+    lrs = [1e-3 * (2.0**g) for g in range(args.ngroups)]
+    trials = []
+    for g, lr in zip(groups, lrs):
+        if not g.is_local_member:
+            continue
+        model = ResNet18(num_classes=10, base_channels=args.base_channels)
+        trials.append({
+            "trial": g, "lr": lr,
+            "state": create_classifier_state(g, model, lr, seed=g.group_id),
+            "step": make_classifier_multi_step(g),
+            "tail_step": make_classifier_train_step(g),
+            "eval": make_classifier_eval_step(g),
+            "iter": TrialDataIterator(train_data, g, args.batch_size, seed=g.group_id, with_labels=True),
+        })
+
+    # Cooperative round robin across the groups, one chunk per turn; an
+    # epoch's shorter tail chunk runs step by step through the single
+    # step rather than capturing a graph for its length.
+    t0 = time.time()
+    for epoch in range(args.epochs):
+        iters = [t["iter"].epoch_chunks(epoch, args.fused_steps) for t in trials]
+        live = list(range(len(trials)))
+        while live:
+            for i in list(live):
+                try:
+                    _, images, labels = next(iters[i])
+                except StopIteration:
+                    live.remove(i)
+                    continue
+                t = trials[i]
+                if images.shape[0] == args.fused_steps:
+                    t["state"], m = t["step"](t["state"], images, labels)
+                else:
+                    for j in range(images.shape[0]):
+                        t["state"], m = t["tail_step"](t["state"], images[j], labels[j])
+                t["last_metrics"] = m
+
+    out = []
+    for t in trials:
+        g = t["trial"]
+        correct, total = 0.0, 0
+        ev_iter = TrialDataIterator(test_data, g, args.batch_size, with_labels=True)
+        for images, labels in ev_iter.epoch(0):
+            correct += float(t["eval"](t["state"], images, labels)["correct"])
+            total += images.shape[0] * g.size
+        log0(f"trial {g.group_id} (lr={t['lr']:.0e}): test acc {correct / total:.3f} "
+             f"({int(correct)}/{total}), wall {time.time() - t0:.1f}s", trial=g)
+        out.append({"trial": g.group_id, "lr": t["lr"], "steps": t["state"].step,
+                    "test_accuracy": correct / total, "graph_replays": t["step"].replays})
     return out
 
 

@@ -45,9 +45,18 @@ program advances K trials, through one CUDA graph per chunk on a card;
 lanes retire at their own epoch targets and are refilled in place from the
 bucket's queue, or masked when it is dry, with no new capture.
 
+``fault_plan`` (a ``faults.FaultPlan`` or ``FaultInjector``) arms the
+chaos seams, as in the JAX package: the step hook and NaN poisoning around
+each train chunk (``train.steps.wrap_step_with_hooks``), the data
+iterators' hooks, the checkpoint writer's corruption hook, and in a stacked
+bucket the lane faults with the lane retry they drive. With telemetry on
+(``telemetry.telemetry_run`` or ``MDT_TELEMETRY=1``) the driver emits the
+JAX driver's bus events and keeps each trial's and bucket's step series in
+the metrics registry; off, no seam constructs an event or adds a host sync.
+
 What this slice does not port raises ``NotImplementedError`` naming its
-ROADMAP item: fault plans, profiling, the compile farm, weight sharding and
-model parallel, pipeline stages and per-trial dataset references.
+ROADMAP item: profiling, the compile farm, weight sharding and model
+parallel, pipeline stages and per-trial dataset references.
 """
 
 from __future__ import annotations
@@ -66,7 +75,10 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from multidisttorch_tpu_torch import telemetry as _telemetry
 from multidisttorch_tpu_torch.data.datasets import Dataset
+from multidisttorch_tpu_torch.faults.inject import FaultInjector, HostPreemption, InfraFault
+from multidisttorch_tpu_torch.faults.plan import DIVERGE, FaultPlan
 from multidisttorch_tpu_torch.data.sampler import EvalDataIterator, StackedTrialDataIterator, TrialDataIterator
 from multidisttorch_tpu_torch.hpo.ledger import SweepLedger, config_hash
 from multidisttorch_tpu_torch.hpo.supervision import (
@@ -82,6 +94,8 @@ from multidisttorch_tpu_torch.models.vae import VAE, init_vae_params
 from multidisttorch_tpu_torch.parallel.cluster import WedgedCollective, env_timeout, process_world
 from multidisttorch_tpu_torch.parallel.collectives import group_all_gather, group_all_ok, group_min_scalar
 from multidisttorch_tpu_torch.parallel.mesh import TrialGroup, setup_groups
+from multidisttorch_tpu_torch.telemetry.events import get_bus
+from multidisttorch_tpu_torch.telemetry.metrics import get_registry
 from multidisttorch_tpu_torch.train.checkpoint import (
     default_format,
     restore_latest_valid,
@@ -101,6 +115,7 @@ from multidisttorch_tpu_torch.train.steps import (
     make_sample_step,
     make_stacked_eval_step,
     make_stacked_multi_step,
+    wrap_step_with_hooks,
 )
 from multidisttorch_tpu_torch.utils.imaging import save_image_grid
 from multidisttorch_tpu_torch.utils.logging import log0, log0_enabled
@@ -170,8 +185,7 @@ _UNPORTED_FIELDS = {
 # run_hpo arguments this slice does not port: (inert value, ROADMAP item).
 _UNPORTED_ARGS = {
     "precompile": (None, "A.9 (compile and dispatch)"),
-    "fault_plan": (None, "A.10 (faults and telemetry)"),
-    "profile_dir": (None, "A.10 (faults and telemetry)"),
+    "profile_dir": (None, "A.10, second part (device books and profiling)"),
     "model_parallel": (1, "A.13 (sharding)"),
     "param_shardings_builder": (None, "A.13 (sharding)"),
 }
@@ -232,6 +246,13 @@ def config_mismatch_vs_meta(cfg: TrialConfig, meta: dict) -> dict:
     if not saved or saved == current:
         return {}
     return {k: (saved.get(k), current[k]) for k in current if saved.get(k) != current[k]}
+
+
+def _optimizer_state_bytes(model: torch.nn.Module) -> int:
+    """Adam's state in the JAX package's layout (optax's int32 count and
+    two moments the parameters' size): the memory books' per-device
+    optimizer footprint of a replicated trial or one stacked lane."""
+    return 4 + 2 * sum(p.numel() * p.element_size() for p in model.parameters())
 
 
 def _result_summary(result: TrialResult) -> dict:
@@ -313,6 +334,7 @@ class _TrialRun:
         agree_timeout_s: Optional[float] = None,
         ckpt_keep_last: int = 1,
         model_builder=None,
+        injector: Optional[FaultInjector] = None,
     ):
         _check_config(cfg)
         self.group = group
@@ -340,6 +362,16 @@ class _TrialRun:
         self._deferred_error: Optional[BaseException] = None
         self._ckpt_keep_last = ckpt_keep_last
         self._ckpt_format = default_format()
+        # Fault-injection seams (None outside a chaos drill): the drill's
+        # faults take the same dispatch, data and checkpoint paths real
+        # faults take.
+        self._injector = injector
+        self._epoch_base_step = 0
+        # Telemetry, captured once (None when off): the step series of
+        # this trial in the metrics registry.
+        self._mreg = get_registry()
+        self._mkey = f"trial-{cfg.trial_id}"
+        self._first_dispatched = False
 
         if model_builder is None:
             model = VAE(hidden_dim=cfg.hidden_dim, latent_dim=cfg.latent_dim)
@@ -348,7 +380,14 @@ class _TrialRun:
             model = model_builder(cfg)
             model.init_params(cfg.seed)
         self.state = create_train_state(group, model, cfg.lr)
-        self.multi_step = make_multi_step(group, beta=cfg.beta, grad_accum=cfg.grad_accum, remat=cfg.remat)
+        self.result.optimizer_state_bytes = _optimizer_state_bytes(model)
+        bus = get_bus()
+        if bus is not None:
+            bus.emit("optimizer_state", trial_id=cfg.trial_id, group_id=group.group_id,
+                     per_device_bytes=self.result.optimizer_state_bytes,
+                     total_bytes=self.result.optimizer_state_bytes, zero_update=False)
+        self.multi_step = self._wrap_multi(
+            make_multi_step(group, beta=cfg.beta, grad_accum=cfg.grad_accum, remat=cfg.remat))
         self.eval_step = make_eval_step(group, beta=cfg.beta, with_recon=save_images)
         self.sample_step = make_sample_step(group)
         self.train_iter = TrialDataIterator(
@@ -358,6 +397,7 @@ class _TrialRun:
             seed=cfg.seed,
             shard_across_trials=shard_across_trials,
             num_trials=num_trials,
+            fault_hook=None if injector is None else self._data_fault_hook,
         )
         self.test_iter = (
             EvalDataIterator(test_data, group, cfg.batch_size)
@@ -400,7 +440,7 @@ class _TrialRun:
                         "refusing to continue stale weights under a changed config"
                     )
                 if int(meta.get("completed_epochs", 0)) >= 1:
-                    restore_state(self.state, self._ckpt_path)
+                    restore_state(self.state, self._ckpt_path, group_id=group.group_id)
                     if "step" in meta and self.state.step != int(meta["step"]):
                         raise UnretryableError(
                             f"resume: trial {cfg.trial_id} checkpoint is skewed — "
@@ -430,7 +470,8 @@ class _TrialRun:
             return not config_mismatch_vs_meta(self.cfg, meta) and int(meta.get("completed_epochs", 0)) >= 1
 
         if self.group.size == 1:
-            return restore_latest_valid(self.state, self._ckpt_path, accept_meta=accept)
+            return restore_latest_valid(self.state, self._ckpt_path, accept_meta=accept,
+                                        group_id=self.group.group_id)
         cands = valid_candidates_by_step(self._ckpt_path, accept_meta=accept)
         what = f"trial {self.cfg.trial_id} restore agreement over group {self.group.group_id}"
         agreed = group_min_scalar(
@@ -444,7 +485,7 @@ class _TrialRun:
         ):
             return None
         cand, meta = cands[agreed]
-        restore_state(self.state, cand)
+        restore_state(self.state, cand, group_id=self.group.group_id)
         return self.state, meta, cand
 
     def _adopt(self, meta: dict) -> None:
@@ -463,6 +504,35 @@ class _TrialRun:
                 raw = base64.b64decode(per_rank[self.group.local_rank])
                 gen.set_state(torch.frombuffer(bytearray(raw), dtype=torch.uint8))
 
+
+    def _wrap_multi(self, fn):
+        """The chaos hooks around the train chunk: ``step_hook`` with the
+        chunk's first step and length before it is dispatched, and
+        ``poison_batch`` of the chunk. ``state.step`` is the chunk's first
+        step until the step returns."""
+        if self._injector is None:
+            return fn
+        injector, tid = self._injector, self.cfg.trial_id
+        return wrap_step_with_hooks(
+            fn,
+            before=lambda b: injector.step_hook(tid, self.state.step, b.shape[0]),
+            transform_batch=lambda b: injector.poison_batch(tid, self.state.step, b, b.shape[0]),
+        )
+
+    def _data_fault_hook(self, epoch: int, batch_index: int) -> None:
+        """Data-iterator injection seam: maps the iterator's (epoch,
+        batch_index) to the trial's global optimizer step."""
+        self._injector.data_hook(self.cfg.trial_id, self._epoch_base_step + batch_index)
+
+    def _note_first_dispatch(self) -> None:
+        """One event per attempt, right after its first chunk returns: its
+        timestamp minus the attempt_start's is the trial's admission
+        latency (setup, warm-up and capture)."""
+        self._first_dispatched = True
+        bus = get_bus()
+        if bus is not None:
+            bus.emit("first_dispatch", trial_id=self.cfg.trial_id, group_id=self.group.group_id,
+                     outcome="graph" if self.multi_step.graphed else "eager", wait_s=0.0, program=None)
 
     @contextmanager
     def _guard(self):
@@ -506,6 +576,11 @@ class _TrialRun:
             save_state(tree, self._ckpt_path, metadata=meta, keep_last=self._ckpt_keep_last,
                        format=self._ckpt_format)
             self.result.checkpoint = self._ckpt_path
+            if self._injector is not None:
+                # Chaos seam: CKPT_CORRUPT garbles the file after the write
+                # lands, the torn artifact a retry's scan must skip.
+                self._injector.checkpoint_hook(self.cfg.trial_id, int(meta.get("completed_epochs", 0)),
+                                               self._ckpt_path)
         except BaseException as e:  # noqa: BLE001 — re-raised at the next join
             self._ckpt_error = e
 
@@ -559,12 +634,21 @@ class _TrialRun:
             return
         n_per_epoch = self.train_iter.samples_per_epoch
         for epoch in range(self._start_epoch, cfg.epochs + 1):
+            self._epoch_base_step = self.state.step
+            # A fresh timing interval per epoch: the gap since the last
+            # mark holds boundary work, not a dispatch.
+            if self._mreg is not None:
+                self._mreg.step_series(self._mkey).open_interval()
             epoch_sum = None  # on the device until the epoch's one fetch
             for i0, chunk in self.train_iter.epoch_chunks(epoch, cfg.fused_steps):
                 self.state, metrics = self.multi_step(self.state, chunk, generator=self._train_gen)
+                if not self._first_dispatched:
+                    self._note_first_dispatch()
                 losses = metrics["loss_sum"]
                 s = losses.sum()
                 epoch_sum = s if epoch_sum is None else epoch_sum + s
+                if self._mreg is not None:
+                    self._mreg.step_mark(self._mkey, s, steps=chunk.shape[0])
                 # Every batch index that logs in a one-step loop logs here.
                 j = -(-i0 // cfg.log_interval) * cfg.log_interval
                 while j < i0 + chunk.shape[0]:
@@ -622,6 +706,10 @@ class _TrialRun:
 
             self.result.history.append(record)
             self.result.final_train_loss = avg
+            bus = get_bus()
+            if bus is not None:
+                bus.emit("epoch", trial_id=cfg.trial_id, group_id=self.group.group_id, step=self.state.step,
+                         **record)
             if self._save_checkpoint:
                 # The epoch boundary is the resume point. The generator
                 # states are gathered on every rank; the writer takes host
@@ -630,7 +718,12 @@ class _TrialRun:
                 generators = _gather_generator_states(self.group, self._generators)
                 if self._is_writer:
                     with self._guard():
+                        snap_t0 = time.perf_counter()
                         tree = train_state_to_tree(self.state)
+                        if bus is not None:
+                            bus.emit("ckpt_snapshot", trial_id=cfg.trial_id, group_id=self.group.group_id,
+                                     step=self.state.step, epoch=epoch,
+                                     wall_s=round(time.perf_counter() - snap_t0, 6))
                         meta = {
                             **asdict(cfg),
                             "completed_epochs": epoch,
@@ -723,10 +816,19 @@ class _StackedBucketRun:
     trial's (:func:`_stream_seed`), so on the CPU a stacked trial trains to
     the unstacked trial's bits. Stacked lanes checkpoint only at retirement.
 
+    Lane supervision, as in the JAX package: lane-scoped infra faults due in
+    a round fire before it (:meth:`_round_start_faults`); the faulted lane
+    retires through the same mask-and-refill path finished lanes take, and
+    its trial is requeued under the retry budget, from scratch (stacked
+    lanes checkpoint only at retirement). A DIVERGE fault poisons one lane's
+    slice of a step's batch (:meth:`_stacked_fault_hook`), so that lane
+    alone diverges. A host preemption is not lane-scoped: it fails the
+    bucket. Lane churn, epochs and the round's input wait are bus events;
+    the bucket's step series is in the metrics registry.
+
     Not ported here: the drain (``request_drain``, ``drain_snapshot``,
-    ROADMAP A.12), AOT admission of the programs (A.9), the metrics
-    registry, bus events and the device books (A.10), and the fault
-    injector's lane hooks with the lane retry they drive (A.10).
+    ROADMAP A.12), AOT admission of the programs (A.9) and the device books
+    (A.10, second part).
     """
 
     def __init__(
@@ -743,6 +845,9 @@ class _StackedBucketRun:
         ledger: Optional[SweepLedger] = None,
         attempts: Optional[dict] = None,
         chashes: Optional[dict] = None,
+        injector: Optional[FaultInjector] = None,
+        retry: Optional[RetryPolicy] = None,
+        infra_fails: Optional[dict] = None,
     ):
         template = items[0][1]
         for _, cfg in items:
@@ -763,13 +868,38 @@ class _StackedBucketRun:
         self._ledger = ledger
         self._attempts = attempts if attempts is not None else {}
         self._chashes = chashes if chashes is not None else {}
+        self._injector = injector
+        self._retry = retry
+        self._infra_fails = infra_fails if infra_fails is not None else {}
+        self._round_step0: dict[int, int] = {}
         self._dims = (template.hidden_dim, template.latent_dim)
         self.fused = template.fused_steps
+        # Telemetry: stacked step times belong to the bucket (lanes= tags
+        # the live lane count), never to one lane.
+        self._mreg = get_registry()
+        self._mkey = f"bucket-g{group.group_id}"
+        self._first_dispatched = False
 
         k = min(len(self.queue), max_lanes)
         first = [self.queue.pop(0) for _ in range(k)]
         dev = group.device
-        self.data = StackedTrialDataIterator(train_data, group, template.batch_size, [c.seed for _, c in first])
+        # Input-stall seam: wired only with telemetry on (off reads no
+        # clocks and constructs nothing).
+        self._wait_counts = None
+        wait_hook = None
+        if self._mreg is not None or get_bus() is not None:
+            self._wait_counts = {"wait_s": 0.0, "bytes": 0}
+            series = self._mreg.step_series(self._mkey) if self._mreg is not None else None
+
+            def wait_hook(dt, nbytes, _series=series):
+                if _series is not None:
+                    _series.note_wait(dt, nbytes)
+                self._wait_counts["wait_s"] += dt
+                self._wait_counts["bytes"] += nbytes
+        self._input_t0 = time.time()
+        self.data = StackedTrialDataIterator(
+            train_data, group, template.batch_size, [c.seed for _, c in first], wait_hook=wait_hook,
+            fault_hook=None if injector is None else self._stacked_fault_hook)
         self.test_iter = (
             EvalDataIterator(test_data, group, template.batch_size)
             if test_data is not None and len(test_data) > 0
@@ -778,7 +908,9 @@ class _StackedBucketRun:
         self.multi = make_stacked_multi_step(group, grad_accum=template.grad_accum, remat=template.remat)
         self.seval = make_stacked_eval_step(group) if self.test_iter is not None else None
         self.read_lane, self.write_lane = make_lane_ops(group)
-        self.state = create_stacked_train_state(group, [self._init_model(c.seed) for _, c in first])
+        models = [self._init_model(c.seed) for _, c in first]
+        self._lane_opt_bytes = _optimizer_state_bytes(models[0])
+        self.state = create_stacked_train_state(group, models)
         # (K,) on the device, changed in place: the graphs read them.
         self.hypers = TrialHypers.stack([c.lr for _, c in first], [c.beta for _, c in first], device=dev)
         self.generators = [torch.Generator(device=dev).manual_seed(self._noise_seed(c)) for _, c in first]
@@ -800,6 +932,21 @@ class _StackedBucketRun:
     def _log(self, *args, level: int = logging.INFO):
         if self._verbose:
             log0(*args, trial=self.group, level=level)
+
+    def _emit_lane(self, kind: str, lane_k: int, trial_id=None, **data) -> None:
+        """Lane-churn telemetry (retire, refill, fault, diverge, mask)."""
+        bus = get_bus()
+        if bus is not None:
+            bus.emit(kind, trial_id=trial_id, lane=lane_k, group_id=self.group.group_id, **data)
+
+    def _note_first_dispatch(self) -> None:
+        """The bucket's sibling of ``_TrialRun._note_first_dispatch``,
+        group-scoped (no single trial owns the bucket's admission)."""
+        self._first_dispatched = True
+        bus = get_bus()
+        if bus is not None:
+            bus.emit("first_dispatch", group_id=self.group.group_id, lanes=len(self.lanes),
+                     outcome="graph" if self.multi.graphed else "eager", wait_s=0.0, program=None)
 
     def _note_attempt_start(self, lane: dict) -> None:
         idx = lane["idx"]
@@ -853,8 +1000,85 @@ class _StackedBucketRun:
         result = self._result(k, status="diverged", error=str(err))
         self.results[lane["idx"]] = result
         self._note_attempt_end(lane, "diverged", error=str(err), summary=_result_summary(result))
+        self._emit_lane("lane_diverge", k, trial_id=lane["cfg"].trial_id, step=lane["steps"], avg_train_loss=avg)
         self._log(f"Trial {lane['cfg'].trial_id} DIVERGED (stacked lane {k}, non-finite loss at step "
                   f"{lane['steps']}); lane freed")
+        self._refill_or_mask(k)
+
+    def _stacked_fault_hook(self, batch_index: int, stacked: torch.Tensor) -> torch.Tensor:
+        """Poison a DIVERGE-covered lane's slice of a step's ``(K, rows,
+        ...)`` device batch: the NaN reaches that lane only (lanes share no
+        state), so exactly one trial diverges."""
+        out = stacked
+        for k, lane in enumerate(self.lanes):
+            if lane is None:
+                continue
+            tid = lane["cfg"].trial_id
+            step = self._round_step0.get(k, lane["steps"]) + batch_index
+            if self._injector.diverge_covers(tid, step):
+                if out is stacked:
+                    out = stacked.clone()
+                out[k] = self._injector.poison_batch(tid, step, out[k])
+        return out
+
+    def _round_start_faults(self) -> None:
+        """Fire the lane-scoped infra faults due inside the coming round.
+
+        A faulted lane is retired and refilled through the mask-and-refill
+        path finished lanes take; the other lanes keep training in the same
+        graphs. A host preemption is not lane-scoped (the host is going
+        away): it propagates and fails the bucket."""
+        if self._injector is None:
+            return
+        round_len = self.data.num_batches
+        k = 0
+        while k < len(self.lanes):
+            lane = self.lanes[k]
+            if lane is None:
+                k += 1
+                continue
+            tid = lane["cfg"].trial_id
+            try:
+                self._injector.step_hook(tid, lane["steps"], round_len)
+                self._injector.data_hook(tid, lane["steps"], round_len)
+            except HostPreemption:
+                raise
+            except InfraFault as e:
+                self._fault_lane(k, e)
+                # Re-scan lane k without advancing: the refilled trial's
+                # faults due in its first round fire now. Bounded: max_fires
+                # caps firings and the retry budget caps requeues.
+                continue
+            k += 1
+
+    def _fault_lane(self, k: int, exc: BaseException) -> None:
+        """An infra fault scoped to lane ``k``: retire it (no result: its
+        weights are suspect), requeue its trial under the retry budget (or
+        record it failed), and refill the lane from the queue."""
+        lane = self.lanes[k]
+        idx, cfg = lane["idx"], lane["cfg"]
+        error_text = f"{type(exc).__name__}: {exc}"
+        fails = self._infra_fails[idx] = self._infra_fails.get(idx, 0) + 1
+        progress = {"resumed_from_step": 0, "steps_at_failure": lane["steps"]}
+        retrying = self._retry is not None and self._retry.should_retry(fails, INFRA)
+        self._emit_lane("lane_fault", k, trial_id=cfg.trial_id, step=lane["steps"], error=error_text,
+                        infra_failures=fails, retrying=retrying)
+        if retrying:
+            self._note_attempt_end(lane, "retrying", error=error_text, summary=progress)
+            # From scratch, at the queue's tail: its order stands in for
+            # the backoff.
+            self.queue.append((idx, cfg))
+            self._log(f"Trial {cfg.trial_id} lane {k} FAULTED ({error_text}); lane retired, trial requeued "
+                      f"(infra failure {fails}), {sum(x is not None for x in self.lanes) - 1} lanes continue")
+        else:
+            self.results[idx] = TrialResult(
+                trial_id=cfg.trial_id, group_id=self.group.group_id, config=cfg,
+                out_dir=os.path.join(self.out_dir, f"trial-{cfg.trial_id}"), status="failed", error=error_text,
+                dataset=self._train_data.name, dataset_synthetic=self._train_data.synthetic, stacked=True,
+                attempt=self._attempts.get(idx, 1),
+            )
+            self._note_attempt_end(lane, "failed", error=error_text, summary=progress)
+            self._log(f"Trial {cfg.trial_id} lane {k} FAILED ({error_text}); retry budget exhausted, lane freed")
         self._refill_or_mask(k)
 
     def _retire(self, k: int) -> None:
@@ -864,7 +1088,12 @@ class _StackedBucketRun:
         cfg: TrialConfig = lane["cfg"]
         last = lane["history"][-1]
         result = self._result(k, final_train_loss=last["avg_train_loss"],
-                              final_test_loss=last.get("test_loss", float("nan")))
+                              final_test_loss=last.get("test_loss", float("nan")),
+                              optimizer_state_bytes=self._lane_opt_bytes)
+        bus = get_bus()
+        if bus is not None:
+            bus.emit("optimizer_state", trial_id=cfg.trial_id, group_id=self.group.group_id, lane=k,
+                     per_device_bytes=self._lane_opt_bytes, total_bytes=self._lane_opt_bytes, zero_update=False)
         if self._save_checkpoint:
             # The unstacked trial's tree and metadata: an unstacked resume
             # finds the trial complete. Gathered on every rank.
@@ -887,6 +1116,8 @@ class _StackedBucketRun:
                 }, f, indent=2)
         self.results[lane["idx"]] = result
         self._note_attempt_end(lane, "completed", summary=_result_summary(result))
+        self._emit_lane("lane_retire", k, trial_id=cfg.trial_id, step=lane["steps"], epochs=lane["epochs_done"],
+                        wall_s=round(result.wall_s, 6))
         self._log(f"Trial {cfg.trial_id} done (stacked lane {k}). time: {result.wall_s:f}")
         self._refill_or_mask(k)
 
@@ -902,32 +1133,56 @@ class _StackedBucketRun:
             self.data.set_lane(k, nxt.seed)
             self.lanes[k] = self._fresh_lane(idx, nxt)
             self._note_attempt_start(self.lanes[k])
+            self._emit_lane("lane_refill", k, trial_id=nxt.trial_id)
             self._log(f"Trial {nxt.trial_id} refilled into stacked lane {k} (no new capture)")
         else:
             self.lanes[k] = None
             self.hypers.set_lane(k, 1e-3, 1.0, 0.0)
+            self._emit_lane("lane_masked", k)
 
-    def _dispatch(self, chunk) -> torch.Tensor:
+    def _dispatch(self, chunk, k_live: int) -> torch.Tensor:
         """One chunk of every lane's steps; the ``(K,)`` loss sums."""
         self.state, metrics = self.multi(self.state, self.hypers, chunk, generators=self.generators)
+        if not self._first_dispatched:
+            self._note_first_dispatch()
         for lane in self.lanes:
             if lane is not None:
                 lane["steps"] += chunk.shape[0]
-        return metrics["loss_sum"].sum(0)
+        sums = metrics["loss_sum"].sum(0)
+        if self._mreg is not None:
+            self._mreg.step_mark(self._mkey, sums, steps=chunk.shape[0], lanes=k_live)
+        return sums
 
     def run(self) -> Iterator[None]:
         n_per_epoch = self.data.samples_per_epoch
         while any(lane is not None for lane in self.lanes):
+            # Lane-scoped infra faults due this round fire before it: the
+            # faulted lane retires and refills, the others never notice.
+            self._round_start_faults()
+            if not any(lane is not None for lane in self.lanes):
+                break
+            # Each lane's step count at the round's start: the fault hook
+            # maps (lane, batch index) to the lane's global step with it.
+            self._round_step0 = {k: lane["steps"] for k, lane in enumerate(self.lanes) if lane is not None}
+            k_live = len(self._round_step0)
+            if self._mreg is not None:
+                self._mreg.step_series(self._mkey).open_interval()
             round_sum = None  # (K,) on the device until the round's fetch
             for _, chunk in self.data.round_chunks(self.fused):
                 # A tail shorter than the chunk runs one step at a time.
                 parts = [chunk] if chunk.shape[0] == self.fused else [chunk[j : j + 1] for j in range(chunk.shape[0])]
                 for part in parts:
-                    sums = self._dispatch(part)
+                    sums = self._dispatch(part, k_live)
                     round_sum = sums if round_sum is None else round_sum + sums
                 yield
             self._host_syncs += 1
             train_sums = round_sum.tolist()
+            if self._wait_counts is not None:
+                bus = get_bus()
+                if bus is not None:
+                    bus.emit("input_wait", group_id=self.group.group_id, key=self._mkey,
+                             wait_s=round(self._wait_counts["wait_s"], 6), bytes=self._wait_counts["bytes"],
+                             wall_s=round(time.time() - self._input_t0, 6))
             test_sums = None
             if self.test_iter is not None:
                 test_dev = None
@@ -954,6 +1209,10 @@ class _StackedBucketRun:
                     self._log("Trial {} ====> Test set loss: {:.4f}".format(
                         lane["cfg"].trial_id, record["test_loss"]))
                 lane["history"].append(record)
+                bus = get_bus()
+                if bus is not None:
+                    bus.emit("epoch", trial_id=lane["cfg"].trial_id, lane=k, group_id=self.group.group_id,
+                             step=lane["steps"], **record)
                 if lane["epochs_done"] >= lane["cfg"].epochs:
                     retiring.append(k)
             for k, avg in diverged:
@@ -1058,6 +1317,13 @@ def run_hpo(
     - ``model_builder(cfg)`` builds each trial's model (any family with the
       VAE's method contract and ``init_params``), initialised from
       ``cfg.seed`` by its family's ``init_params``.
+    - ``fault_plan`` (a ``faults.FaultPlan``, or a ``FaultInjector`` whose
+      fired faults stay fired across a restarted sweep) arms the chaos
+      seams (module docstring). DIVERGE injection is single-process only,
+      as in the JAX package.
+
+    Telemetry (``telemetry.telemetry_run``, or ``MDT_TELEMETRY=1`` read
+    here) records the sweep's bus events and step series.
 
     Returns results for the trials run here (or settled in the ledger), in
     config order.
@@ -1083,6 +1349,20 @@ def run_hpo(
         if passed[name] != inert:
             raise NotImplementedError(
                 f"run_hpo({name}={passed[name]!r}) is not ported yet: ROADMAP {item}"
+            )
+    _telemetry.configure_from_env()
+    injector = None
+    if fault_plan is not None:
+        if isinstance(fault_plan, FaultInjector):
+            injector = fault_plan
+        elif isinstance(fault_plan, FaultPlan):
+            injector = FaultInjector(fault_plan)
+        else:
+            raise TypeError(f"fault_plan must be a FaultPlan or FaultInjector, got {type(fault_plan).__name__}")
+        if process_world()[0] > 1 and any(s.kind == DIVERGE for s in injector.plan.specs):
+            raise ValueError(
+                "fault_plan: DIVERGE injection is single-process only, as in the JAX package: drill "
+                "divergence in a single-process run; the other fault kinds work across processes"
             )
     if resume not in (False, True, "scan"):
         raise ValueError(f"resume must be False, True or 'scan', got {resume!r}")
@@ -1154,6 +1434,7 @@ def run_hpo(
             agree_timeout_s=agree_timeout_s,
             ckpt_keep_last=ckpt_keep_last,
             model_builder=model_builder,
+            injector=injector,
         )
 
     def build_items() -> list:
@@ -1181,6 +1462,7 @@ def run_hpo(
         items.extend(("single", [m]) for m in singles)
         # Never idle a group behind one large bucket: split the largest
         # until every group has an item (or none is left to split).
+        bus = get_bus()
         while len(items) < len(groups):
             big = max((it for it in items if it[0] == "bucket" and len(it[1]) >= 4),
                       key=lambda it: len(it[1]), default=None)
@@ -1189,7 +1471,18 @@ def run_hpo(
             items.remove(big)
             half = len(big[1]) // 2
             items += [("bucket", big[1][:half]), ("bucket", big[1][half:])]
+            if bus is not None:
+                bus.emit("stack_split", members=[cfg.trial_id for _, cfg in big[1]], split_at=half)
         items.sort(key=lambda it: it[1][0][0])
+        if bus is not None:
+            # Which trials share a stacked program explains every later lane
+            # event and throughput number.
+            for kind_, members in items:
+                if kind_ == "bucket":
+                    bus.emit("stack_bucket", members=[cfg.trial_id for _, cfg in members],
+                             bucket_key=str(stack_bucket_key(members[0][1])))
+            bus.emit("stack_plan", buckets=sum(1 for it in items if it[0] == "bucket"),
+                     singles=sum(1 for it in items if it[0] == "single"))
         return items
 
     # Queue items are (kind, members, ready_at): kind "single", "retry" (one
@@ -1249,6 +1542,10 @@ def run_hpo(
         # processes every rank must schedule alike, so retries requeue at
         # once there.
         delay = retry.backoff_s(fails, key=cfg.trial_id) if single else 0.0
+        bus = get_bus()
+        if bus is not None:
+            bus.emit("retry_scheduled", trial_id=cfg.trial_id, group_id=g.group_id, backoff_s=delay,
+                     infra_failures=fails, error=error_text)
         led.attempt_end(cfg.trial_id, chashes[i], attempts[i], "retrying", error=error_text, summary=progress)
         queue_of(g).append(("retry", [(i, cfg)], time.time() + delay))
         log0(
@@ -1287,7 +1584,8 @@ def run_hpo(
         try:
             run = _StackedBucketRun(g, members, train_data, test_data, out_dir, max_lanes=stack_max_lanes,
                                     save_checkpoint=save_checkpoints, verbose=verbose, ledger=led,
-                                    attempts=attempts, chashes=chashes)
+                                    attempts=attempts, chashes=chashes, injector=injector, retry=retry,
+                                    infra_fails=infra_fails)
         except Exception as e:  # noqa: BLE001 — setup failure isolation
             err = e
         if needs_agreement(g):
@@ -1429,6 +1727,16 @@ def run_hpo(
             raise e
         log0(f"Trial {run.cfg.trial_id} FAILED ({error_text}); group freed, sweep continues", trial=g)
 
+    bus = get_bus()
+    if bus is not None:
+        fleet_id = {}
+        if bus.host is not None:
+            fleet_id["host_slot"] = bus.host
+        if bus.world is not None:
+            fleet_id["world_epoch"] = bus.world
+        bus.emit("sweep_start", configs=len(configs), groups=len(groups), stacked=bool(stack_trials),
+                 resume=bool(resume), resilient=bool(resilient), skipped_settled=len(skipped), **fleet_id)
+
     for g in local_groups:
         start_next(g)
     # Cooperative round-robin: one unit of work per trial per cycle. A
@@ -1467,4 +1775,10 @@ def run_hpo(
                 else:
                     finish(g, i, run, e)
                 start_next(g)
+    bus = get_bus()
+    if bus is not None:
+        statuses: dict[str, int] = {}
+        for r in results.values():
+            statuses[r.status] = statuses.get(r.status, 0) + 1
+        bus.emit("sweep_end", results=len(results), statuses=statuses)
     return [results[i] for i in sorted(results)]

@@ -1,9 +1,9 @@
 """Crash-safe sweep ledger: append-only JSONL attempt history.
 
 A copy of ``multidisttorch_tpu/hpo/ledger.py``: the same file, records and
-folds, so either package reads the other's ledger. The telemetry bus and
-metrics-registry hooks of ``attempt_start``/``attempt_end`` are ROADMAP
-A.10.
+folds, so either package reads the other's ledger, and the same
+``attempt_start``/``attempt_end`` bus events and goodput counters in the
+metrics registry.
 
 The driver's in-memory results die with the process; per-trial
 checkpoints recover *weights* but not the sweep's control state (which
@@ -30,6 +30,8 @@ import time
 from typing import Optional
 
 from multidisttorch_tpu_torch.hpo.supervision import SETTLED_STATUSES
+from multidisttorch_tpu_torch.telemetry.events import get_bus
+from multidisttorch_tpu_torch.telemetry.metrics import get_registry
 
 try:  # POSIX file locking for the append/compact exclusion below
     import fcntl
@@ -154,7 +156,14 @@ class SweepLedger:
         submit_ts: Optional[float] = None,
         trace: Optional[str] = None,
     ) -> None:
+        # Telemetry rides the ledger's call sites: every attempt boundary
+        # of the driver (classic and stacked lanes) funnels through these
+        # two methods, so emitting here, before the write gate, observes
+        # attempts even when the ledger file itself is off.
         tags = self._tag_fields(tenant, priority, submit_ts, trace)
+        bus = get_bus()
+        if bus is not None:
+            bus.emit("attempt_start", trial_id=trial_id, attempt=attempt, config_hash=chash, **tags)
         self.append(
             {
                 "event": "attempt_start",
@@ -183,6 +192,23 @@ class SweepLedger:
         preempted. ``summary`` (completed/diverged) carries enough to
         reconstruct the TrialResult on a ledger skip."""
         tags = self._tag_fields(tenant, priority, submit_ts, trace)
+        bus = get_bus()
+        if bus is not None:
+            bus.emit("attempt_end", trial_id=trial_id, attempt=attempt, config_hash=chash, status=status,
+                     error=error, summary=summary or {}, **tags)
+        reg = get_registry()
+        if reg is not None:
+            # The goodput books, live: executed counts every attempt's
+            # (end - resume) steps, useful counts settled outcomes only.
+            reg.counter("attempts_total", status=status).inc()
+            s = summary or {}
+            done = int(s.get("steps", s.get("steps_at_failure", 0)) or 0)
+            resumed = int(s.get("resumed_from_step", 0) or 0)
+            reg.counter("executed_steps_total").inc(max(0, done - resumed))
+            if status in SETTLED_STATUSES:
+                reg.counter("useful_steps_total").inc(done)
+            if status == "retrying":
+                reg.counter("retries_total").inc()
         self.append(
             {
                 "event": "attempt_end",

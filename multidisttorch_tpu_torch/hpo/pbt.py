@@ -49,8 +49,14 @@ named: the fused mode with a ``model_builder`` (ROADMAP A.16b: the JAX
 package vmaps any family over the lanes, while the port's fused mode is
 written over ``StackedVAE``, and a lane-stacked form of each family is
 work of its own); the compile registry's ``pbt_gen`` admission (A.9: the
-graph table is per generation step); the ``pbt_gen``/``pbt_exploit`` bus
-events and the population view (A.10).
+graph table is per generation step).
+
+Telemetry: each generation emits the JAX package's ``pbt_gen`` (population
+statistics) and one ``pbt_exploit`` per exchange edge, which
+``telemetry/export.py::SweepFold`` folds into its population view. The
+fused mode reads them from the generation's one host fetch
+(``fetch_pbt_books``), adding no sync.
+
 Both modes take their chunks from ``StackedTrialDataIterator.stream_chunks``
 with the feed's defaults (``data/sampler.py``): the native gatherer and the
 prefetch thread, which gathers and copies the next chunks while the card
@@ -69,12 +75,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from multidisttorch_tpu_torch import telemetry as _telemetry
 from multidisttorch_tpu_torch.data.datasets import Dataset
 from multidisttorch_tpu_torch.data.sampler import EvalDataIterator, StackedTrialDataIterator, _local_rows, _to_device
 from multidisttorch_tpu_torch.hpo._threefry import pbt_explore_key, pbt_perturb_factor, pbt_perturb_factors
 from multidisttorch_tpu_torch.models.vae import VAE, StackedVAE, init_vae_params
 from multidisttorch_tpu_torch.parallel.cluster import process_world
 from multidisttorch_tpu_torch.parallel.mesh import TrialGroup, default_groups, setup_groups
+from multidisttorch_tpu_torch.telemetry.events import get_bus
 from multidisttorch_tpu_torch.train.checkpoint import _adam_state
 from multidisttorch_tpu_torch.train.steps import (
     StackedTrainState,
@@ -160,6 +168,39 @@ def _rank(sums: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     sanitized = np.asarray(sums, np.float32).copy()
     sanitized[np.isnan(sanitized)] = np.inf
     return np.argsort(sanitized, kind="stable"), sanitized
+
+
+def _emit_generation(mode: str, gen: int, scores: np.ndarray, order: np.ndarray, lrs: np.ndarray, exploits: list,
+                     prev_order: Optional[np.ndarray], global_step: int) -> None:
+    """The ``pbt_*`` telemetry seam (nothing when off), as in the JAX
+    package: one ``pbt_gen`` per generation with the population's
+    statistics (best/median loss, exploit count, rank churn, lr quantiles),
+    one ``pbt_exploit`` per exchange edge."""
+    bus = get_bus()
+    if bus is None:
+        return
+    k = len(order)
+    finite = scores[np.isfinite(scores)]
+    data = dict(
+        generation=gen,
+        mode=mode,
+        population=k,
+        best_lane=int(order[0]),
+        best_loss=float(scores[order[0]]),
+        median_loss=float(np.median(finite)) if finite.size else None,
+        exploit_count=len(exploits),
+        lr_min=float(np.min(lrs)),
+        lr_median=float(np.median(lrs)),
+        lr_max=float(np.max(lrs)),
+    )
+    if prev_order is not None:
+        # Rank churn: the fraction of lanes whose rank position changed.
+        data["rank_churn"] = round(float(np.mean(order != prev_order)), 4)
+    bus.emit("pbt_gen", step=global_step, **data)
+    for e in exploits:
+        bus.emit("pbt_exploit", step=global_step, lane=e["to"], generation=gen, mode=mode, src=e["from"],
+                 dst=e["to"], new_lr=e["new_lr"], src_loss=float(scores[e["from"]]),
+                 dst_loss=float(scores[e["to"]]))
 
 
 def _noise_seed(seed: int, member: int, local_rank: int) -> int:
@@ -401,6 +442,7 @@ def run_pbt(
     member's final state (the parity surface). ``model_builder(cfg)``
     swaps the model family (per-group mode only; module docstring).
     """
+    _telemetry.configure_from_env()
     if fused and model_builder is not None:
         raise NotImplementedError(
             "run_pbt(fused=True, model_builder=...) is not ported yet: ROADMAP A.16b (the fused lanes are "
@@ -430,6 +472,7 @@ def run_pbt(
     # packages' pbt.json read alike.
     result = PBTResult(best_member=-1, best_eval_loss=float("inf"), mode="submesh")
     t0 = time.time()
+    prev_order = None
 
     for gen in range(cfg.generations):
         tg = time.perf_counter()
@@ -477,6 +520,9 @@ def run_pbt(
                 log0(f"PBT gen {gen}: member {bad_id} (loss {scores[bad_id]:.2f}) exploits {good_id} "
                      f"(loss {scores[good_id]:.2f}), lr -> {float(new_lr):.2e}", trial=bad)
         book["generation_s"].append(time.perf_counter() - tg)
+        _emit_generation("submesh", gen, scores, order, lrs, exploits, prev_order,
+                         (gen + 1) * cfg.steps_per_generation)
+        prev_order = order
         _record_generation(result, gen, sums, scores, order, lrs_before, exploits)
 
     final_states = ([members[i].final_state() if i in members else None for i in range(K)]
@@ -522,6 +568,7 @@ def _run_pbt_fused(
     book = _new_book()
     result = PBTResult(best_member=-1, best_eval_loss=float("inf"), mode="fused")
     t0 = time.time()
+    prev_order = None
 
     batches = next(chunks)
     for gen in range(cfg.generations):
@@ -551,6 +598,8 @@ def _run_pbt_fused(
                 log0(f"PBT gen {gen}: lane {e['to']} (loss {scores[e['to']]:.2f}) exploits {e['from']} "
                      f"(loss {scores[e['from']]:.2f}), lr -> {e['new_lr']:.2e}", trial=group)
         book["generation_s"].append(time.perf_counter() - tg)
+        _emit_generation("fused", gen, scores, order, lrs, exploits, prev_order, (gen + 1) * S)
+        prev_order = order
         _record_generation(result, gen, sums, scores, order, lrs_before, exploits)
 
     book["captures"] = gen_step.captures

@@ -1,7 +1,7 @@
 """Trial supervision policy: failure classification and retry budgets.
 
 A copy of ``multidisttorch_tpu/hpo/supervision.py`` over the port's own
-error classes; its telemetry event is ROADMAP A.10.
+error classes, with its ``failure_classified`` bus event.
 
 The sweep's unit of failure is ONE trial attempt. What happens next is
 a pure function of the failure's *class*, not its text:
@@ -34,6 +34,7 @@ import numpy as np
 
 from multidisttorch_tpu_torch.faults.inject import HostPreemption
 from multidisttorch_tpu_torch.parallel.cluster import PREEMPTION_EXIT_CODE, AgreementTimeout
+from multidisttorch_tpu_torch.telemetry.events import get_bus
 from multidisttorch_tpu_torch.train.guards import DivergenceError
 
 INFRA = "infra"
@@ -59,9 +60,24 @@ class UnretryableError(ValueError):
 
 
 def classify_failure(exc: BaseException, *, trial_id=None) -> str:
-    """Map an attempt's exception to its supervision class. ``trial_id``
-    is accepted for the JAX package's signature; the port emits no
-    telemetry event with it yet (ROADMAP A.10)."""
+    """Map an attempt's exception to its supervision class. Every
+    decision is a ``failure_classified`` bus event (``trial_id``, when the
+    caller knows it, rides on it), so a chaos trace shows what the
+    supervisor decided to do about each fault."""
+    cls = _classify(exc)
+    bus = get_bus()
+    if bus is not None:
+        bus.emit(
+            "failure_classified",
+            trial_id=trial_id,
+            failure_class=cls,
+            exc_type=type(exc).__name__,
+            error=str(exc)[:300],
+        )
+    return cls
+
+
+def _classify(exc: BaseException) -> str:
     if isinstance(exc, DivergenceError):
         return DIVERGENCE
     if isinstance(exc, UnretryableError):

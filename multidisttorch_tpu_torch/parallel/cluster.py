@@ -22,6 +22,7 @@ that a dead peer would block forever becomes a named error instead.
 
 from __future__ import annotations
 
+import gc
 import os
 import re
 from dataclasses import dataclass
@@ -180,8 +181,15 @@ def initialize_runtime(
 
 
 def shutdown_runtime() -> None:
-    """Tear down the ``torch.distributed`` world, if one was brought up."""
+    """Tear down the ``torch.distributed`` world, if one was brought up.
+
+    Collects garbage first: a DDP reducer that nothing references any more
+    but a reference cycle can hold a process group's last reference, and
+    its destructor then joins gloo's threads inside
+    ``destroy_process_group``, where a rank has been seen to hang at exit
+    (ROADMAP C.17). Callers drop their trial states before calling this."""
     if dist.is_available() and dist.is_initialized():
+        gc.collect()
         dist.destroy_process_group()
 
 

@@ -1,0 +1,295 @@
+"""Process-local structured event bus with a durable JSONL sink.
+
+A copy of ``multidisttorch_tpu/telemetry/events.py`` (that module imports
+no jax, but its package does on import), with the same event records and
+file format, so either package reads the other's stream.
+
+One :class:`Event` per interesting host-side occurrence — trial
+lifecycle, stacking decisions, lane retire/refill, failure
+classification, retry scheduling, checkpoint save/restore/scan-back,
+injected faults, collective agreements. Events are typed (``kind``),
+wall-clock timestamped, and tagged with whatever identity the seam
+knows (``trial_id`` / ``lane`` / ``attempt`` / ``step`` / ``group_id``);
+free-form payload rides in ``data``.
+
+Durability model mirrors the sweep ledger (``hpo/ledger.py``): the sink
+is an append-only JSONL file (truncated at :func:`configure` — one run
+per file, so re-runs never mix streams), one event per line, flushed
+per append
+(no fsync — telemetry is observability, not control state; losing the
+tail on a crash is acceptable where losing a ledger line is not).
+:func:`read_events` skips undecodable lines, so a torn tail costs at
+most the final event.
+
+The in-memory side is a BOUNDED ring: the newest ``queue_max`` events
+stay addressable for in-process consumers (run summaries, tests);
+overflow drops the OLDEST and counts the drops (``Bus.dropped``) — a
+telemetry flood must never grow host memory without bound or stall the
+dispatch loop.
+
+Zero-cost-when-off: module state holds ``None`` until
+:func:`configure`; every emit seam in the codebase guards with
+``bus = get_bus();  if bus is not None: bus.emit(...)`` so the off path
+is one global read — no :class:`Event` is ever constructed
+(tests/test_torch_telemetry.py enforces this on the driver's hot paths).
+
+Thread-safety: ``emit`` takes a lock — the driver's scheduling loop is
+single-threaded, but checkpoint writes emit from the background writer
+thread (``hpo/driver.py``'s ``_write_ckpt``).
+
+Fleet identity: in a multi-host sweep every shard must say WHO wrote
+it, or the cross-host merge (the JAX package's ``telemetry/fleet.py``, ROADMAP A.11) cannot attribute a
+line to a host after the process that wrote it is gone. The identity is
+**bus-level**, stamped once at :func:`configure` (``host`` = the stable
+host slot, ``world`` = the elastic world epoch; both default from the
+supervisor-provided ``MDT_HOST_SLOT`` / ``MDT_WORLD_EPOCH`` env) and
+applied to every event at emit. Single-host streams stay byte-stable:
+an unset tag is never serialized.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import IO, Optional
+
+EVENTS_NAME = "events.jsonl"
+
+
+@dataclass
+class Event:
+    """One telemetry event. ``kind`` is the taxonomy key
+    (docs/OBSERVABILITY.md); identity tags are ``None`` when the
+    emitting seam doesn't know them. ``host``/``world`` are the fleet
+    tags (stable host slot, elastic world epoch) stamped by the bus —
+    never set per-emit."""
+
+    kind: str
+    ts: float
+    trial_id: Optional[int] = None
+    lane: Optional[int] = None
+    attempt: Optional[int] = None
+    step: Optional[int] = None
+    group_id: Optional[int] = None
+    host: Optional[int] = None
+    world: Optional[int] = None
+    data: dict = field(default_factory=dict)
+
+    def to_dict(self) -> dict:
+        d = {"kind": self.kind, "ts": self.ts}
+        for k in (
+            "trial_id", "lane", "attempt", "step", "group_id",
+            "host", "world",
+        ):
+            v = getattr(self, k)
+            if v is not None:
+                d[k] = v
+        if self.data:
+            d["data"] = self.data
+        return d
+
+
+def _env_int(name: str) -> Optional[int]:
+    v = os.environ.get(name, "").strip()
+    if not v:
+        return None
+    try:
+        return int(v)
+    except ValueError:
+        return None
+
+
+class Bus:
+    """The process-local event bus (construct via :func:`configure`)."""
+
+    def __init__(
+        self,
+        path: Optional[str] = None,
+        queue_max: int = 4096,
+        *,
+        host: Optional[int] = None,
+        world: Optional[int] = None,
+    ):
+        if queue_max < 1:
+            raise ValueError(f"queue_max must be >= 1, got {queue_max}")
+        self.path = path
+        self.queue_max = queue_max
+        # Fleet identity (host slot / world epoch): stamped on every
+        # event this bus emits. None = single-host stream — the tags
+        # are then never serialized, keeping the stream byte-identical
+        # to a pre-fleet one.
+        self.host = host
+        self.world = world
+        self.dropped = 0
+        self.emitted = 0
+        # Optional per-emit observer (the incident plane's flight ring
+        # + detector — telemetry/incident.py). Called OUTSIDE the emit
+        # lock with the event's serialized dict, so a tap that itself
+        # emits (the detector's `incident` events) re-enters cleanly.
+        # None when unarmed: the off path is one attribute read.
+        self.tap = None
+        self._recent: deque[Event] = deque()
+        self._lock = threading.Lock()
+        self._sink: Optional[IO[str]] = None
+        if path is not None:
+            # Truncate, don't append: one bus = one run's stream. A new
+            # configure() against the same directory (a re-run banking
+            # into artifacts/, a fresh chaos drill) must never mix the
+            # previous run's events into this run's exports. Appends
+            # WITHIN a run — including the chaos harness's driver
+            # restarts, which share one telemetry scope — go through
+            # this one handle.
+            self._sink = open(path, "w")
+
+    def emit(
+        self,
+        kind: str,
+        *,
+        trial_id: Optional[int] = None,
+        lane: Optional[int] = None,
+        attempt: Optional[int] = None,
+        step: Optional[int] = None,
+        group_id: Optional[int] = None,
+        **data,
+    ) -> Event:
+        """Record one event: append to the bounded ring (drop-oldest on
+        overflow) and to the JSONL sink (flushed, not fsync'd), then
+        hand the serialized dict to the tap (if armed)."""
+        rec = None
+        with self._lock:
+            # Timestamp INSIDE the lock: emitters race (the driver loop
+            # vs the background checkpoint writer), and stamping before
+            # acquisition could write the file in timestamp-inverted
+            # order — the monotonicity the chaos gate checks.
+            ev = Event(
+                kind=kind,
+                ts=time.time(),
+                trial_id=trial_id,
+                lane=lane,
+                attempt=attempt,
+                step=step,
+                group_id=group_id,
+                host=self.host,
+                world=self.world,
+                data=data,
+            )
+            self.emitted += 1
+            if len(self._recent) >= self.queue_max:
+                self._recent.popleft()
+                self.dropped += 1
+            self._recent.append(ev)
+            if self._sink is not None or self.tap is not None:
+                rec = ev.to_dict()
+            if self._sink is not None:
+                try:
+                    self._sink.write(json.dumps(rec, default=str) + "\n")
+                    self._sink.flush()
+                except (OSError, ValueError):
+                    # Observability must never kill the sweep: a full
+                    # disk (or a stream closed under us — ValueError)
+                    # degrades to in-memory-only telemetry.
+                    try:
+                        self._sink.close()
+                    except (OSError, ValueError):
+                        pass
+                    self._sink = None
+        tap = self.tap
+        if tap is not None and rec is not None:
+            try:
+                tap(rec)
+            except Exception:  # noqa: BLE001 — a tap never kills emit
+                pass
+        return ev
+
+    def recent(self) -> list[Event]:
+        """Snapshot of the bounded in-memory ring (oldest first)."""
+        with self._lock:
+            return list(self._recent)
+
+    def close(self) -> None:
+        with self._lock:
+            if self._sink is not None:
+                try:
+                    self._sink.close()
+                except OSError:
+                    pass
+                self._sink = None
+
+
+_bus: Optional[Bus] = None
+
+
+def get_bus() -> Optional[Bus]:
+    """The active bus, or ``None`` when telemetry is off. Hot-path
+    seams branch on this — the off cost is one global read."""
+    return _bus
+
+
+def configure(
+    path: Optional[str] = None,
+    *,
+    queue_max: int = 4096,
+    host: Optional[int] = None,
+    world: Optional[int] = None,
+) -> Bus:
+    """Install a fresh bus (closing any previous one). ``host``/``world``
+    are the fleet identity tags; when not given they default from the
+    elastic supervisor's worker environment (``MDT_HOST_SLOT`` /
+    ``MDT_WORLD_EPOCH``) so any process launched into a world is tagged
+    without its seams knowing about fleets. Absent both, events carry
+    no tags at all (single-host byte-stability)."""
+    global _bus
+    if _bus is not None:
+        _bus.close()
+    if host is None:
+        host = _env_int("MDT_HOST_SLOT")
+    if world is None:
+        world = _env_int("MDT_WORLD_EPOCH")
+    _bus = Bus(path=path, queue_max=queue_max, host=host, world=world)
+    return _bus
+
+
+def disable() -> None:
+    global _bus
+    if _bus is not None:
+        _bus.close()
+    _bus = None
+
+
+def read_events_counting(path: str) -> tuple[list[dict], int]:
+    """All decodable events from a JSONL sink, in append order, plus
+    the count of skipped undecodable (torn/garbled) lines. The ONE
+    torn-tolerant reader — the fleet merge reports the count, plain
+    readers drop it."""
+    events: list[dict] = []
+    torn = 0
+    try:
+        f = open(path)
+    except OSError:
+        return events, torn
+    with f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                ev = json.loads(line)
+            except json.JSONDecodeError:
+                torn += 1
+                continue
+            if isinstance(ev, dict):
+                events.append(ev)
+            else:
+                torn += 1
+    return events, torn
+
+
+def read_events(path: str) -> list[dict]:
+    """All decodable events from a JSONL sink, in append order. A torn
+    final line (crash mid-append) is skipped, not fatal — the same
+    contract as :meth:`hpo.ledger.SweepLedger.load`."""
+    return read_events_counting(path)[0]

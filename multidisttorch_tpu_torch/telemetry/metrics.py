@@ -1,0 +1,493 @@
+"""Metrics registry: counters, gauges, fixed-bucket histograms, and the
+sweep's step-time accounting.
+
+Counterpart of ``multidisttorch_tpu/telemetry/metrics.py``: :class:`Counter`,
+:class:`Gauge`, :class:`Histogram`, :class:`StepSeries` and
+:class:`MetricsRegistry` are its copies. The registry holds the whole
+sweep's timing state keyed by series name + labels, understands **stacked
+buckets** (a mark that advances K lanes is one dispatch but K lane-steps:
+``StepSeries`` keeps both books), and separates **dispatch time** (what a
+mark measures in an asynchronous loop) from **device-inclusive time**
+(sampled every ``device_sample_every`` marks by waiting on the marked
+tensor's device).
+
+Two places differ from the JAX package:
+
+- ``StepSeries.mark``'s sampled wait is a ``torch.cuda.Event`` recorded on
+  the tensor's stream and synchronized (a CPU tensor needs none); it is
+  skipped while a CUDA graph is being captured.
+- The port compiles nothing with XLA, so there is no compile listener. Its
+  counterpart is the CUDA-graph capture: ``train/steps.py``'s
+  ``_GraphedChunks`` calls :func:`record_capture` with each capture's
+  warm-up and capture seconds, under the metric names the JAX listener
+  writes (``compile_count``, ``compile_seconds``), plus per-program series.
+
+Histograms use FIXED log-spaced bucket bounds, so percentiles are
+bucket-upper-bound estimates computed in O(buckets) with zero per-
+observation allocation.
+
+Zero-cost-when-off: like the event bus, module state is ``None`` until
+:func:`configure`; hot paths guard with ``reg = get_registry(); if reg
+is not None: ...``.
+"""
+
+from __future__ import annotations
+
+import bisect
+import threading
+import time
+from typing import Optional
+
+# Log-spaced seconds: 10 us .. ~100 s, 4 buckets per decade.
+DEFAULT_TIME_BUCKETS = tuple(
+    round(10.0 ** (e / 4.0), 9) for e in range(-20, 9)
+)
+
+
+class Counter:
+    __slots__ = ("value",)
+
+    def __init__(self):
+        self.value = 0.0
+
+    def inc(self, n: float = 1.0) -> None:
+        self.value += n
+
+
+class Gauge:
+    __slots__ = ("value",)
+
+    def __init__(self):
+        self.value = 0.0
+
+    def set(self, v: float) -> None:
+        self.value = float(v)
+
+    def set_max(self, v: float) -> None:
+        """Watermark semantics: keep the high-water mark (the device
+        memory books' peak gauges)."""
+        v = float(v)
+        if v > self.value:
+            self.value = v
+
+
+class Histogram:
+    """Fixed-bucket histogram with percentile estimates.
+
+    ``bounds`` are the buckets' inclusive upper edges; observations
+    above the last bound land in the implicit +Inf bucket. Percentiles
+    return the upper bound of the bucket where the cumulative count
+    crosses the rank (+Inf bucket reports the max seen) — the standard
+    Prometheus-style estimate.
+    """
+
+    __slots__ = ("bounds", "counts", "count", "sum", "max", "exemplars")
+
+    def __init__(self, bounds=DEFAULT_TIME_BUCKETS):
+        self.bounds = tuple(float(b) for b in bounds)
+        self.counts = [0] * (len(self.bounds) + 1)
+        self.count = 0
+        self.sum = 0.0
+        self.max = 0.0
+        # bucket index -> (value, id) of the WORST observation that
+        # landed there (Prometheus-exemplar shape): the service books
+        # pass a submission id, so a bad p99 bucket names the exact
+        # trace behind it. Populated only when callers pass exemplar=
+        # — plain observes pay one None check.
+        self.exemplars: dict = {}
+
+    def observe(self, v: float, exemplar=None) -> None:
+        i = bisect.bisect_left(self.bounds, v)
+        self.counts[i] += 1
+        self.count += 1
+        self.sum += v
+        if v > self.max:
+            self.max = v
+        if exemplar is not None:
+            cur = self.exemplars.get(i)
+            if cur is None or v > cur[0]:
+                self.exemplars[i] = (v, exemplar)
+
+    def _percentile_bucket(self, p: float) -> int:
+        rank = p / 100.0 * self.count
+        seen = 0
+        for i, c in enumerate(self.counts):
+            seen += c
+            if seen >= rank and c:
+                return i
+        return len(self.counts) - 1
+
+    def percentile(self, p: float) -> float:
+        if self.count == 0:
+            return 0.0
+        i = self._percentile_bucket(p)
+        return self.bounds[i] if i < len(self.bounds) else self.max
+
+    def percentile_bounds(self, p: float) -> tuple:
+        """Honest error bar on :meth:`percentile`: the ``(lower,
+        upper)`` edges of the bucket the ``p``-th rank falls in. The
+        true quantile lies somewhere in this closed interval; the point
+        estimate reports the upper edge, so with log-spaced bounds the
+        worst-case overstatement is the bucket ratio (one decade /
+        buckets-per-decade). For the implicit +Inf bucket the upper
+        edge is the max seen (the only finite bound available)."""
+        if self.count == 0:
+            return (0.0, 0.0)
+        i = self._percentile_bucket(p)
+        lo = self.bounds[i - 1] if i > 0 else 0.0
+        hi = self.bounds[i] if i < len(self.bounds) else self.max
+        return (lo, hi)
+
+    def percentile_exemplar(self, p: float):
+        """The worst-offender exemplar of the bucket the ``p``-th
+        percentile falls in (or, if that bucket collected none, the
+        highest exemplar-carrying bucket at or below it) — the
+        "jump from a bad percentile to its trace" hook. ``None`` when
+        no exemplars were ever recorded."""
+        if self.count == 0 or not self.exemplars:
+            return None
+        i = self._percentile_bucket(p)
+        for j in range(i, -1, -1):
+            got = self.exemplars.get(j)
+            if got is not None:
+                v, ident = got
+                return {"value_s": v, "id": ident}
+        return None
+
+    def stats(self) -> dict:
+        if self.count == 0:
+            return {"count": 0}
+        out = {
+            "count": self.count,
+            "sum_s": self.sum,
+            "mean_s": self.sum / self.count,
+            "p50_s": self.percentile(50),
+            "p95_s": self.percentile(95),
+            "p99_s": self.percentile(99),
+            "max_s": self.max,
+            # Bucket-bound error bars: each percentile above is the
+            # UPPER edge of its bucket; the true quantile lies within
+            # [lo, hi] (docs/OBSERVABILITY.md "Honest percentiles").
+            "bucket_err": {
+                "p50_s": list(self.percentile_bounds(50)),
+                "p95_s": list(self.percentile_bounds(95)),
+                "p99_s": list(self.percentile_bounds(99)),
+            },
+        }
+        if self.exemplars:
+            # Absent when no caller passed exemplars: pre-exemplar
+            # stats blocks stay byte-identical.
+            out["p99_exemplar"] = self.percentile_exemplar(99)
+            out["exemplars"] = {
+                (
+                    str(self.bounds[i])
+                    if i < len(self.bounds)
+                    else "+Inf"
+                ): {"value_s": round(v, 6), "id": ident}
+                for i, (v, ident) in sorted(self.exemplars.items())
+            }
+        return out
+
+
+class StepSeries:
+    """Step-time books for one trial or one stacked bucket.
+
+    ``mark(steps=s, lanes=k)`` closes the interval since the previous
+    mark: one *dispatch* advancing ``s`` optimizer steps on each of
+    ``k`` live lanes (classic trials are the k=1, s=1-or-fused case).
+    This is the stacked-mode fix for the old ``StepTimer`` semantics,
+    where a K-lane mark silently read as ONE trial's step time: the
+    bucket's dispatch latency and its lane-step count are kept apart,
+    and the per-lane effective step rate is derived from the totals
+    (``lane_steps / total_s``), never from misattributing the bucket's
+    latency to a single lane.
+    """
+
+    __slots__ = (
+        "dispatch", "device", "steps", "lane_steps", "dispatches",
+        "total_s", "wait_s", "input_bytes", "_last", "_marks",
+        "_sample_every",
+    )
+
+    def __init__(self, sample_every: int = 100):
+        self.dispatch = Histogram()
+        self.device = Histogram()
+        self.steps = 0
+        self.lane_steps = 0
+        self.dispatches = 0
+        self.total_s = 0.0
+        # Input-stall book (docs/DATA.md): seconds the dispatch loop
+        # spent BLOCKED obtaining the next device-ready batch (fed by
+        # the stacked iterator's wait hook), plus the host bytes that
+        # crossed — input_bound_frac and bytes/sec derive from these.
+        self.wait_s = 0.0
+        self.input_bytes = 0
+        self._last: Optional[float] = None
+        self._marks = 0
+        self._sample_every = max(0, int(sample_every))
+
+    def mark(
+        self, value=None, *, steps: int = 1, lanes: int = 1
+    ) -> Optional[float]:
+        """Close one dispatch interval. ``value``, when given, enables
+        the sparse device-inclusive sample: every ``sample_every``-th
+        mark waits for the tensor's device (:func:`_wait_on_device`) so
+        the interval includes device execution, not just host enqueue.
+
+        Returns the observed per-step seconds for DISPATCH marks (None
+        for the opening mark) — the anomaly layer's straggler detector
+        feeds on it without a second clock read. Device-synced samples
+        return None too: a block_until_ready interval includes the
+        drained backlog of every in-flight dispatch, which on an async
+        backend is orders of magnitude above the dispatch median —
+        feeding it to the detector would fire a false straggler (and
+        burn a capture window) every sample_every marks. A mark taken
+        while a graph is captured never waits."""
+        now = time.perf_counter()
+        if self._last is None:
+            self._last = now
+            return None
+        self._marks += 1
+        synced = False
+        if (
+            value is not None
+            and self._sample_every
+            and self._marks % self._sample_every == 0
+        ):
+            synced = _wait_on_device(value)
+            now = time.perf_counter()
+        dt = now - self._last
+        self._last = now
+        per_step = dt / steps if steps > 0 else dt
+        (self.device if synced else self.dispatch).observe(per_step)
+        self.dispatches += 1
+        self.steps += steps
+        self.lane_steps += steps * lanes
+        self.total_s += dt
+        return None if synced else per_step
+
+    def open_interval(self) -> None:
+        """Break the measurement chain: the next mark OPENS a fresh
+        interval instead of closing one that spans non-dispatch work.
+        Called at epoch/attempt boundaries (eval loops, checkpoint
+        writes, retry backoff gaps) so neither the dispatch books nor
+        the straggler detector read boundary work as a slow step."""
+        self._last = None
+
+    def note_wait(self, dt: float, nbytes: int = 0) -> None:
+        """Record one input stall: ``dt`` seconds the dispatch loop sat
+        blocked obtaining a batch that carried ``nbytes`` host bytes.
+        O(1), no locking — same single-writer discipline as mark()."""
+        self.wait_s += dt
+        self.input_bytes += nbytes
+
+    def snapshot(self) -> dict:
+        out = {
+            "dispatches": self.dispatches,
+            "steps": self.steps,
+            "lane_steps": self.lane_steps,
+            "total_s": self.total_s,
+            "wait_s": self.wait_s,
+            "input_bytes": self.input_bytes,
+            "dispatch": self.dispatch.stats(),
+            "device_sampled": self.device.stats(),
+        }
+        if self.total_s > 0:
+            out["steps_per_s"] = self.steps / self.total_s
+            out["per_lane_steps_per_s"] = self.lane_steps / self.total_s
+            # The stall intervals happen INSIDE the mark-to-mark
+            # timeline, so their ratio to total_s is the fraction of
+            # dispatch wall the loop spent input-blocked (clamped: the
+            # round's first batch waits before its opening mark).
+            out["input_bound_frac"] = min(1.0, self.wait_s / self.total_s)
+            out["input_bytes_per_s"] = self.input_bytes / self.total_s
+        return out
+
+
+class MetricsRegistry:
+    """Name+labels keyed store of counters, gauges, histograms, and
+    step series. Label sets are frozen into sorted tuples so the same
+    logical series always lands in the same slot."""
+
+    def __init__(self, device_sample_every: int = 100):
+        self._lock = threading.Lock()
+        self.device_sample_every = device_sample_every
+        self._counters: dict = {}
+        self._gauges: dict = {}
+        self._hists: dict = {}
+        self._steps: dict = {}
+
+    @staticmethod
+    def _key(name: str, labels: dict) -> tuple:
+        return (name, tuple(sorted((k, str(v)) for k, v in labels.items())))
+
+    def counter(self, name: str, **labels) -> Counter:
+        k = self._key(name, labels)
+        with self._lock:
+            c = self._counters.get(k)
+            if c is None:
+                c = self._counters[k] = Counter()
+        return c
+
+    def gauge(self, name: str, **labels) -> Gauge:
+        k = self._key(name, labels)
+        with self._lock:
+            g = self._gauges.get(k)
+            if g is None:
+                g = self._gauges[k] = Gauge()
+        return g
+
+    def histogram(
+        self, name: str, bounds=DEFAULT_TIME_BUCKETS, **labels
+    ) -> Histogram:
+        k = self._key(name, labels)
+        with self._lock:
+            h = self._hists.get(k)
+            if h is None:
+                h = self._hists[k] = Histogram(bounds)
+        return h
+
+    def step_series(self, key: str) -> StepSeries:
+        with self._lock:
+            s = self._steps.get(key)
+            if s is None:
+                s = self._steps[key] = StepSeries(
+                    sample_every=self.device_sample_every
+                )
+        return s
+
+    def step_mark(
+        self, key: str, value=None, *, steps: int = 1, lanes: int = 1
+    ) -> Optional[float]:
+        """The driver's per-dispatch seam (see :class:`StepSeries`).
+        Returns the observed per-step seconds (None on the opening
+        mark) so the caller can feed the anomaly detector for free."""
+        return self.step_series(key).mark(value, steps=steps, lanes=lanes)
+
+    def gauge_value(self, name: str, **labels) -> Optional[float]:
+        """Read a gauge WITHOUT creating it (None when absent) — the
+        device-books join reads many maybe-absent gauges and must not
+        pollute the registry with zeros."""
+        k = self._key(name, labels)
+        with self._lock:
+            g = self._gauges.get(k)
+        return None if g is None else g.value
+
+    def step_series_snapshots(self) -> dict:
+        """``{key: snapshot}`` for every step series (no creation)."""
+        with self._lock:
+            items = list(self._steps.items())
+        return {k: s.snapshot() for k, s in items}
+
+    def snapshot(self) -> dict:
+        """Everything, JSON-ready — the run-summary's metrics block."""
+        def fmt(k: tuple) -> str:
+            name, labels = k
+            if not labels:
+                return name
+            return name + "{" + ",".join(
+                f'{lk}="{lv}"' for lk, lv in labels
+            ) + "}"
+
+        with self._lock:
+            return {
+                "counters": {
+                    fmt(k): c.value for k, c in self._counters.items()
+                },
+                "gauges": {fmt(k): g.value for k, g in self._gauges.items()},
+                "histograms": {
+                    fmt(k): h.stats() for k, h in self._hists.items()
+                },
+                "step_series": {
+                    k: s.snapshot() for k, s in self._steps.items()
+                },
+            }
+
+    def series_items(self):
+        """(kind, name, labels, obj) tuples for the Prometheus dump."""
+        with self._lock:
+            out = []
+            for (name, labels), c in self._counters.items():
+                out.append(("counter", name, labels, c))
+            for (name, labels), g in self._gauges.items():
+                out.append(("gauge", name, labels, g))
+            for (name, labels), h in self._hists.items():
+                out.append(("histogram", name, labels, h))
+            for key, s in self._steps.items():
+                out.append(("step_series", "step_time_s", (("key", key),), s))
+            return out
+
+
+_registry: Optional[MetricsRegistry] = None
+
+
+def _wait_on_device(value) -> bool:
+    """Wait until the work producing ``value`` (a tensor) has run on its
+    device: on a card, an event recorded on the current stream and
+    synchronized; on the CPU the work has run already. Returns whether the
+    mark counts as a device sample (False while a CUDA graph is captured:
+    nothing has run yet, and a sync would fail the capture)."""
+    import torch
+
+    if isinstance(value, torch.Tensor) and value.device.type == "cuda":
+        if torch.cuda.is_current_stream_capturing():
+            return False
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(value.device))
+        ev.synchronize()
+    return True
+
+
+def get_registry() -> Optional[MetricsRegistry]:
+    """The active registry, or ``None`` when telemetry is off."""
+    return _registry
+
+
+def configure(device_sample_every: int = 100) -> MetricsRegistry:
+    global _registry
+    _registry = MetricsRegistry(device_sample_every=device_sample_every)
+    return _registry
+
+
+def disable() -> None:
+    global _registry
+    _registry = None
+
+
+def record_capture(program: str, warmup_s: float, capture_s: float) -> None:
+    """What one CUDA-graph capture cost, into the active registry (a no-op
+    with telemetry off): ``compile_count`` and ``compile_seconds`` (the
+    JAX package's compile-listener names, totals over every program), and
+    per program ``compile_count{program=}`` and
+    ``compile_seconds{program=,phase="warmup"|"capture"}``. ``warmup_s``
+    is the eager warm-up chunk's host time, 0 for a program captured after
+    its owner was warm; ``capture_s`` covers the capture and the graph's
+    instantiation."""
+    reg = _registry
+    if reg is None:
+        return
+    reg.counter("compile_count").inc()
+    reg.counter("compile_seconds").inc(warmup_s + capture_s)
+    reg.counter("compile_count", program=program).inc()
+    reg.counter("compile_seconds", program=program, phase="warmup").inc(warmup_s)
+    reg.counter("compile_seconds", program=program, phase="capture").inc(capture_s)
+
+
+def capture_books(registry: Optional[MetricsRegistry] = None) -> dict:
+    """``{program: {"captures", "warmup_s", "capture_s"}}`` from the
+    registry's :func:`record_capture` series (empty when telemetry is off)."""
+    reg = registry or _registry
+    if reg is None:
+        return {}
+    out: dict = {}
+    for kind, name, labels, obj in reg.series_items():
+        lab = dict(labels)
+        prog = lab.get("program")
+        if kind != "counter" or prog is None:
+            continue
+        book = out.setdefault(prog, {"captures": 0, "warmup_s": 0.0, "capture_s": 0.0})
+        if name == "compile_count":
+            book["captures"] = int(obj.value)
+        elif name == "compile_seconds" and lab.get("phase") in ("warmup", "capture"):
+            book[f"{lab['phase']}_s"] = obj.value
+    return out

@@ -34,6 +34,11 @@ Restores copy into the live state's own tensors and never replace them:
 a CUDA graph captured over a trial's parameters and Adam state keeps their
 addresses (``train/steps.py::GraphedMultiStep``).
 
+Telemetry: the JAX package's checkpoint events ride the bus when it is on
+(``ckpt_save`` once a save has landed, ``ckpt_restore``, the restore scan's
+``ckpt_scan_reject`` with its reason, ``ckpt_scan_restore`` and
+``ckpt_scan_none``; ``ckpt_store.sweep_ckpt_dir`` emits ``ckpt_gc``).
+
 Not ported here: the JAX package's RAM snapshot cache (ROADMAP A.12's
 drain) and its coordination-service ``agreed_restore_step`` (A.11); a
 multi-rank group agrees on its restore step over its own process group
@@ -54,6 +59,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
+from multidisttorch_tpu_torch.telemetry.events import get_bus
 from multidisttorch_tpu_torch.train import _msgpack, ckpt_store
 from multidisttorch_tpu_torch.train.steps import TrainState
 
@@ -212,6 +218,7 @@ def save_state(
     receives the save's written/reused byte split.
     """
     fmt = format if format is not None else "v1"
+    t0 = time.perf_counter()
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tree = state if isinstance(state, dict) else train_state_to_tree(state)
     # Test seam: a bounded persist delay makes the snapshot-vs-persist
@@ -249,6 +256,23 @@ def save_state(
     )
     if stats_out is not None:
         stats_out.update(stats)
+    bus = get_bus()
+    if bus is not None:
+        # Emitted once the whole save (state, CRC sidecar, retention) has
+        # landed, so wall_s covers the full checkpoint cost. Runs on the
+        # driver's background writer thread; the bus is locked.
+        meta_src = metadata if metadata is not None else {}
+        bus.emit(
+            "ckpt_save",
+            step=meta_src.get("step"),
+            path=path,
+            nbytes=stats["total_bytes"],
+            epoch=meta_src.get("completed_epochs"),
+            wall_s=round(time.perf_counter() - t0, 6),
+            format=stats["format"],
+            new_bytes=stats["new_bytes"],
+            reused_bytes=stats["reused_bytes"],
+        )
     return path
 
 
@@ -430,13 +454,18 @@ def valid_candidates_by_step(
     winning a step collision. Candidates that fail ``accept_meta`` or
     record no ``step`` are left out. The read side of a multi-rank
     group's restore agreement."""
+    bus = get_bus()
     out: dict[int, tuple[str, dict]] = {}
     for cand in checkpoint_candidates(path):
-        ok, meta, _ = verify_checkpoint(cand)
+        ok, meta, reason = verify_checkpoint(cand)
         if not ok:
+            if bus is not None and reason != "missing":
+                bus.emit("ckpt_scan_reject", path=cand, reason=reason)
             continue
         meta = meta or {}
         if accept_meta is not None and not accept_meta(meta):
+            if bus is not None:
+                bus.emit("ckpt_scan_reject", path=cand, reason="meta rejected")
             continue
         if "step" not in meta:
             continue
@@ -445,21 +474,31 @@ def valid_candidates_by_step(
 
 
 def _read_tree(path: str) -> dict:
+    return _read_tree_format(path)[0]
+
+
+def _read_tree_format(path: str) -> tuple[dict, str]:
+    """The state tree at ``path`` and its format, ``"v1"`` or ``"v2"``."""
     with open(path, "rb") as f:
         blob = f.read()
     if ckpt_store.is_manifest_blob(blob):
         manifest = ckpt_store.load_manifest(blob)
-        return ckpt_store.restore_arrays(manifest, ckpt_store.ChunkStore(ckpt_store.chunk_dir_for(path)))
-    return _msgpack.unpackb(blob)
+        return ckpt_store.restore_arrays(manifest, ckpt_store.ChunkStore(ckpt_store.chunk_dir_for(path))), "v2"
+    return _msgpack.unpackb(blob), "v1"
 
 
-def restore_state(state: TrainState, path: str) -> TrainState:
+def restore_state(state: TrainState, path: str, *, group_id: Optional[int] = None) -> TrainState:
     """Restore the checkpoint at ``path`` (v1 or v2, either package's)
     into the live ``state`` in place (:func:`load_train_state_tree`) and
     return it. Strict single-file semantics: a torn or corrupt ``path``
-    raises; :func:`restore_latest_valid` is the scan-back sibling."""
-    load_train_state_tree(state, _read_tree(path))
+    raises; :func:`restore_latest_valid` is the scan-back sibling.
+    ``group_id`` tags the ``ckpt_restore`` event."""
+    tree, fmt = _read_tree_format(path)
+    load_train_state_tree(state, tree)
     _count(restores=1)
+    bus = get_bus()
+    if bus is not None:
+        bus.emit("ckpt_restore", group_id=group_id, path=path, format=fmt)
     return state
 
 
@@ -468,23 +507,36 @@ def restore_latest_valid(
     path: str,
     *,
     accept_meta: Optional[Callable[[dict], bool]] = None,
+    group_id: Optional[int] = None,
 ) -> Optional[tuple[TrainState, dict, str]]:
     """Restore the newest checkpoint that verifies, scanning back past
     torn or corrupt candidates (the latest file, then ``keep_last``
     history). ``accept_meta`` gates candidates on their sidecar; rejected
     ones are skipped like corrupt ones. Returns ``(state, metadata,
     used_path)``, or None when nothing valid remains (a supervisor then
-    retries from scratch: recovery degrades, never wedges)."""
+    retries from scratch: recovery degrades, never wedges). Every rejected
+    candidate is a ``ckpt_scan_reject`` bus event with its reason."""
+    bus = get_bus()
     for cand in checkpoint_candidates(path):
-        ok, meta, _ = verify_checkpoint(cand)
+        ok, meta, reason = verify_checkpoint(cand)
         if not ok:
+            if bus is not None:
+                bus.emit("ckpt_scan_reject", path=cand, reason=reason)
             continue
         meta = meta or {}
         if accept_meta is not None and not accept_meta(meta):
+            if bus is not None:
+                bus.emit("ckpt_scan_reject", path=cand, reason="meta rejected")
             continue
         try:
-            restore_state(state, cand)
-        except Exception:  # noqa: BLE001 — scan on (CRC can't catch all)
+            restore_state(state, cand, group_id=group_id)
+        except Exception as e:  # noqa: BLE001 — scan on (CRC can't catch all)
+            if bus is not None:
+                bus.emit("ckpt_scan_reject", path=cand, reason=f"restore failed: {type(e).__name__}")
             continue
+        if bus is not None:
+            bus.emit("ckpt_scan_restore", step=meta.get("step"), path=cand, epoch=meta.get("completed_epochs"))
         return state, meta, cand
+    if bus is not None:
+        bus.emit("ckpt_scan_none", path=path)
     return None

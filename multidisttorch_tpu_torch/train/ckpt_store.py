@@ -5,7 +5,7 @@ refcounts and manifests, so either package restores the other's
 checkpoints. :func:`build_manifest` takes the state-dict tree itself
 (``train.checkpoint.train_state_to_tree``) where the JAX package derives
 it with flax's ``to_state_dict``; the manifest has no sharding record
-(ROADMAP A.13), and the GC emits no telemetry event (ROADMAP A.10).
+(ROADMAP A.13). The GC emits the JAX package's ``ckpt_gc`` bus event.
 
 The v1 checkpoint (``train/checkpoint.py``) rewrites the FULL model as
 one msgpack blob per save and retains keep-last-K history as full
@@ -703,4 +703,15 @@ def sweep_ckpt_dir(
     report["dir"] = ckpt_dir
     report["manifests"] = counts["manifests"]
     report["manifests_unreadable"] = counts["unreadable"]
+    from multidisttorch_tpu_torch.telemetry.events import get_bus
+
+    bus = get_bus()
+    if bus is not None:
+        bus.emit(
+            "ckpt_gc",
+            dir=ckpt_dir,
+            orphans_removed=report["orphans_removed"],
+            bytes_freed=report["orphan_bytes_freed"],
+            leaked_refs_reconciled=report["leaked_refs_reconciled"],
+        )
     return report

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Sequence
 
@@ -66,6 +67,7 @@ from multidisttorch_tpu_torch.ops.losses import (
 )
 from multidisttorch_tpu_torch.parallel.collectives import group_pmean, group_psum
 from multidisttorch_tpu_torch.parallel.mesh import TrialGroup
+from multidisttorch_tpu_torch.telemetry.metrics import get_registry, record_capture
 
 
 @dataclass
@@ -325,6 +327,10 @@ class _GraphedChunks:
       to be a replay): the caller passes ``warm``, which runs the same work
       on a scratch copy of the state; the chunk is then captured and
       replayed at once.
+    - *What a capture costs.* With telemetry on, each capture's warm-up
+      and capture seconds go to the metrics registry
+      (``telemetry.metrics.record_capture``, per program: the class and
+      the chunk length).
     - *State a graph holds that changes by value* (an unstacked optimizer's
       Python-float lr): :meth:`drop` forgets the owner's graphs, and its
       next chunk is captured anew.
@@ -370,6 +376,17 @@ class _GraphedChunks:
         self.captures += 1
         return _Captured(graph, statics, losses, scope, keep)
 
+    def _timed_capture(self, warm_s: float, steps, inputs, *capture_args) -> _Captured:
+        """:meth:`_capture`, and what it cost into the metrics registry
+        (``telemetry.metrics.record_capture``) when telemetry is on: the
+        program is the class and the chunk's length, ``inputs[0]``'s first
+        dimension."""
+        t0 = time.perf_counter()
+        cap = self._capture(steps, inputs, *capture_args)
+        if get_registry() is not None:
+            record_capture(f"{type(self).__name__}[K={inputs[0].shape[0]}]", warm_s, time.perf_counter() - t0)
+        return cap
+
     def _chunk(self, owner, key, steps: Callable, inputs: tuple, generators: tuple, drop_grads: Callable,
                keep: tuple, warm: Optional[Callable] = None) -> torch.Tensor:
         """Run one chunk, ``steps(*inputs) -> losses``: eagerly as the
@@ -380,6 +397,7 @@ class _GraphedChunks:
         if cap is None and id(owner) not in self._warm:
             # Warm-up on the capturing stream: this chunk's real training,
             # or the caller's scratch run.
+            t0 = time.perf_counter()
             current = torch.cuda.current_stream(self._device)
             self._stream.wait_stream(current)
             with torch.cuda.stream(self._stream):
@@ -387,11 +405,16 @@ class _GraphedChunks:
             current.wait_stream(self._stream)
             losses.record_stream(current)
             self._warm.add(id(owner))
-            cap = self._graphs[key] = self._capture(steps, inputs, generators, drop_grads, keep)
+            if get_registry() is not None:
+                # The capture below starts with a device-wide sync anyway;
+                # waiting here first only splits its time from the warm-up's.
+                self._stream.synchronize()
+            warm_s = time.perf_counter() - t0
+            cap = self._graphs[key] = self._timed_capture(warm_s, steps, inputs, generators, drop_grads, keep)
             if warm is None:
                 return losses
         if cap is None:
-            cap = self._graphs[key] = self._capture(steps, inputs, generators, drop_grads, keep)
+            cap = self._graphs[key] = self._timed_capture(0.0, steps, inputs, generators, drop_grads, keep)
         for static, x in zip(cap.inputs, inputs):
             if x is not None:
                 static.copy_(x)
@@ -437,6 +460,59 @@ class GraphedMultiStep(_GraphedChunks):
         )
         state.step += k
         return state, {"loss_sum": losses}
+
+
+class _HookedStep:
+    """A step with host-side hooks around its call (:func:`wrap_step_with_hooks`).
+    Every other attribute reads through to the wrapped step, so the
+    driver's and ``chip_smoke.py``'s ``replays``, ``graphed`` and
+    ``captures`` are the step's own."""
+
+    def __init__(self, step_fn: Callable, before: Optional[Callable], transform_batch: Optional[Callable],
+                 batch_argnum: int):
+        self.__wrapped__ = step_fn
+        self._before = before
+        self._transform = transform_batch
+        self._argnum = batch_argnum
+
+    def __call__(self, *args, **kwargs):
+        args = list(args)
+        batch = args[self._argnum]
+        if self._before is not None:
+            self._before(batch)
+        if self._transform is not None:
+            args[self._argnum] = self._transform(batch)
+        return self.__wrapped__(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.__wrapped__, name)
+
+
+def wrap_step_with_hooks(
+    step_fn: Callable,
+    *,
+    before: Optional[Callable] = None,
+    transform_batch: Optional[Callable] = None,
+    batch_argnum: int = 1,
+) -> Callable:
+    """Host-side hook seam around a step: the fault-injection thread-through
+    point (``faults/inject.py`` via ``hpo/driver.py``), as in the JAX
+    package.
+
+    ``before(batch)`` runs before the call (it may raise, an injected crash
+    or preemption, or stall, an injected straggler); ``transform_batch(batch)
+    -> batch`` may replace the batch operand (NaN poisoning for divergence
+    drills). Both see the positional argument at ``batch_argnum``. A hook
+    that raises does so before anything is dispatched, so no graph is left
+    half replayed. The step itself is untouched: a replaced batch reaches a
+    captured graph through its static-input copy, so nothing is captured
+    anew. A ``None``-hook wrap is the bare step itself; otherwise the
+    wrapper keeps it as ``__wrapped__`` and reads every other attribute
+    (``replays``, ``graphed``, ``captures``) from it.
+    """
+    if before is None and transform_batch is None:
+        return step_fn
+    return _HookedStep(step_fn, before, transform_batch, batch_argnum)
 
 
 def make_eval_step(group: TrialGroup, *, beta: float = 1.0, with_recon: bool = True) -> Callable:

@@ -256,6 +256,8 @@ def test_example_cli_runs_on_cpu(tmp_path, capsys):
 PORT_MODULES = (
     "models.conv_vae", "models.moe_vae", "models.resnet", "models.layers", "models._flax", "ops.moe",
     "train.classifier", "examples.beta_vae_cifar", "examples.moe_vae_hpo", "examples.resnet_hpo",
+    "faults.plan", "faults.inject", "faults.harness", "telemetry.events", "telemetry.metrics",
+    "telemetry.export", "telemetry.console", "examples.chaos_run",
 )
 
 

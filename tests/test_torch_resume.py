@@ -2,9 +2,9 @@
 
 Mirrors of ``tests/test_hpo.py``'s resume and isolation tests and of
 ``tests/test_faults.py``'s supervision drills, on the CPU at hidden 16,
-latent 4, 256 rows, batch 32 (8 steps an epoch). The port has no fault
-plans (ROADMAP A.10), so faults are injected by wrapping the driver's data
-iterator or ``save_state``. On the CPU a resumed or retried sweep ends
+latent 4, 256 rows, batch 32 (8 steps an epoch). Faults are injected here
+by wrapping the driver's data iterator or ``save_state``; the fault plans'
+own drills are in ``tests/test_torch_faults.py``. On the CPU a resumed or retried sweep ends
 bit-identical to the uninterrupted one: parameters, Adam moments, step,
 history and generator states. Also: a sweep the JAX package checkpointed
 resumed by the port, the snapshot being the boundary's state while the
