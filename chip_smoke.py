@@ -156,6 +156,26 @@ Phases, in order; any failure exits non-zero and prints no result:
     retried from its epoch-1 checkpoint: bit-identical under
     ``cudnn.deterministic``, within ``_graph_within_spread``'s bound of the
     uninterrupted runs under the defaults (ROADMAP C.18);
+16. compile and dispatch (run before 13; phases 1-15 run with the program
+    registry off, ``MDT_AOT_ADMISSION=0``, so they hold the per-trial graphs
+    they held before it; 16 turns it on, the port's default): (a) a slot's
+    generator takes each trial's stream by value (two trials through one
+    slot captured ahead equal their own graphs), then six seed replicas
+    (3 seeds x 2 lrs) of the 784-400-20 VAE, one MNIST-sized epoch at batch
+    128 in chunks of 10 on two groups, three ways: a fresh registry per
+    trial (6 captures), one shared registry (2, the replicas hit) and
+    ``precompile=True`` (2, every admission a hit or a wait): losses and
+    final checkpoints bit-identical, each trial's admission latency
+    printed; (b) a crash in epoch 2 under the farm, the retry resumed
+    through its slot, bit-identical to the fault-free run; (c) 12 programs
+    captured by farm workers while a stacked bucket replays on the other
+    group with the native feed live: the bucket's lanes unchanged; (d) two
+    stacked buckets on one group, one capture between them, and a second
+    fused PBT run taking the first's generation (cache_hit from generation
+    2); (e) eviction under ``MDT_REGISTRY_MAX_PROGRAMS=2`` frees the slot,
+    the scan quarantines a truncated ELBO library, the canary passes on the
+    real libraries; (f) the cold-start bench's cold, precompiled and
+    cache-warm children with its gates;
 13. a ``kernels`` JSON line, then the result line.
 
 Exits 1 without a result when CUDA is unavailable or the port is not
@@ -3123,6 +3143,432 @@ class _Lines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
+# --- phase 16: compile and dispatch (the program registry, the farm, the
+# quarantine and the cold-start bench) ---------------------------------------
+
+# 16a's sweep: 3 seeds x 2 lrs of the 784-400-20 VAE, one MNIST-sized epoch
+# at batch 128 in chunks of 10 (468 steps: 46 chunks and a tail of 8).
+COMPILE_SEEDS, COMPILE_LRS = (0, 1, 2), (1e-3, 2e-3)
+
+
+def _registry_sweep(E, what: str, cfgs, groups, train, test, tmp: str, *, reset_each: bool = False,
+                    reset: bool = True, **kw) -> dict:
+    """One way of 16a (or a run of 16b-d): the registry emptied and the
+    launch counts set to 0 just before, telemetry on, everything read just
+    after. ``reset_each`` runs every config alone on its group (item j on
+    group j % n, the driver's own placement) with the registry emptied
+    before each: every admission captures inline."""
+    from multidisttorch_tpu_torch import telemetry
+    from multidisttorch_tpu_torch.compile.registry import get_executable_registry
+    from multidisttorch_tpu_torch.hpo.driver import run_hpo
+    from multidisttorch_tpu_torch.telemetry.events import EVENTS_NAME, read_events
+    from multidisttorch_tpu_torch.telemetry.export import SweepFold
+    from multidisttorch_tpu_torch.telemetry.metrics import capture_books
+
+    reg = get_executable_registry()
+    if reset:
+        reg.reset()
+    # This thread's stream only: a farm worker may be capturing, and a
+    # device-wide sync fails a capture.
+    torch.cuda.current_stream().synchronize()
+    for key in E.LAUNCHES:
+        E.LAUNCHES[key] = 0
+    tel, out = os.path.join(tmp, what, "tel"), os.path.join(tmp, what, "out")
+    t0 = time.time()
+    with telemetry.telemetry_run(tel):
+        if reset_each:
+            results = []
+            for j, cfg in enumerate(cfgs):
+                reg.reset()
+                results += run_hpo([cfg], train, test, groups=[groups[j % len(groups)]], out_dir=out, verbose=False,
+                                   save_images=False, **kw)
+        else:
+            results = run_hpo(cfgs, train, test, groups=groups, out_dir=out, verbose=False, save_images=False, **kw)
+        torch.cuda.current_stream().synchronize()
+        books = capture_books()
+    wall = time.time() - t0
+    fold = SweepFold()
+    for ev in read_events(os.path.join(tel, EVENTS_NAME)):
+        fold.feed(ev)
+    snap = reg.snapshot()
+    check(not any(v["status"] == "failed" for v in snap.values()), f"16 {what}: a FAILED registry entry: {snap}")
+    check(not any(v["held"] for v in snap.values()), f"16 {what}: a slot was not given back: {snap}")
+    return {"results": sorted(results, key=lambda r: r.trial_id), "fold": fold, "wall": wall,
+            "launches": dict(E.LAUNCHES), "snapshot": snap, "out": out, "books": books,
+            "graphs": sum(b["captures"] for b in books.values())}
+
+
+def _same_sweep(ck, a: dict, b: dict, what: str) -> None:
+    """Every trial of two runs: the same per-epoch losses and test loss (float
+    hex) and the same final checkpoint, bit for bit."""
+    check(len(a["results"]) == len(b["results"]), f"{what}: {len(a['results'])} vs {len(b['results'])} trials")
+    for x, y in zip(a["results"], b["results"]):
+        check(x.trial_id == y.trial_id and x.status == y.status == "completed",
+              f"{what}: trial {x.trial_id} {x.status} {x.error} / {y.status} {y.error}")
+        hx = [float(h["avg_train_loss"]).hex() for h in x.history]
+        hy = [float(h["avg_train_loss"]).hex() for h in y.history]
+        check(hx == hy and float(x.final_test_loss).hex() == float(y.final_test_loss).hex(),
+              f"{what}: trial {x.trial_id} losses {hx} {x.final_test_loss!r} vs {hy} {y.final_test_loss!r}")
+        _same_checkpoint(ck, a["out"], b["out"], f"{what} trial {x.trial_id}", trial_id=x.trial_id)
+
+
+def _admissions(fold) -> dict:
+    """trial id -> [(outcome, admission seconds), ...] in attempt order."""
+    out: dict = {}
+    for a in fold.admissions:
+        out.setdefault(a["trial_id"], []).append((a["outcome"], a["admission_s"]))
+    return out
+
+
+def slot_generator_check(group) -> None:
+    """16a, first: a slot's generator, registered with the slot's graph,
+    takes each trial's stream by value (``Generator.set_state``), so two
+    trials served one after the other by one slot draw exactly the noise
+    each draws through a graph of its own."""
+    from multidisttorch_tpu_torch.compile import programs as cprog
+    from multidisttorch_tpu_torch.hpo.driver import TrialConfig
+    from multidisttorch_tpu_torch.models.vae import VAE, init_vae_params
+    from multidisttorch_tpu_torch.train.steps import create_train_state, make_multi_step
+
+    cfg = TrialConfig(trial_id=0, fused_steps=4)
+    key = cprog.single_key(group, cfg, cprog.bucket_key_of(cfg))
+    x = torch.rand(3, 4, 128, 784, generator=torch.Generator().manual_seed(5)).to(group.device)
+    slot = cprog.build_single_slot(group, cfg, key)  # captured ahead, on scratch state
+
+    def trial(seed, via_slot):
+        state = create_train_state(group, init_vae_params(VAE(), seed), cfg.lr)
+        gen = torch.Generator(device=group.device).manual_seed(1000 + seed)
+        if via_slot:
+            state, gen, multi = slot.bind(state, gen), slot.generator, slot.step
+        else:
+            multi = make_multi_step(group)
+        losses = torch.cat([multi(state, x[i], generator=gen)[1]["loss_sum"] for i in range(3)])
+        return losses, {k: v.clone() for k, v in state.model.state_dict().items()}, gen.get_state()
+
+    for seed in (3, 4):
+        a, b = trial(seed, True), trial(seed, False)
+        check(torch.equal(a[0], b[0]) and all(torch.equal(a[1][k], b[1][k]) for k in a[1])
+              and torch.equal(a[2], b[2]),
+              f"16a: a slot-served trial (seed {seed}) differs from its own graphs: losses {a[0]} vs {b[0]}")
+    check(slot.step.captures == 1 and slot.step.replays == 6,
+          f"16a: the slot captured {slot.step.captures} times and replayed {slot.step.replays}, expected 1 and 6")
+    slot.free()
+    print("16a slot generator: two trials through one slot (captured ahead on scratch state), 3 chunks of 4 each: "
+          "losses, parameters and generator states bit-identical to each trial's own graphs; 1 capture, 6 replays")
+
+
+def registry_parity(E, smi: str, train, test, tmp: str) -> dict:
+    """16a: the six seed replicas three ways (a fresh registry per trial, one
+    shared registry, the farm), bit-identical; captures per way."""
+    from multidisttorch_tpu_torch.hpo.driver import TrialConfig
+    from multidisttorch_tpu_torch.parallel.mesh import setup_groups
+    from multidisttorch_tpu_torch.train import checkpoint as ck
+
+    groups = setup_groups(2, devices=["cuda:0"] * 2)
+    slot_generator_check(groups[0])
+    # Item j on group j % 2 with lr j % 2: each group's later items are its
+    # program's replicas.
+    cfgs = [TrialConfig(trial_id=j, epochs=1, batch_size=128, lr=COMPILE_LRS[j % 2], seed=COMPILE_SEEDS[j // 2],
+                        fused_steps=10, log_interval=10_000) for j in range(6)]
+    ways = {
+        "fresh": _registry_sweep(E, "16a_fresh", cfgs, groups, train, test, tmp, reset_each=True),
+        "shared": _registry_sweep(E, "16a_shared", cfgs, groups, train, test, tmp),
+        "precompile": _registry_sweep(E, "16a_precompile", cfgs, groups, train, test, tmp, precompile=True),
+    }
+    for name in ("shared", "precompile"):
+        _same_sweep(ck, ways["fresh"], ways[name], f"16a {name} vs fresh")
+    want = {"fresh": 6, "shared": 2, "precompile": 2}
+    steps = sum(r.steps for r in ways["fresh"]["results"])
+    for name, w in ways.items():
+        fold, adm = w["fold"], _admissions(w["fold"])
+        check(fold.compiles == want[name], f"16a {name}: {fold.compiles} captures, expected {want[name]}")
+        outcomes = [o for t in sorted(adm) for o, _ in adm[t]]
+        if name == "precompile":
+            check(set(outcomes) <= {"hit", "wait"} and fold.precompile.get("plan") == 1,
+                  f"16a precompile: admissions {outcomes}, farm {fold.precompile}")
+        elif name == "shared":
+            check(outcomes == ["inline", "inline", "hit", "hit", "hit", "hit"], f"16a shared: admissions {outcomes}")
+        else:
+            check(outcomes == ["inline"] * 6, f"16a fresh: admissions {outcomes}")
+        # Each ELBO kernel once per train step; the farm's captures add one
+        # warm-up chunk of 10 steps on scratch state per program.
+        extra = 10 * fold.precompile.get("scheduled", 0) if name == "precompile" else 0
+        for key in ("elbo_fwd", "elbo_bwd"):
+            check(w["launches"][key] == steps + extra,
+                  f"16a {name}: {key} launched {w['launches'][key]} times, expected {steps} + {extra}")
+        lat = ", ".join(f"t{t}: " + "/".join(f"{o} {s * 1e3:.1f} ms" for o, s in adm[t]) for t in sorted(adm))
+        print(f"16a {name}: {fold.compiles} programs captured ({w['graphs']} graphs: the chunk of 10 and the tail "
+              f"of 8 each), {fold.cache_hits} hits, sweep wall {w['wall']:.3f} s; admission latency "
+              f"(first_dispatch - attempt_start): {lat} ({smi})")
+    blocked = any(o not in ("hit", "wait") for t in _admissions(ways["precompile"]["fold"]).values() for o, _ in t)
+    check(not blocked, "16a precompile: admission_blocked_on_compile")
+    print("16a: 6 trials x 468 steps, losses and final checkpoints bit-identical across the fresh, shared and "
+          "precompiled ways; admission_blocked_on_compile 0 with the farm")
+    return {name: w["launches"] for name, w in ways.items()}
+
+
+def registry_retry(E, smi: str, train, test, tmp: str) -> dict:
+    """16b: a FaultPlan crash in epoch 2 of a precompiled sweep; the retried
+    attempt resumes from its epoch-1 checkpoint through its slot (a hit)
+    and ends bit-identical to its fault-free run."""
+    from multidisttorch_tpu_torch.faults import CRASH, FaultPlan, FaultSpec
+    from multidisttorch_tpu_torch.hpo.driver import TrialConfig
+    from multidisttorch_tpu_torch.hpo.supervision import RetryPolicy
+    from multidisttorch_tpu_torch.parallel.mesh import setup_groups
+    from multidisttorch_tpu_torch.train import checkpoint as ck
+
+    groups = setup_groups(2, devices=["cuda:0"] * 2)
+    cfgs = [TrialConfig(trial_id=j, epochs=2, batch_size=128, lr=COMPILE_LRS[j % 2], seed=j, fused_steps=10,
+                        log_interval=10_000) for j in range(2)]
+    clean = _registry_sweep(E, "16b_clean", cfgs, groups, train, test, tmp, precompile=True)
+    faulted = _registry_sweep(E, "16b_fault", cfgs, groups, train, test, tmp, precompile=True,
+                              retry=RetryPolicy(max_retries=2, backoff_base_s=0.0),
+                              fault_plan=FaultPlan(specs=(FaultSpec(CRASH, 0, step=600),)))
+    _same_sweep(ck, clean, faulted, "16b retried vs fault-free")
+    adm = _admissions(faulted["fold"])
+    check([o for o, _ in adm[0]][1:] == ["hit"] and len(adm[0]) == 2 and faulted["results"][0].attempt == 2
+          and faulted["results"][0].resumed_from_step == 468,
+          f"16b: trial 0 admissions {adm[0]}, attempt {faulted['results'][0].attempt}, resumed from "
+          f"{faulted['results'][0].resumed_from_step}")
+    print(f"16b: trial 0 crashed at step 600, retried from its epoch-1 checkpoint (step 468) through its slot "
+          f"(admissions {[o for o, _ in adm[0]]}), final checkpoint and losses bit-identical to its fault-free run; "
+          f"every slot back in the registry ({smi})")
+    return faulted["launches"]
+
+
+def farm_under_load(E, smi: str, train, test, tmp: str) -> dict:
+    """16c: farm workers capture twelve programs of group 1 while the main
+    thread replays a stacked bucket's graphs on group 0 with the native
+    feed's copy stream live; the bucket's lanes end bit-identical to its run
+    without the farm."""
+    from multidisttorch_tpu_torch.compile import programs as cprog
+    from multidisttorch_tpu_torch.compile.farm import PrecompilePool
+    from multidisttorch_tpu_torch.compile.registry import get_executable_registry
+    from multidisttorch_tpu_torch.hpo.driver import TrialConfig
+    from multidisttorch_tpu_torch.parallel.mesh import setup_groups
+
+    g0, g1 = setup_groups(2, devices=["cuda:0"] * 2)
+    bucket = [TrialConfig(trial_id=j, epochs=1, batch_size=128, lr=1e-3 * (1 + j), seed=j, fused_steps=10,
+                          log_interval=10_000) for j in range(4)]
+    kw = dict(stack_trials=True, stack_max_lanes=4, save_checkpoints=False)
+    alone = _registry_sweep(E, "16c_alone", bucket, [g0], train, test, tmp, **kw)
+    reg = get_executable_registry()
+    reg.reset()
+    pool = PrecompilePool(workers=2)
+    spans = []
+    for j in range(12):
+        cfg = TrialConfig(trial_id=100 + j, lr=1e-4 * (j + 1), fused_steps=10)
+        key = cprog.single_key(g1, cfg, cprog.bucket_key_of(cfg))
+
+        def build(cfg=cfg, key=key):
+            t0 = time.time()
+            slot = cprog.build_single_slot(g1, cfg, key)
+            spans.append((t0, time.time()))
+            return slot
+
+        pool.submit(key, build)
+    t_run = time.time()
+    loaded = _registry_sweep(E, "16c_farm", bucket, [g0], train, test, tmp, reset=False, **kw)
+    t_end = t_run + loaded["wall"]
+    check(pool.drain(timeout_s=300), "16c: the farm did not drain")
+    pool.shutdown(wait=True)
+    overlapped = sum(1 for a, b in spans if a < t_end and b > t_run)
+    check(len(spans) == 12 and overlapped >= 1, f"16c: {len(spans)} captures, {overlapped} during the bucket's run")
+    for x, y in zip(alone["results"], loaded["results"]):
+        check(x.history == y.history and float(x.final_test_loss).hex() == float(y.final_test_loss).hex(),
+              f"16c: lane of trial {x.trial_id} changed under the farm: {x.history} vs {y.history}")
+    print(f"16c: 12 programs of group 1 captured by 2 farm workers, {overlapped} of them during the stacked "
+          f"bucket's run on group 0 ({loaded['wall']:.3f} s, the native feed prefetching on its copy stream); the "
+          f"bucket's 4 lanes bit-identical to its run alone ({smi})")
+    return {"alone": alone["launches"], "farm": loaded["launches"]}
+
+
+def stacked_and_pbt_slots(E, smi: str, train, test, tmp: str) -> dict:
+    """16d: two stacked buckets of 4 lanes on one group, one after the
+    other, take one capture between them, their lanes bit-identical to the
+    per-bucket run (the registry off); a second fused PBT run takes the
+    first's captured generation, generations 2 onward booking a hit."""
+    from multidisttorch_tpu_torch import telemetry
+    from multidisttorch_tpu_torch.compile.registry import get_executable_registry
+    from multidisttorch_tpu_torch.hpo.driver import TrialConfig
+    from multidisttorch_tpu_torch.hpo.pbt import PBTConfig, run_pbt
+    from multidisttorch_tpu_torch.parallel.mesh import setup_groups
+
+    (g,) = setup_groups(1, devices=["cuda:0"])
+    kw = dict(stack_trials=True, stack_max_lanes=4, save_checkpoints=False)
+
+    def buckets():
+        return [[TrialConfig(trial_id=4 * b + j, epochs=1, batch_size=128, lr=1e-3 * (1 + j), seed=4 * b + j,
+                             fused_steps=10, log_interval=10_000) for j in range(4)] for b in range(2)]
+
+    reg = get_executable_registry()
+    runs = {}
+    cfgs = buckets()
+    for mode in ("per_bucket", "registry"):
+        if mode == "per_bucket":
+            os.environ["MDT_AOT_ADMISSION"] = "0"
+        try:
+            first = _registry_sweep(E, f"16d_{mode}_0", cfgs[0], [g], train, test, tmp, **kw)
+            second = _registry_sweep(E, f"16d_{mode}_1", cfgs[1], [g], train, test, tmp, reset=False, **kw)
+        finally:
+            os.environ.pop("MDT_AOT_ADMISSION", None)
+        launches = {k: first["launches"][k] + second["launches"][k] for k in E.LAUNCHES}
+        runs[mode] = (first["results"] + second["results"], first["fold"].compiles + second["fold"].compiles,
+                      first["fold"].cache_hits + second["fold"].cache_hits,
+                      [a["outcome"] for w in (first, second) for a in w["fold"].admissions], launches)
+    (pres, _, _, pout, _), (rres, rcap, rhits, rout, rlaunch) = runs["per_bucket"], runs["registry"]
+    check(rcap == 1 and rhits == 1 and rout == ["inline", "hit"] and pout == ["graph", "graph"],
+          f"16d buckets: {rcap} captures, {rhits} hits, admissions {rout} (registry off: {pout})")
+    for x, y in zip(pres, rres):
+        check(x.history == y.history and float(x.final_test_loss).hex() == float(y.final_test_loss).hex(),
+              f"16d: trial {x.trial_id} differs from its per-bucket run: {x.history} vs {y.history}")
+    print(f"16d buckets: two buckets of 4 lanes on one group took 1 capture between them (admissions {rout}); "
+          f"8 lanes bit-identical to the per-bucket run ({smi})")
+
+    cfg = PBTConfig(population=4, generations=3, steps_per_generation=20, batch_size=128, seed=3)
+    reg.reset()
+    for key in E.LAUNCHES:
+        E.LAUNCHES[key] = 0
+    with telemetry.telemetry_run():
+        first = run_pbt(cfg, train, test, fused=True, verbose=False, groups=[g])
+        second = run_pbt(cfg, train, test, fused=True, verbose=False, groups=[g])
+        kinds = [e.kind for e in telemetry.get_bus().recent() if e.kind in ("compile_end", "cache_hit")]
+    torch.cuda.synchronize()
+    pbt_launches = dict(E.LAUNCHES)
+    check(kinds == ["compile_end"] + ["cache_hit"] * 5, f"16d PBT: registry events {kinds}")
+    check(first.dispatch_book["captures"] == 1 and second.dispatch_book["captures"] == 0
+          and second.dispatch_book["graph_replays"] == 3,
+          f"16d PBT: captures {first.dispatch_book['captures']}, {second.dispatch_book['captures']}; second run's "
+          f"replays {second.dispatch_book['graph_replays']}")
+    check(first.history == second.history and first.final_lrs == second.final_lrs,
+          "16d PBT: the second run through the captured generation differs from the first")
+    print(f"16d PBT: two fused runs (K 4, 3 generations of 20 steps): 1 capture in the process, cache_hit on "
+          f"generations 2-3 of the first and 1-3 of the second; the same population history ({smi})")
+    return {"buckets": rlaunch, "pbt": pbt_launches}
+
+
+def eviction_and_cache(smi: str, tmp: str) -> None:
+    """16e: with ``MDT_REGISTRY_MAX_PROGRAMS=2`` a third program evicts the
+    least recently used one, whose graphs and state are freed; the scan
+    quarantines a truncated copy of the ELBO library; the canary passes on
+    the real libraries."""
+    import gc
+    import shutil
+
+    from multidisttorch_tpu_torch.compile import cache
+    from multidisttorch_tpu_torch.compile import programs as cprog
+    from multidisttorch_tpu_torch.compile.registry import ExecutableRegistry, get_executable_registry
+    from multidisttorch_tpu_torch.hpo.driver import TrialConfig
+    from multidisttorch_tpu_torch.ops import _build
+    from multidisttorch_tpu_torch.parallel.mesh import setup_groups
+
+    get_executable_registry().reset()
+    (g,) = setup_groups(1, devices=["cuda:0"])
+    _warm_pool_streams(g.device)  # the pool streams' cuBLAS workspaces live as long as the process
+    os.environ["MDT_REGISTRY_MAX_PROGRAMS"] = "2"
+    try:
+        reg = ExecutableRegistry()
+    finally:
+        os.environ.pop("MDT_REGISTRY_MAX_PROGRAMS")
+    check(reg.max_programs == 2, f"16e: the cap read {reg.max_programs}")
+    cfgs = [TrialConfig(trial_id=j, lr=1e-3 * (j + 1), fused_steps=10) for j in range(3)]
+    keys = [cprog.single_key(g, c, cprog.bucket_key_of(c)) for c in cfgs]
+
+    def mem():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    m = [mem()]
+    for c, k in zip(cfgs[:2], keys[:2]):
+        check(reg.compile_now(k, lambda c=c, k=k: cprog.build_single_slot(g, c, k)).status == "ready",
+              "16e: a slot failed")
+        m.append(mem())
+    slot_state = reg.entry(keys[0]).compiled.nbytes()
+    before = mem()
+    reg.schedule(keys[2])  # the third entry: the least recently used slot goes
+    after = mem()
+    check(reg.status(keys[0]) is None and reg.evicted == 1, f"16e: {reg.snapshot()}")
+    freed = before - after
+    check(freed >= slot_state, f"16e: eviction freed {freed} bytes, less than the slot's state ({slot_state} bytes)")
+    reg.release(keys[2])
+    reg.reset()
+    end = mem()
+    print(f"16e eviction: memory_allocated {m[0]} -> {m[1]} -> {m[2]} bytes with two slots (captured ahead), the "
+          f"third key's entry evicted the first: {freed} bytes freed (its state alone {slot_state}); after reset "
+          f"{end} bytes ({end - m[0]:+d} against before the slots) ({smi})")
+    check(end - m[0] <= (m[1] - m[0]) // 2, f"16e: {end - m[0]} bytes left after reset; one slot took {m[1] - m[0]}")
+
+    # The quarantine, on copies of the real libraries.
+    real = {cache.library_name(p.name): p for p in _build.BUILD_DIR.iterdir() if cache.library_name(p.name)}
+    scratch = os.path.join(tmp, "16e_kernels")
+    os.makedirs(scratch)
+    for p in real.values():
+        shutil.copy(p, scratch)
+    cache.seal_cache(scratch)
+    torn = os.path.join(scratch, real["elbo"].name)
+    with open(torn, "r+b") as f:
+        f.truncate(os.path.getsize(torn) // 2)
+    scan = cache.scan_cache(scratch)
+    check(scan["rejected"] == [{"entry": real["elbo"].name, "reason": "size_mismatch"}] and not os.path.exists(torn),
+          f"16e: scan {scan}")
+    shutil.copy(real["elbo"], scratch)
+    cache.seal_cache(scratch)
+    t0 = time.time()
+    can = cache.canary_quarantine(scratch, timeout_s=300)
+    check(can["passed"] and can["evicted"] == 0 and len(can["libraries"]) == len(real), f"16e canary: {can}")
+    errs = ", ".join(f"{cache.library_name(n)} {r['max_err']:.3e}" for n, r in sorted(can["libraries"].items()))
+    print(f"16e quarantine: a truncated copy of {real['elbo'].name} quarantined (size_mismatch); the canary passed "
+          f"on the {len(real)} real libraries in {time.time() - t0:.1f} s (one child each, together; max errors "
+          f"against the plain versions {errs})")
+
+
+def coldstart_phase(smi: str, tmp: str) -> None:
+    """16f: the cold-start bench's three children (cold, farm, cache-warm)
+    with its gates, at its fixed sweep cut to 2 epochs (admission is over
+    in the first; the other 6 add wall time only)."""
+    from multidisttorch_tpu_torch.compile import coldstart
+
+    t0 = time.time()
+    rec = coldstart.run_coldstart_bench(os.path.join(tmp, "16f"), device="cuda", epochs=2, timeout_s=300)
+    for mode in coldstart.MODES:
+        r = rec["modes"][mode]
+        check(r.get("ok"), f"16f {mode}: {r.get('error')} {r.get('stderr_tail', '')}")
+    check(rec["parity"], f"16f: the modes' losses differ: {rec['parity_mismatches']}")
+    check(rec["admission_blocked_on_compile"] is False and rec["admission_blocked_on_compile_warm"] is False,
+          "16f: an admission captured on the host loop with the farm on")
+    check(rec["cache_verdict"] == "enabled", f"16f: cache verdict {rec['cache_verdict']}")
+    parts = []
+    for mode in coldstart.MODES:
+        r = rec["modes"][mode]
+        lat = r["books"]["latencies_s"]
+        builds = ("built " + ", ".join(f"{n} in {s:.1f} s" for n, s in sorted(r["build_s"].items()))
+                  if r["build_s"] else "no build (sealed, canaried)")
+        parts.append(f"{mode}: mean admission {1e3 * r['books']['mean_admission_s']:.1f} ms (max "
+                     f"{1e3 * max(lat):.1f}), child {r['child_wall_s']:.1f} s, sweep {r['wall_s']:.2f} s, {builds}")
+    print(f"16f cold-start ({len(coldstart.COLDSTART_HIDDENS)} buckets, {rec['epochs']} epochs of "
+          f"{coldstart.COLDSTART_ROWS} rows at batch {coldstart.COLDSTART_BATCH}): " + "; ".join(parts)
+          + f"; speedup cold/precompiled {rec['speedup_cold_over_precompiled']:.2f}, cold/cache-warm "
+          f"{rec['speedup_cold_over_cache_warm']:.2f}; losses bit-identical; admission_blocked_on_compile 0; "
+          f"{time.time() - t0:.1f} s ({smi})")
+    print("COLDSTART_JSON " + json.dumps({k: v for k, v in rec.items() if k != "modes"}, default=str))
+
+
+def compile_phase(E, smi: str, train, test) -> dict:
+    """Phase 16, with the registry on (the port's default)."""
+    os.environ.pop("MDT_AOT_ADMISSION", None)
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        parity = registry_parity(E, smi, train, test, tmp)
+        retry = registry_retry(E, smi, train, test, tmp)
+        farm = farm_under_load(E, smi, train, test, tmp)
+        slots = stacked_and_pbt_slots(E, smi, train, test, tmp)
+        eviction_and_cache(smi, tmp)
+        coldstart_phase(smi, tmp)
+    print(f"phase 16: {time.time() - t0:.1f} s")
+    return {"parity": parity, "retry": retry, "farm": farm, "slots": slots}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail(f"torch.cuda.is_available() is False (torch {torch.__version__}); no card to drive")
@@ -3150,6 +3596,9 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("set: torch.backends.cuda.matmul.allow_tf32 = False, torch.backends.cudnn.allow_tf32 = False")
+    # Phases 1-15 hold the per-trial graphs (each trial, bucket and PBT run
+    # captures its own); phase 16 turns the program registry on.
+    os.environ["MDT_AOT_ADMISSION"] = "0"
 
     # Phase 2: build, one nvcc per source, all started together, with the
     # ELBO kernels' launch-floor build (kernels that return at once).
@@ -3359,6 +3808,10 @@ def main() -> None:
     resume = conv_resume(E, group, smi)
     _check_feeds("15")
 
+    # Phase 16: compile and dispatch, the registry on; counts set to 0 inside,
+    # just before each run.
+    comp = compile_phase(E, smi, train, test)
+
     # Phase 13: the kernels line, then the result.
     # "ms", "plain_ms" and "library_ms" are device time per call at the
     # slice's shape (batch 128, f32); "*_call_ms" add the host's per-call
@@ -3367,7 +3820,8 @@ def main() -> None:
     # kernels that return at once. "launches" counts the launches the slice's
     # train steps (phase 6), remat's graphed runs (phase 12c) and the conv
     # and MoE VAE slices (phase 14a, 14b), and the chaos drill (15a, both of
-    # its runs), the empty-plan slice (15c) and the conv resume (15d) ran,
+    # its runs), the empty-plan slice (15c), the conv resume (15d) and
+    # phase 16's registry sweeps (16a's three ways, 16b's retried run) ran,
     # graph replays included, one per wrapper call; "launches_by_path" each. "conv_vae_width" holds the
     # same times at the conv beta-VAE's shape, (128, 3072, 64) f32.
     src = "multidisttorch_tpu_torch/ops/csrc/elbo.cu"
@@ -3379,7 +3833,9 @@ def main() -> None:
                                                if "stacked" not in run},
                    "conv_vae_slice": conv["launches"][name], "moe_vae_slice": moe["launches"][name],
                    "chaos": chaos["launches"][name], "empty_plan": tele["launches"][name],
-                   "conv_resume": resume["launches"][name]}
+                   "conv_resume": resume["launches"][name],
+                   **{f"registry_{way}": n[name] for way, n in comp["parity"].items()},
+                   "registry_retry": comp["retry"][name]}
         c = conv["kernels"]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
@@ -3426,14 +3882,19 @@ def main() -> None:
     # "library_ms" is null. "launches" counts the stacked sweep's (phase 10c),
     # PBT's (phase 11a, fused K 8; phase 11b, per-group and fused K 4; phase
     # 12b, the first fused K 8 run with the feed on and off), the stacked
-    # remat runs' (phase 12c) and the stacked chaos drill's (15b, both of its
-    # runs), "launches_by_path" each.
+    # remat runs' (phase 12c), the stacked chaos drill's (15b, both of its
+    # runs) and phase 16's (16c's bucket alone and beside the farm, 16d's two
+    # buckets and two fused PBT runs), "launches_by_path" each.
     by_path = {name: {"stacked_sweep": stack_launches[name], "pbt_fused": pbt["launches"][name],
                       "pbt_per_group_k4": pbt_b["per_group"][name], "pbt_fused_k4": pbt_b["fused"][name],
                       "pbt_fused_feed_on": feed["on"]["launches"][name],
                       "pbt_fused_feed_off": feed["off"]["launches"][name],
                       **{run: n[name] for run, n in remat_launches.items() if "stacked" in run},
-                      "chaos_stacked": chaos_stacked["launches"][name]}
+                      "chaos_stacked": chaos_stacked["launches"][name],
+                      "registry_bucket_alone": comp["farm"]["alone"][name],
+                      "registry_bucket_beside_farm": comp["farm"]["farm"][name],
+                      "registry_two_buckets": comp["slots"]["buckets"][name],
+                      "registry_pbt_twice": comp["slots"]["pbt"][name]}
                for name in ("elbo_fwd_lanes", "elbo_bwd_lanes")}
     for name, key, line in (("elbo_fwd_lanes", "fwd", 134), ("elbo_bwd_lanes", "bwd", 163)):
         m = lane_main

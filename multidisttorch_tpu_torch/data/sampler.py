@@ -45,6 +45,7 @@ import torch
 from multidisttorch_tpu_torch.data import native
 from multidisttorch_tpu_torch.data.datasets import Dataset
 from multidisttorch_tpu_torch.parallel.mesh import TrialGroup
+from multidisttorch_tpu_torch.train.streams import side_stream, stream_lock
 
 
 def _prefetch_default() -> bool:
@@ -352,7 +353,7 @@ class StackedTrialDataIterator:
         self._depth = _prefetch_depth() if prefetch_depth is None else max(1, int(prefetch_depth))
         self.gather_path = _gather_path(use_native)
         # The pipeline's copies to a card run on a stream of their own.
-        self._copy_stream = (torch.cuda.Stream(group.device) if self._prefetch and group.device.type == "cuda"
+        self._copy_stream = (side_stream(group.device, self) if self._prefetch and group.device.type == "cuda"
                              else None)
 
     def set_lane(self, k: int, seed: int, epoch: int = 1) -> None:
@@ -419,7 +420,7 @@ class StackedTrialDataIterator:
         dev = self.group.device
         if dev.type != "cuda":
             return _put(chunk, self.group, 2), None
-        with torch.cuda.device(dev), torch.cuda.stream(self._copy_stream):
+        with stream_lock(self._copy_stream), torch.cuda.device(dev), torch.cuda.stream(self._copy_stream):
             x = _put(chunk, self.group, 2)
             ready = torch.cuda.Event()
             ready.record()

@@ -54,9 +54,23 @@ bucket the lane faults with the lane retry they drive. With telemetry on
 JAX driver's bus events and keeps each trial's and bucket's step series in
 the metrics registry; off, no seam constructs an event or adds a host sync.
 
+Compile and dispatch, as in the JAX package (``compile/``): a trial or
+bucket of the default family admits its train program through the
+process's registry (:func:`_admit_slot`), which holds one **program slot**
+per key: the state, generators and captured CUDA graphs of that program.
+The first admission of a key captures it (``inline``); a later trial with
+the same key on the same group (a seed replica, a retry, the next item,
+a refilled bucket) takes the slot (``hit``) and replays its graphs after
+copying its own state in by value; ``run_hpo(precompile=True)`` (or
+``MDT_PRECOMPILE=1``) captures the sweep's programs on farm threads first,
+and admission then waits cooperatively (``wait``) or takes them. A key the
+registry marks ``FAILED``, a ``model_builder`` family and a multi-process
+world keep per-trial graphs (``graph``; ``eager`` where the step does not
+capture). ``first_dispatch`` reports the outcome.
+
 What this slice does not port raises ``NotImplementedError`` naming its
-ROADMAP item: profiling, the compile farm, weight sharding and model
-parallel, pipeline stages and per-trial dataset references.
+ROADMAP item: profiling, weight sharding and model parallel, pipeline
+stages and per-trial dataset references.
 """
 
 from __future__ import annotations
@@ -76,6 +90,14 @@ import numpy as np
 import torch
 
 from multidisttorch_tpu_torch import telemetry as _telemetry
+from multidisttorch_tpu_torch.compile import programs as _programs
+from multidisttorch_tpu_torch.compile.registry import (
+    COMPILING,
+    PENDING,
+    READY,
+    SOURCE_INLINE,
+    get_executable_registry,
+)
 from multidisttorch_tpu_torch.data.datasets import Dataset
 from multidisttorch_tpu_torch.faults.inject import FaultInjector, HostPreemption, InfraFault
 from multidisttorch_tpu_torch.faults.plan import DIVERGE, FaultPlan
@@ -115,6 +137,7 @@ from multidisttorch_tpu_torch.train.steps import (
     make_sample_step,
     make_stacked_eval_step,
     make_stacked_multi_step,
+    device_turn,
     wrap_step_with_hooks,
 )
 from multidisttorch_tpu_torch.utils.imaging import save_image_grid
@@ -184,7 +207,6 @@ _UNPORTED_FIELDS = {
 
 # run_hpo arguments this slice does not port: (inert value, ROADMAP item).
 _UNPORTED_ARGS = {
-    "precompile": (None, "A.9 (compile and dispatch)"),
     "profile_dir": (None, "A.10, second part (device books and profiling)"),
     "model_parallel": (1, "A.13 (sharding)"),
     "param_shardings_builder": (None, "A.13 (sharding)"),
@@ -301,6 +323,48 @@ def _result_from_summary(cfg: TrialConfig, rec: dict, status: str) -> TrialResul
     )
 
 
+def _registry_eligible(group: TrialGroup, model_builder) -> bool:
+    """Whether a trial or bucket admits its program through the registry:
+    the default family on a one-rank group in a one-process world (the
+    JAX package's envelope); ``MDT_AOT_ADMISSION=0`` turns it off."""
+    return (model_builder is None and group.size == 1 and process_world()[0] == 1
+            and os.environ.get("MDT_AOT_ADMISSION", "1") != "0")
+
+
+def _admit_slot(key: tuple, build, state, owner) -> Iterator[None]:
+    """The one admission protocol (a generator; its value is ``(slot,
+    admission)``), the JAX package's ``_aot_admit`` for one program: while
+    the farm has the key queued or in capture, yield (the host loop steps
+    the other groups) until it is ready; then **take** the slot (``hit``,
+    or ``wait`` after waiting), or **claim** the key and capture it inline
+    through the registry (``inline``). A slot is taken only when its state
+    has the shapes of ``state``. No slot (the key ``FAILED``, a shape
+    mismatch, the wait's deadline ``MDT_AOT_WAIT_S``, or the slot held by
+    another owner) returns None and the outcome is left to the caller's
+    per-trial path."""
+    reg = get_executable_registry()
+    t0 = time.perf_counter()
+    deadline = t0 + float(os.environ.get("MDT_AOT_WAIT_S", "600"))
+    waited = False
+    while reg.status(key) in (PENDING, COMPILING) and time.perf_counter() < deadline:
+        waited = True
+        time.sleep(0.0005)
+        yield
+    slot, outcome = None, None
+    signature = reg.avals(key)
+    rejected = signature is not None and not _programs.avals_match(signature, state)
+    if not rejected:
+        slot = reg.take(key, owner)
+        if slot is not None:
+            outcome = "wait" if waited else "hit"
+    if slot is None and not rejected and reg.claim(key):
+        e = reg.compile_now(key, build, source=SOURCE_INLINE, owner=owner)
+        if e.status == READY and e.owner is owner:
+            slot, outcome = e.compiled, "inline"
+    return slot, {"outcome": outcome, "wait_s": round(time.perf_counter() - t0, 4),
+                  "program": _programs.program_label(key)}
+
+
 class _TrialRun:
     """One trial's lifecycle as a cooperative generator: each ``next()``
     dispatches one chunk of ``cfg.fused_steps`` train steps (or one eval
@@ -386,8 +450,14 @@ class _TrialRun:
             bus.emit("optimizer_state", trial_id=cfg.trial_id, group_id=group.group_id,
                      per_device_bytes=self.result.optimizer_state_bytes,
                      total_bytes=self.result.optimizer_state_bytes, zero_update=False)
-        self.multi_step = self._wrap_multi(
-            make_multi_step(group, beta=cfg.beta, grad_accum=cfg.grad_accum, remat=cfg.remat))
+        # The train program arrives at admission (the first thing run()
+        # does): a registry slot, or this trial's own graphs.
+        self.multi_step = None
+        self._program_key = (_programs.single_key(group, cfg, _programs.bucket_key_of(cfg))
+                             if _registry_eligible(group, model_builder) else None)
+        self._slot = None
+        self._admission = {"outcome": None, "wait_s": 0.0, "program": None}
+        self._replays0 = 0
         self.eval_step = make_eval_step(group, beta=cfg.beta, with_recon=save_images)
         self.sample_step = make_sample_step(group)
         self.train_iter = TrialDataIterator(
@@ -505,6 +575,38 @@ class _TrialRun:
                 gen.set_state(torch.frombuffer(bytearray(raw), dtype=torch.uint8))
 
 
+    def _admit_programs(self) -> Iterator[None]:
+        """Admission of the train program (:func:`_admit_slot`): a slot's
+        state takes this trial's by value (its fresh or restored
+        parameters, moments, step and train generator), and the trial then
+        trains through the slot's graphs; without a slot, the trial builds
+        its own ``make_multi_step`` (captured at its first chunk on a card;
+        a failed capture raises)."""
+        cfg = self.cfg
+        slot = None
+        if self._program_key is not None:
+            slot, self._admission = yield from _admit_slot(
+                self._program_key,
+                lambda: _programs.build_single_slot(self.group, cfg, self._program_key, ahead=False),
+                self.state, self)
+        if slot is not None:
+            self._slot = slot
+            self.state = slot.bind(self.state, self._train_gen)
+            self._train_gen = self._generators["train"] = slot.generator
+            self.multi_step = self._wrap_multi(slot.step)
+        else:
+            self.multi_step = self._wrap_multi(
+                make_multi_step(self.group, beta=cfg.beta, grad_accum=cfg.grad_accum, remat=cfg.remat))
+            self._admission["outcome"] = "graph" if self.multi_step.graphed else "eager"
+        self._replays0 = self.multi_step.replays
+
+    def release_programs(self) -> None:
+        """Give the trial's slot back to the registry (its end, or any
+        failure); idempotent."""
+        if self._slot is not None:
+            self._slot = None
+            get_executable_registry().give_back(self._program_key, self)
+
     def _wrap_multi(self, fn):
         """The chaos hooks around the train chunk: ``step_hook`` with the
         chunk's first step and length before it is dispatched, and
@@ -531,8 +633,7 @@ class _TrialRun:
         self._first_dispatched = True
         bus = get_bus()
         if bus is not None:
-            bus.emit("first_dispatch", trial_id=self.cfg.trial_id, group_id=self.group.group_id,
-                     outcome="graph" if self.multi_step.graphed else "eager", wait_s=0.0, program=None)
+            bus.emit("first_dispatch", trial_id=self.cfg.trial_id, group_id=self.group.group_id, **self._admission)
 
     @contextmanager
     def _guard(self):
@@ -623,6 +724,12 @@ class _TrialRun:
         )
 
     def run(self) -> Iterator[None]:
+        try:
+            yield from self._run()
+        finally:
+            self.release_programs()
+
+    def _run(self) -> Iterator[None]:
         cfg = self.cfg
         t0 = time.time()
         if self._start_epoch > cfg.epochs:
@@ -632,6 +739,7 @@ class _TrialRun:
             self.result.checkpoint = self._ckpt_path
             self._log(f"Trial {cfg.trial_id} already complete; resumed.")
             return
+        yield from self._admit_programs()
         n_per_epoch = self.train_iter.samples_per_epoch
         for epoch in range(self._start_epoch, cfg.epochs + 1):
             self._epoch_base_step = self.state.step
@@ -740,14 +848,16 @@ class _TrialRun:
             self._agree_boundary(f"epoch {epoch} boundary work")
 
         if self.group.device.type == "cuda":
-            # wall-clock covers real completion
-            torch.cuda.synchronize(self.group.device)
+            # Wall-clock covers real completion: this thread's stream, which
+            # waited on every replay. Not the whole device: a farm worker may
+            # be capturing, and a device-wide sync fails a capture.
+            torch.cuda.current_stream(self.group.device).synchronize()
         with self._guard():
             self._join_ckpt()
         self.result.wall_s = time.time() - t0
         self.result.steps = self.state.step
         self.result.host_syncs = self._host_syncs
-        self.result.graph_replays = self.multi_step.replays
+        self.result.graph_replays = self.multi_step.replays - self._replays0
         if self._is_writer:
             with self._guard():
                 os.makedirs(self.out_dir, exist_ok=True)
@@ -826,9 +936,13 @@ class _StackedBucketRun:
     bucket. Lane churn, epochs and the round's input wait are bus events;
     the bucket's step series is in the metrics registry.
 
+    The stacked program is admitted through the registry as a trial's is
+    (:func:`_admit_slot`, a stacked key: the bucket's shape and lane count
+    on its group), so every bucket of that shape on that group replays one
+    slot's graphs.
+
     Not ported here: the drain (``request_drain``, ``drain_snapshot``,
-    ROADMAP A.12), AOT admission of the programs (A.9) and the device books
-    (A.10, second part).
+    ROADMAP A.12) and the device books (A.10, second part).
     """
 
     def __init__(
@@ -905,7 +1019,13 @@ class _StackedBucketRun:
             if test_data is not None and len(test_data) > 0
             else None
         )
-        self.multi = make_stacked_multi_step(group, grad_accum=template.grad_accum, remat=template.remat)
+        # The stacked program arrives at admission (run()'s first work).
+        self.multi = None
+        self._template = template
+        self._program_key = (_programs.stacked_key(group, template, _programs.bucket_key_of(template), k)
+                             if _registry_eligible(group, None) else None)
+        self._slot = None
+        self._admission = {"outcome": None, "wait_s": 0.0, "program": None}
         self.seval = make_stacked_eval_step(group) if self.test_iter is not None else None
         self.read_lane, self.write_lane = make_lane_ops(group)
         models = [self._init_model(c.seed) for _, c in first]
@@ -927,7 +1047,7 @@ class _StackedBucketRun:
 
     def _fresh_lane(self, idx: int, cfg: TrialConfig) -> dict:
         return {"idx": idx, "cfg": cfg, "epochs_done": 0, "history": [], "steps": 0, "t0": time.time(),
-                "syncs0": self._host_syncs, "replays0": self.multi.replays}
+                "syncs0": self._host_syncs, "replays0": 0 if self.multi is None else self.multi.replays}
 
     def _log(self, *args, level: int = logging.INFO):
         if self._verbose:
@@ -945,8 +1065,38 @@ class _StackedBucketRun:
         self._first_dispatched = True
         bus = get_bus()
         if bus is not None:
-            bus.emit("first_dispatch", group_id=self.group.group_id, lanes=len(self.lanes),
-                     outcome="graph" if self.multi.graphed else "eager", wait_s=0.0, program=None)
+            bus.emit("first_dispatch", group_id=self.group.group_id, lanes=len(self.lanes), **self._admission)
+
+    def _admit_programs(self) -> Iterator[None]:
+        """Admission of the stacked program (``_TrialRun._admit_programs``'
+        sibling): a slot takes the bucket's lanes, hypers and generator
+        states by value, and the bucket trains, refills and masks lanes in
+        the slot's tensors from then on; without one, the bucket's own
+        ``make_stacked_multi_step``."""
+        t = self._template
+        slot = None
+        if self._program_key is not None:
+            slot, self._admission = yield from _admit_slot(
+                self._program_key,
+                lambda: _programs.build_stacked_slot(self.group, t, self.state.lanes, self._program_key, ahead=False),
+                self.state, self)
+        if slot is not None:
+            self._slot = slot
+            slot.bind(self.state, self.hypers, self.generators)
+            self.state, self.hypers, self.generators = slot.state, slot.hypers, slot.generators
+            self.multi = slot.step
+        else:
+            self.multi = make_stacked_multi_step(self.group, grad_accum=t.grad_accum, remat=t.remat)
+            self._admission["outcome"] = "graph" if self.multi.graphed else "eager"
+        for lane in self.lanes:
+            if lane is not None:
+                lane["replays0"] = self.multi.replays
+
+    def release_programs(self) -> None:
+        """Give the bucket's slot back (its end or failure); idempotent."""
+        if self._slot is not None:
+            self._slot = None
+            get_executable_registry().give_back(self._program_key, self)
 
     def _note_attempt_start(self, lane: dict) -> None:
         idx = lane["idx"]
@@ -1154,6 +1304,13 @@ class _StackedBucketRun:
         return sums
 
     def run(self) -> Iterator[None]:
+        try:
+            yield from self._run()
+        finally:
+            self.release_programs()
+
+    def _run(self) -> Iterator[None]:
+        yield from self._admit_programs()
         n_per_epoch = self.data.samples_per_epoch
         while any(lane is not None for lane in self.lanes):
             # Lane-scoped infra faults due this round fire before it: the
@@ -1222,7 +1379,8 @@ class _StackedBucketRun:
                 self._retire(k)
                 yield
         if self.group.device.type == "cuda":
-            torch.cuda.synchronize(self.group.device)
+            # This thread's stream only (_TrialRun.run's reason).
+            torch.cuda.current_stream(self.group.device).synchronize()
 
 
 def predicted_cost(cfg: TrialConfig, train_rows: int) -> int:
@@ -1316,7 +1474,15 @@ def run_hpo(
       and stacked buckets write no image files.
     - ``model_builder(cfg)`` builds each trial's model (any family with the
       VAE's method contract and ``init_params``), initialised from
-      ``cfg.seed`` by its family's ``init_params``.
+      ``cfg.seed`` by its family's ``init_params``; such a family keeps
+      per-trial graphs (no registry slot).
+    - ``precompile=True`` (default: ``MDT_PRECOMPILE=1``) captures every
+      program of the sweep on the farm's worker threads at entry
+      (``compile/farm.py``): admission takes a captured slot, or waits
+      cooperatively for one still in capture. Single process, default
+      family, one-rank groups; elsewhere it is ignored, as in the JAX
+      package. With it off, the registry still serves every later trial of
+      a key from the slot its first trial captured.
     - ``fault_plan`` (a ``faults.FaultPlan``, or a ``FaultInjector`` whose
       fired faults stay fired across a restarted sweep) arms the chaos
       seams (module docstring). DIVERGE injection is single-process only,
@@ -1490,6 +1656,20 @@ def run_hpo(
     # its backoff (skipped, not blocking: other queued work runs first).
     items = build_items()
     shared = [(kind, members, 0.0) for kind, members in items]
+    # The precapture farm (compile/farm.py): the plan above names every
+    # program the sweep will capture, so capture them now on worker threads,
+    # beside the first trials' training, instead of at each admission. The
+    # envelope is the registry's; the group guess (item j on group j % n)
+    # only decides which group's slot a capture fills.
+    if precompile is None:
+        precompile = os.environ.get("MDT_PRECOMPILE") == "1"
+    farm = None
+    if (precompile and single and model_builder is None
+            and all(_registry_eligible(g, None) for g in groups)):
+        from multidisttorch_tpu_torch.compile.farm import PrecompilePool
+
+        farm = PrecompilePool()
+        farm.plan_sweep([(kind, members) for kind, members, _ in shared], groups, max_lanes=stack_max_lanes)
     per_group: dict[int, list] = {g.group_id: [] for g in groups}
     if not single:
         if any(kind == "bucket" for kind, _ in items):
@@ -1737,44 +1917,57 @@ def run_hpo(
         bus.emit("sweep_start", configs=len(configs), groups=len(groups), stacked=bool(stack_trials),
                  resume=bool(resume), resilient=bool(resilient), skipped_settled=len(skipped), **fleet_id)
 
-    for g in local_groups:
-        start_next(g)
-    # Cooperative round-robin: one unit of work per trial per cycle. A
-    # retry waiting out its backoff never blocks live work; when only such
-    # retries remain, the loop sleeps to the earliest deadline.
-    while True:
+    try:
         for g in local_groups:
-            if g.group_id not in active:
-                start_next(g)  # a backoff retry may have matured
-        if not active:
-            deadline = next_ready_at()
-            if deadline is None:
-                break
-            time.sleep(max(0.0, deadline - time.time()))
-            continue
-        for g in local_groups:
-            if g.group_id not in active:
+            with device_turn():
+                start_next(g)
+        # Cooperative round-robin: one unit of work per trial per cycle. A
+        # retry waiting out its backoff never blocks live work; when only such
+        # retries remain, the loop sleeps to the earliest deadline.
+        while True:
+            for g in local_groups:
+                if g.group_id not in active:
+                    with device_turn():
+                        start_next(g)  # a backoff retry may have matured
+            if not active:
+                deadline = next_ready_at()
+                if deadline is None:
+                    break
+                time.sleep(max(0.0, deadline - time.time()))
                 continue
-            kind, i, run, gen = active[g.group_id]
-            try:
-                next(gen)
-            except StopIteration:
-                del active[g.group_id]
-                if kind == "bucket":
-                    results.update(run.results)
-                else:
-                    run.result.attempt = attempts[i]
-                    results[i] = run.result
-                    led.attempt_end(run.cfg.trial_id, chashes[i], attempts[i], "completed",
-                                    summary=_result_summary(run.result))
-                start_next(g)
-            except Exception as e:  # noqa: BLE001 — failure isolation
-                del active[g.group_id]
-                if kind == "bucket":
-                    finish_bucket(g, run, e)
-                else:
-                    finish(g, i, run, e)
-                start_next(g)
+            for g in local_groups:
+                if g.group_id not in active:
+                    continue
+                kind, i, run, gen = active[g.group_id]
+                try:
+                    with device_turn():
+                        next(gen)
+                except StopIteration:
+                    del active[g.group_id]
+                    if kind == "bucket":
+                        results.update(run.results)
+                    else:
+                        run.result.attempt = attempts[i]
+                        results[i] = run.result
+                        led.attempt_end(run.cfg.trial_id, chashes[i], attempts[i], "completed",
+                                        summary=_result_summary(run.result))
+                    with device_turn():
+                        start_next(g)
+                except Exception as e:  # noqa: BLE001 — failure isolation
+                    del active[g.group_id]
+                    if kind == "bucket":
+                        finish_bucket(g, run, e)
+                    else:
+                        finish(g, i, run, e)
+                    with device_turn():
+                        start_next(g)
+    finally:
+        # Every exit path (completion, a raised failure, a preemption)
+        # stops the farm and hands every held slot back to the registry.
+        if farm is not None:
+            farm.shutdown()
+        for _, _, _, gen in list(active.values()):
+            gen.close()
     bus = get_bus()
     if bus is not None:
         statuses: dict[str, int] = {}

@@ -531,6 +531,46 @@ def run_pbt(
     return result
 
 
+def _admit_fused_program(group: TrialGroup, cfg: PBTConfig, n_exploit: int, eval_batches: int, owner):
+    """The fused generation's program from the process's registry
+    (``compile/registry.py``; the JAX package's ``_admit_fused_program``):
+    a slot of the population's key, taken (``cache_hit``) or captured
+    inline on its first admission (one capture per program in the
+    process). Returns ``(slot, key)``; ``(None, None)`` outside the
+    registry's envelope (a multi-rank group, several processes,
+    ``MDT_AOT_ADMISSION=0``) or when the key is ``FAILED``, where the run
+    builds its own generation step (captured at its first call on a card;
+    a failed capture raises). The third value says whether this call
+    captured the slot."""
+    from multidisttorch_tpu_torch.compile import programs as _cprog
+    from multidisttorch_tpu_torch.compile.registry import READY, get_executable_registry
+
+    if group.size != 1 or process_world()[0] != 1 or os.environ.get("MDT_AOT_ADMISSION", "1") == "0":
+        return None, None, False
+    key = _cprog.pbt_gen_key(group, _cprog.bucket_key_of(cfg), lanes=cfg.population,
+                             steps_per_generation=cfg.steps_per_generation, eval_batches=eval_batches,
+                             n_exploit=n_exploit, perturb_factors=cfg.perturb_factors, lr_min=cfg.lr_min,
+                             lr_max=cfg.lr_max)
+    reg = get_executable_registry()
+    slot, captured = reg.take(key, owner), False
+    if slot is None and reg.claim(key):
+        e = reg.compile_now(key, lambda: _cprog.build_pbt_slot(group, cfg, key, eval_batches=eval_batches,
+                                                                n_exploit=n_exploit, ahead=False), owner=owner)
+        if e.status == READY and e.owner is owner:
+            slot, captured = e.compiled, True
+    return (slot, key, captured) if slot is not None else (None, None, False)
+
+
+def _take_fused_again(key: Optional[tuple], owner) -> None:
+    """Generation 2 onward: take the run's slot again, so that the books
+    (the hit count, ``cache_hit``) show every generation reusing the one
+    captured program."""
+    if key is not None:
+        from multidisttorch_tpu_torch.compile.registry import get_executable_registry
+
+        get_executable_registry().take(key, owner)
+
+
 def _run_pbt_fused(
     cfg: PBTConfig,
     train_data: Dataset,
@@ -562,8 +602,34 @@ def _run_pbt_fused(
     chunks = StackedTrialDataIterator(train_data, group, cfg.batch_size, seeds).stream_chunks(S)
     eval_imgs, eval_w, num_rows = _stage_eval_host(eval_data, group, cfg.batch_size)
     eval_batches, eval_weights = _place_eval(group, eval_imgs, eval_w)
-    gen_step = make_pbt_generation_step(group, n_exploit=n_exploit, lr_min=cfg.lr_min, lr_max=cfg.lr_max)
-    factors = torch.empty(K, dtype=torch.float32, device=dev)
+    owner = object()
+    slot, prog_key, captured = _admit_fused_program(group, cfg, n_exploit, eval_batches.shape[0], owner)
+    # This run's captures: the slot's own when it captured it here.
+    captures0 = 0 if slot is None or captured else slot.step.captures
+    if slot is not None:
+        # The population, by value, in the slot's tensors: its graph holds them.
+        slot.bind(state, hypers, generators, eval_batches, eval_weights)
+        state, hypers, generators = slot.state, slot.hypers, slot.generators
+        eval_batches, eval_weights, factors, gen_step = slot.eval_batches, slot.eval_weights, slot.factors, slot.step
+    else:
+        gen_step = make_pbt_generation_step(group, n_exploit=n_exploit, lr_min=cfg.lr_min, lr_max=cfg.lr_max)
+        factors = torch.empty(K, dtype=torch.float32, device=dev)
+    try:
+        return _fused_generations(cfg, group, state, hypers, generators, chunks, eval_batches, eval_weights,
+                                  num_rows, factors, gen_step, n_exploit, lrs, captures0, prog_key, owner, out_dir,
+                                  verbose, return_states)
+    finally:
+        if slot is not None:
+            from multidisttorch_tpu_torch.compile.registry import get_executable_registry
+
+            get_executable_registry().give_back(prog_key, owner)
+
+
+def _fused_generations(cfg, group, state, hypers, generators, chunks, eval_batches, eval_weights, num_rows, factors,
+                       gen_step, n_exploit, lrs, captures0, prog_key, owner, out_dir, verbose,
+                       return_states) -> PBTResult:
+    """The fused mode's generations, through ``gen_step``."""
+    K, S = cfg.population, cfg.steps_per_generation
     explore_key = pbt_explore_key(cfg.seed)
     book = _new_book()
     result = PBTResult(best_member=-1, best_eval_loss=float("inf"), mode="fused")
@@ -573,6 +639,8 @@ def _run_pbt_fused(
     batches = next(chunks)
     for gen in range(cfg.generations):
         tg = time.perf_counter()
+        if gen > 0:
+            _take_fused_again(prog_key, owner)
         factors.copy_(torch.from_numpy(pbt_perturb_factors(explore_key, gen, K, cfg.perturb_factors)))
         lrs_before = lrs.copy()
         replays = gen_step.replays
@@ -602,7 +670,7 @@ def _run_pbt_fused(
         prev_order = order
         _record_generation(result, gen, sums, scores, order, lrs_before, exploits)
 
-    book["captures"] = gen_step.captures
+    book["captures"] = gen_step.captures - captures0
     final_states = [_lane_state(state, k) for k in range(K)] if return_states else None
     _finish_run(result, cfg, book, lrs, t0, out_dir, final_states)
     return result

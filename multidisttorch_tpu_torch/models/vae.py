@@ -142,10 +142,33 @@ class VAE(VAEMethods, nn.Module):
         return vae_params_from_flax(tree)
 
 
+class _LaneLinear(torch.autograd.Function):
+    """``baddbmm(b, x, wᵀ)`` with the backward that ``F.linear`` takes per
+    lane: the weight's gradient is ``dyᵀ·x`` in the weight's own layout
+    (``mm_mat2_backward``'s product for a transposed weight), where
+    baddbmm's own backward forms ``xᵀ·dy`` and transposes it. The two
+    products round differently for some shapes on a CPU BLAS (an AVX-512
+    host: 9.5e-7 apart at rows 16, 16 to 4 features), and a lane must
+    round as its trial run alone."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return torch.baddbmm(b.unsqueeze(1), x, w.transpose(1, 2))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        gx = torch.bmm(dy, w) if ctx.needs_input_grad[0] else None
+        gw = torch.bmm(dy.transpose(1, 2), x) if ctx.needs_input_grad[1] else None
+        gb = dy.sum(1) if ctx.needs_input_grad[2] else None
+        return gx, gw, gb
+
+
 class StackedLinear(nn.Module):
     """K ``nn.Linear`` layers of one shape, stacked: ``weight`` ``(K, out,
     in)``, ``bias`` ``(K, out)``; ``(K, rows, in)`` to ``(K, rows, out)`` in
-    one ``torch.baddbmm``."""
+    one ``torch.baddbmm`` (:class:`_LaneLinear`)."""
 
     def __init__(self, lanes: int, in_features: int, out_features: int):
         super().__init__()
@@ -156,7 +179,7 @@ class StackedLinear(nn.Module):
         w, b = self.weight, self.bias
         if dtype != torch.float32:
             x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
-        return torch.baddbmm(b.unsqueeze(1), x, w.transpose(1, 2))
+        return _LaneLinear.apply(x, w, b)
 
 
 class StackedVAE(nn.Module):

@@ -9,7 +9,9 @@ package's ``csrc/Makefile`` flags. The libraries go to
 ``build/torch_kernels/`` at the root of the checkout, named by a hash of the
 source, of every header beside it that it includes, and of the flags,
 so an edited source or header is rebuilt and a stale library is never
-loaded. Builds happen at first use, never at import: :func:`build_all`
+loaded (``MDT_KERNEL_BUILD_DIR`` names another directory). A library that
+``compile/cache.py`` quarantines is moved out of the directory, so the
+next :func:`load` rebuilds it from its source. Builds happen at first use, never at import: :func:`build_all`
 starts one compiler per source, all together, and waits for them;
 :func:`build` builds one source, and :func:`load` returns the loaded library.
 
@@ -28,10 +30,15 @@ import os
 import re
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+# ``MDT_KERNEL_BUILD_DIR`` moves the libraries elsewhere (the cold-start
+# bench's cold child builds into an empty directory of its own).
+BUILD_DIR = Path(os.environ.get("MDT_KERNEL_BUILD_DIR") or
+                 Path(__file__).resolve().parents[2] / "build" / "torch_kernels")
 
 # Kernel library name -> its source under csrc/.
 SOURCES = {"elbo": "elbo.cu", "flash_attention": "flash_attention.cu"}
@@ -45,6 +52,11 @@ HOST_CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", "-Wall"]
 _loaded: dict[str, ctypes.CDLL] = {}
 # name -> what ptxas said about registers, shared memory and spills.
 ptxas_reports: dict[str, str] = {}
+# name -> the seconds its compiler ran, for every library built here.
+build_seconds: dict[str, float] = {}
+# One build at a time in the process: threads (the compile farm's workers)
+# that need a library together must not write one private output name.
+_BUILD_LOCK = threading.RLock()
 
 
 def find_nvcc() -> str:
@@ -116,6 +128,11 @@ def build_all(names=None) -> list[Path]:
     compiler per source, all started together; returns their paths in
     order."""
     names = [*SOURCES, *HOST_SOURCES] if names is None else list(names)
+    with _BUILD_LOCK:
+        return _build_all(names)
+
+
+def _build_all(names: list) -> list[Path]:
     jobs = []
     for name in names:
         out = library_path(name)
@@ -128,10 +145,11 @@ def build_all(names=None) -> list[Path]:
         compiler = find_cxx() if name in HOST_SOURCES else find_nvcc()
         cmd = [compiler, *_flags(name), "-o", str(tmp), str(_source(name))]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, out, tmp, cmd, proc))
+        jobs.append((name, out, tmp, cmd, proc, time.perf_counter()))
     failed = []
-    for name, out, tmp, cmd, proc in jobs:
+    for name, out, tmp, cmd, proc, t0 in jobs:
         log = proc.communicate()[0]
+        build_seconds[name] = time.perf_counter() - t0
         if name not in HOST_SOURCES:
             ptxas_reports[name] = log
         if proc.returncode != 0:
@@ -152,8 +170,8 @@ def build(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is not None:
+    with _BUILD_LOCK:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = _loaded[name] = ctypes.CDLL(str(build(name)))
         return lib
-    lib = _loaded[name] = ctypes.CDLL(str(build(name)))
-    return lib

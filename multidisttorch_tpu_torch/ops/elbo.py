@@ -68,11 +68,14 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import threading
 
 import torch
 
-# Launches the card ran since the last reset, one per wrapper call.
+# Launches the card ran since the last reset, one per wrapper call; updated
+# under _COUNT_LOCK (the compile farm's workers warm up beside the driver).
 LAUNCHES = {"elbo_fwd": 0, "elbo_bwd": 0, "elbo_fwd_lanes": 0, "elbo_bwd_lanes": 0}
+_COUNT_LOCK = threading.Lock()
 
 _FWD_THREADS = 128  # kFwdThreads in elbo.cu
 _BWD_THREADS = 256  # kBwdThreads
@@ -145,8 +148,9 @@ def capture_scope():
 def count_replay(scope: CaptureScope) -> None:
     """Add one replay's launches, those of a :func:`capture_scope`, to
     ``LAUNCHES``."""
-    for name, n in scope.launches.items():
-        LAUNCHES[name] += n
+    with _COUNT_LOCK:
+        for name, n in scope.launches.items():
+            LAUNCHES[name] += n
 
 
 def _capture() -> CaptureScope | None:
@@ -166,7 +170,8 @@ def _capture() -> CaptureScope | None:
 
 def _count(name: str, scope: CaptureScope | None) -> None:
     if scope is None:
-        LAUNCHES[name] += 1
+        with _COUNT_LOCK:
+            LAUNCHES[name] += 1
     else:
         scope.launches[name] += 1
 

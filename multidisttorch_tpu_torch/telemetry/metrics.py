@@ -483,7 +483,7 @@ def capture_books(registry: Optional[MetricsRegistry] = None) -> dict:
     for kind, name, labels, obj in reg.series_items():
         lab = dict(labels)
         prog = lab.get("program")
-        if kind != "counter" or prog is None:
+        if kind != "counter" or prog is None or name not in ("compile_count", "compile_seconds"):
             continue
         book = out.setdefault(prog, {"captures": 0, "warmup_s": 0.0, "capture_s": 0.0})
         if name == "compile_count":

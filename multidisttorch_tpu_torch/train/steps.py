@@ -13,8 +13,9 @@ local loss sum by its local rows, and DDP's average of the ranks' gradients
 is then the gradient of the global per-sample mean — the same estimator as
 the JAX package's kernel-per-shard plus ``psum`` (``steps.py:254-271``).
 
-``optax.adam(lr)`` becomes ``torch.optim.Adam(lr, betas=(0.9, 0.999),
-eps=1e-8)``. ``remat=True`` (``TrialConfig.remat``) runs the model's forward
+``optax.adam(lr)`` becomes the port's :class:`~multidisttorch_tpu_torch.train.adam.Adam`
+(``torch.optim.Adam``'s state, optax's order of operations; the stacked
+step's update is the same function). ``remat=True`` (``TrialConfig.remat``) runs the model's forward
 under ``torch.utils.checkpoint`` (``models/vae.py``), the JAX package's
 ``jax.checkpoint`` of the forward; the loss stays outside it, so each ELBO
 kernel still launches once per step, and the numbers are remat off's.
@@ -47,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Sequence
@@ -58,6 +60,8 @@ from torch.nn.parallel import DistributedDataParallel
 
 from multidisttorch_tpu_torch.models.vae import VAE, StackedVAE, lane_params, write_lane_params
 from multidisttorch_tpu_torch.ops import elbo as elbo_ops
+from multidisttorch_tpu_torch.train.adam import Adam, adam_update_, bias_corrections
+from multidisttorch_tpu_torch.train.streams import side_stream, stream_lock
 from multidisttorch_tpu_torch.ops.elbo import fused_elbo_loss_sum, fused_elbo_loss_sum_lanes
 from multidisttorch_tpu_torch.ops.losses import (
     elbo_loss_sum,
@@ -78,7 +82,7 @@ class TrainState:
     steps (``train/lm.py``) use it too."""
 
     model: torch.nn.Module
-    optimizer: torch.optim.Adam
+    optimizer: Adam
     step: int = 0
     ddp: Optional[DistributedDataParallel] = None
 
@@ -118,9 +122,7 @@ def create_train_state(
     model = model.to(group.device)
     if capturable is None:
         capturable = group.device.type == "cuda"
-    optimizer = torch.optim.Adam(
-        model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8, capturable=capturable
-    )
+    optimizer = Adam(model.parameters(), lr=lr, capturable=capturable)
     ddp = None
     if group.size > 1:
         # A family whose forward spans the group's batch (an MoE router's
@@ -276,6 +278,41 @@ class EagerMultiStep:
         return state, {"loss_sum": torch.stack(losses)}
 
 
+# The device gate: held by a thread that captures a graph (around an
+# ahead-of-time capture's warm-up too) and by the driver's thread for each
+# turn of its host loop (device_turn). A capture then never meets another
+# thread's submissions (a capture's start empties the allocator's caches,
+# and work queued meanwhile by another thread has been seen to corrupt a
+# concurrently trained bucket), while the card still runs everything
+# already queued. Re-entrant: a turn may capture inline.
+_CAPTURE_LOCK = threading.RLock()
+_GATE_WAITERS = [0]
+
+
+@contextlib.contextmanager
+def device_gate():
+    """Hold the device gate (a capture, an ahead-of-time warm-up)."""
+    _GATE_WAITERS[0] += 1
+    try:
+        _CAPTURE_LOCK.acquire()
+    finally:
+        _GATE_WAITERS[0] -= 1
+    try:
+        yield
+    finally:
+        _CAPTURE_LOCK.release()
+
+
+@contextlib.contextmanager
+def device_turn():
+    """One turn of the driver's host loop under the device gate; after it,
+    a moment for a farm worker that waits for the gate."""
+    with _CAPTURE_LOCK:
+        yield
+    if _GATE_WAITERS[0]:
+        time.sleep(0.0005)
+
+
 @dataclass
 class _Captured:
     """One captured chunk: the graph, its static inputs and losses, its
@@ -323,6 +360,10 @@ class _GraphedChunks:
     - *Other threads.* A capture prohibits unsafe CUDA calls only in its own
       thread (``capture_error_mode="thread_local"``), so the input feed's
       worker (``data/sampler.py``) goes on gathering and copying meanwhile.
+      Work another thread queues on the stream under capture would land in
+      the graph, so each object's stream is one no other live user holds
+      (``train/streams.py``), and its chunks, warm-ups and captures run
+      under that stream's lock.
     - *A warm-up that must not train* (a PBT generation, whose every run is
       to be a replay): the caller passes ``warm``, which runs the same work
       on a scratch copy of the state; the chunk is then captured and
@@ -334,12 +375,22 @@ class _GraphedChunks:
     - *State a graph holds that changes by value* (an unstacked optimizer's
       Python-float lr): :meth:`drop` forgets the owner's graphs, and its
       next chunk is captured anew.
+    - *Captured ahead of any trial* (a program slot of the compile
+      registry, ``compile/programs.py``): ``prepare`` (each subclass's)
+      warms up on a scratch copy of the state, as ``warm`` does, and
+      captures without replaying; the slot's owner is then warm, and the
+      first chunk a trial runs through it is a replay. A trial rebinds to
+      the slot by value (the slot copies its parameters, moments, counts
+      and generator states into the tensors the graphs hold).
 
     A capture that fails raises; nothing falls back to the eager loop. So
     does a device that is not a card with CUDA.
     """
 
     graphed = True
+    # The books' name for this object's captures (record_capture): a
+    # registry slot sets its program label; else the class's name.
+    program: Optional[str] = None
 
     def __init__(self, device: torch.device):
         if device.type != "cuda" or not torch.cuda.is_available():
@@ -348,7 +399,7 @@ class _GraphedChunks:
                 f"(torch.cuda.is_available() is {torch.cuda.is_available()})"
             )
         self._device = device
-        self._stream = torch.cuda.Stream(device)
+        self._stream = side_stream(device, self)
         self._graphs: dict[tuple, _Captured] = {}
         self._warm: set[int] = set()
         self.replays = 0
@@ -369,8 +420,10 @@ class _GraphedChunks:
         # "thread_local": the input feed's worker thread may allocate pinned
         # memory and copy on a stream of its own while this thread captures;
         # under the default "global" mode such a call in any thread fails the
-        # capture.
-        with elbo_ops.capture_scope() as scope:
+        # capture. One capture at a time in the process (the compile farm's
+        # workers and the driver's thread): the ELBO capture scopes are a
+        # process-wide stack.
+        with _CAPTURE_LOCK, elbo_ops.capture_scope() as scope:
             with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
                 losses = steps(*statics)
         self.captures += 1
@@ -384,15 +437,53 @@ class _GraphedChunks:
         t0 = time.perf_counter()
         cap = self._capture(steps, inputs, *capture_args)
         if get_registry() is not None:
-            record_capture(f"{type(self).__name__}[K={inputs[0].shape[0]}]", warm_s, time.perf_counter() - t0)
+            record_capture(f"{self.program or type(self).__name__}[K={inputs[0].shape[0]}]", warm_s,
+                           time.perf_counter() - t0)
         return cap
+
+    def _prepare(self, owner, key, steps: Callable, inputs: tuple, generators: tuple, drop_grads: Callable,
+                 keep: tuple, warm: Callable) -> None:
+        """Capture the key's graph ahead of its first chunk, with no replay:
+        ``warm`` (the same work on a scratch copy of the state) on the
+        capturing stream first, then the capture. ``inputs`` give only the
+        static buffers' shapes."""
+        if key in self._graphs:
+            return
+        # The kernels' build (nvcc at a library's first use) before the
+        # gate, so that it never holds up the driver's turns; a farm
+        # worker's thread starts on device 0, the capture is this object's
+        # device's.
+        elbo_ops._kernels()
+        with device_gate(), stream_lock(self._stream), torch.cuda.device(self._device):
+            t0 = time.perf_counter()
+            current = torch.cuda.current_stream(self._device)
+            self._stream.wait_stream(current)
+            with torch.cuda.stream(self._stream):
+                warm()
+            current.wait_stream(self._stream)
+            self._warm.add(id(owner))
+            self._stream.synchronize()
+            self._graphs[key] = self._timed_capture(time.perf_counter() - t0, steps, inputs, generators,
+                                                    drop_grads, keep)
+
+    def free(self) -> None:
+        """Release every graph and its private memory pool (a registry
+        slot's eviction): the graphs are reset and forgotten."""
+        for cap in self._graphs.values():
+            cap.graph.reset()
+        self._graphs.clear()
+        self._warm.clear()
 
     def _chunk(self, owner, key, steps: Callable, inputs: tuple, generators: tuple, drop_grads: Callable,
                keep: tuple, warm: Optional[Callable] = None) -> torch.Tensor:
         """Run one chunk, ``steps(*inputs) -> losses``: eagerly as the
         owner's warm-up (or, given ``warm``, that on a scratch copy and then
         a replay), else as a replay of the key's graph (captured first if
-        new)."""
+        new); on this object's stream, under its lock."""
+        with stream_lock(self._stream):
+            return self._chunk_locked(owner, key, steps, inputs, generators, drop_grads, keep, warm)
+
+    def _chunk_locked(self, owner, key, steps, inputs, generators, drop_grads, keep, warm) -> torch.Tensor:
         cap = self._graphs.get(key)
         if cap is None and id(owner) not in self._warm:
             # Warm-up on the capturing stream: this chunk's real training,
@@ -448,18 +539,52 @@ class GraphedMultiStep(_GraphedChunks):
             for k in range(batches.shape[0])
         ])
 
+    @staticmethod
+    def _key(state: TrainState, batches, eps, generator) -> tuple:
+        return (id(state.optimizer), batches.shape[0], tuple(batches.shape[1:]), batches.dtype,
+                None if eps is None else (tuple(eps.shape[1:]), eps.dtype),
+                None if generator is None else id(generator))
+
     def __call__(self, state: TrainState, batches, eps=None, generator=None):
         k = batches.shape[0]
-        key = (id(state.optimizer), k, tuple(batches.shape[1:]), batches.dtype,
-               None if eps is None else (tuple(eps.shape[1:]), eps.dtype),
-               None if generator is None else id(generator))
         losses = self._chunk(
-            state.optimizer, key, lambda b, e: self._steps(state, b, e, generator), (batches, eps),
+            state.optimizer, self._key(state, batches, eps, generator),
+            lambda b, e: self._steps(state, b, e, generator), (batches, eps),
             () if generator is None else (generator,),
             lambda: state.optimizer.zero_grad(set_to_none=True), keep=(state.optimizer, generator),
         )
         state.step += k
         return state, {"loss_sum": losses}
+
+    def prepare(self, state: TrainState, batches, eps=None, generator=None) -> None:
+        """Capture the graph a chunk shaped as ``batches`` takes, ahead of
+        it (:meth:`_GraphedChunks._prepare`): the warm-up trains a scratch
+        copy of ``state`` with a scratch generator; ``state`` itself, and
+        ``generator``, are untouched until the first replay."""
+        def warm():
+            scratch = _scratch_train_state(state)
+            sgen = None if generator is None else torch.Generator(device=self._device).manual_seed(0)
+            return self._steps(scratch, batches, eps, sgen)
+
+        self._prepare(
+            state.optimizer, self._key(state, batches, eps, generator),
+            lambda b, e: self._steps(state, b, e, generator), (batches, eps),
+            () if generator is None else (generator,),
+            lambda: state.optimizer.zero_grad(set_to_none=True), (state.optimizer, generator), warm,
+        )
+
+
+def _scratch_train_state(state: TrainState) -> TrainState:
+    """A copy of a one-rank state (the model, and an optimizer of the same
+    options holding copies of its moments and counts) for a warm-up."""
+    model = copy.deepcopy(state.model)
+    group = state.optimizer.param_groups[0]
+    optimizer = Adam(model.parameters(), lr=group["lr"], capturable=group["capturable"])
+    for q, p in zip(model.parameters(), state.model.parameters()):
+        st = state.optimizer.state.get(p)
+        if st:
+            optimizer.state[q] = {k: v.clone() for k, v in st.items()}
+    return TrainState(model=model, optimizer=optimizer, step=state.step)
 
 
 class _HookedStep:
@@ -589,8 +714,8 @@ def make_sample_step(group: TrialGroup, num_samples: int = 64) -> Callable:
 class TrialHypers:
     """Per-lane hyperparameters of a stacked bucket, each ``(K,)`` on the
     device: what may differ between lanes without changing the program.
-    ``lr`` is float64, so that a lane's step size on the CPU is the
-    unstacked optimizer's to the last bit; ``active`` is 1.0 for a lane
+    ``lr`` is float64, the host's value (the update rounds it to f32, as
+    the unstacked optimizer rounds its Python float); ``active`` is 1.0 for a lane
     that trains and 0.0 for one that is retired (its parameters, moments
     and step count stay as they are). Change them with :meth:`set_lane`,
     in place: a captured graph reads these tensors."""
@@ -667,7 +792,7 @@ def _read_lane(state: StackedTrainState, k: int) -> TrainState:
     model = VAE(sm.input_dim, sm.hidden_dim, sm.latent_dim, sm.dtype).to(dev)
     model.load_state_dict(lane_params(sm, k))
     capturable = dev.type == "cuda"
-    optimizer = torch.optim.Adam(model.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8, capturable=capturable)
+    optimizer = Adam(model.parameters(), lr=0.0, capturable=capturable)
     step = int(state.count[k].item())
     for p, m, v in zip(model.parameters(), state.exp_avg, state.exp_avg_sq):
         optimizer.state[p] = {
@@ -702,48 +827,24 @@ def create_stacked_train_state(group: TrialGroup, lanes: Sequence) -> StackedTra
     return state
 
 
-_BETA1, _BETA2, _EPS = 0.9, 0.999, 1e-8
-
-
 def _stacked_adam_update(state: StackedTrainState, hypers: TrialHypers) -> None:
     """One Adam step of every live lane from the parameters' gradients, in
     place; a retired lane (``active`` 0) keeps its parameters, moments and
     step count, selected (``torch.where``), never multiplied by the mask.
-
-    The arithmetic is torch's Adam's on the port's unstacked path, per
-    lane: on a card the ``capturable`` multi-tensor path (bias corrections
-    from the on-device step count, so a graph can hold it), on the CPU the
-    single-tensor path, whose bias corrections and step size are Python
-    floats there (here from the lanes' host-side counts and lrs; no sync,
-    the tensors lie on the CPU) rounded to f32 where it uses them.
-    """
+    The update is the unstacked optimizer's (``train/adam.py``) with each
+    lane's bias corrections and lr broadcast over its slice, so a lane
+    rounds as the same trial run alone."""
     count = state.count + 1
     live = hypers.active > 0.5
     k = state.lanes
-    if state.count.device.type == "cuda":
-        lr = hypers.lr.float()
-        step_size = torch.reciprocal((torch.pow(_BETA1, count) - 1) / lr)  # -lr / (1 - beta1^t)
-        bc2_sqrt = torch.sqrt(-(torch.pow(_BETA2, count) - 1))
-    else:
-        steps, lrs = count.tolist(), hypers.lr.tolist()
-        neg_step = torch.tensor([-(lr / (1 - _BETA1**t)) for lr, t in zip(lrs, steps)], dtype=torch.float32)
-        bc2_sqrt = torch.tensor([(1 - _BETA2**t) ** 0.5 for t in steps], dtype=torch.float32)
+    bc1, bc2 = bias_corrections(count)
+    neg_lr = (-hypers.lr).float()
+    params = list(state.model.parameters())
+    shapes = [(k,) + (1,) * (p.dim() - 1) for p in params]
     with torch.no_grad():
-        for p, m, v in zip(state.model.parameters(), state.exp_avg, state.exp_avg_sq):
-            shape = (k,) + (1,) * (p.dim() - 1)
-            g = p.grad
-            m_new = torch.lerp(m, g, 1 - _BETA1)
-            v_new = (v * _BETA2).addcmul_(g, g, value=1 - _BETA2)
-            if p.is_cuda:
-                denom = (v_new.sqrt() / bc2_sqrt.view(shape)).add_(_EPS).div_(step_size.view(shape))
-                p_new = torch.addcdiv(p, m_new, denom)
-            else:
-                denom = (v_new.sqrt() / bc2_sqrt.view(shape)).add_(_EPS)
-                p_new = p + neg_step.view(shape) * m_new / denom
-            sel = live.view(shape)
-            torch.where(sel, p_new, p, out=p)
-            torch.where(sel, m_new, m, out=m)
-            torch.where(sel, v_new, v, out=v)
+        adam_update_(params, [p.grad for p in params], state.exp_avg, state.exp_avg_sq,
+                     [bc1.view(s) for s in shapes], [bc2.view(s) for s in shapes],
+                     [neg_lr.view(s) for s in shapes], live=[live.view(s) for s in shapes])
         torch.where(live, count, state.count, out=state.count)
 
 
@@ -857,10 +958,45 @@ class GraphedStackedMultiStep(_GraphedChunks):
             for p in state.model.parameters():
                 p.grad = None
 
-        key = (id(state), id(hypers), batches.shape[0], tuple(batches.shape[1:]), batches.dtype,
-               None if eps is None else (tuple(eps.shape[1:]), eps.dtype), tuple(id(g) for g in gens))
-        losses = self._chunk(state, key, steps, (batches, eps), gens, drop_grads, keep=(state, hypers, gens))
+        losses = self._chunk(state, self._key(state, hypers, batches, eps, gens), steps, (batches, eps), gens,
+                             drop_grads, keep=(state, hypers, gens))
         return state, {"loss_sum": losses}
+
+    @staticmethod
+    def _key(state, hypers, batches, eps, gens) -> tuple:
+        return (id(state), id(hypers), batches.shape[0], tuple(batches.shape[1:]), batches.dtype,
+                None if eps is None else (tuple(eps.shape[1:]), eps.dtype), tuple(id(g) for g in gens))
+
+    def prepare(self, state: StackedTrainState, hypers: TrialHypers, batches, eps=None, generators=None) -> None:
+        """Capture the graph a chunk shaped as ``batches`` takes, ahead of
+        it, warming up on scratch copies of the state, the hypers and the
+        generators (:meth:`GraphedMultiStep.prepare`'s stacked sibling)."""
+        gens = tuple(generators or ())
+
+        def steps(b, e):
+            return torch.stack([self._body(state, hypers, b[s], None if e is None else e[s], generators)
+                                for s in range(b.shape[0])])
+
+        def warm():
+            scratch, shypers = _scratch_stacked_state(state, hypers)
+            sgens = [torch.Generator(device=self._device).manual_seed(0) for _ in gens] or None
+            return torch.stack([self._body(scratch, shypers, batches[s], None if eps is None else eps[s], sgens)
+                                for s in range(batches.shape[0])])
+
+        def drop_grads():
+            for p in state.model.parameters():
+                p.grad = None
+
+        self._prepare(state, self._key(state, hypers, batches, eps, gens), steps, (batches, eps), gens, drop_grads,
+                      (state, hypers, gens), warm)
+
+
+def _scratch_stacked_state(state: StackedTrainState, hypers: TrialHypers):
+    """Copies of a stacked state and its hypers, for a warm-up."""
+    scratch = StackedTrainState(
+        model=copy.deepcopy(state.model), exp_avg=[t.clone() for t in state.exp_avg],
+        exp_avg_sq=[t.clone() for t in state.exp_avg_sq], count=state.count.clone())
+    return scratch, TrialHypers(hypers.lr.clone(), hypers.beta.clone(), hypers.active.clone())
 
 
 def make_stacked_multi_step(group: TrialGroup, *, use_fused_loss: bool = True, grad_accum: int = 1,
@@ -1067,7 +1203,7 @@ class GraphedPBTGeneration(_GraphedChunks):
         super().__init__(device)
         self._fn = fn
 
-    def __call__(self, state, hypers, batches, eval_batches, eval_weights, factors, generators=None):
+    def _parts(self, state, hypers, batches, eval_batches, eval_weights, factors, generators):
         gens = tuple(generators or ())
 
         def generation(b, f):
@@ -1077,10 +1213,7 @@ class GraphedPBTGeneration(_GraphedChunks):
             # What capture needs made first (the kernels loaded, this
             # stream's cuBLAS workspace, the allocator's blocks), on a copy:
             # one step, one eval batch and an exchange.
-            scratch = StackedTrainState(
-                model=copy.deepcopy(state.model), exp_avg=[t.clone() for t in state.exp_avg],
-                exp_avg_sq=[t.clone() for t in state.exp_avg_sq], count=state.count.clone())
-            shypers = TrialHypers(hypers.lr.clone(), hypers.beta.clone(), hypers.active.clone())
+            scratch, shypers = _scratch_stacked_state(state, hypers)
             sgens = [torch.Generator(device=self._device).manual_seed(0) for _ in gens] or None
             return self._fn(scratch, shypers, batches[:1], eval_batches[:1], eval_weights[:1], factors, sgens)
 
@@ -1090,8 +1223,20 @@ class GraphedPBTGeneration(_GraphedChunks):
 
         key = (id(state), id(hypers), tuple(batches.shape), batches.dtype, id(eval_batches), id(eval_weights),
                tuple(id(g) for g in gens))
-        return self._chunk(state, key, generation, (batches, factors), gens, drop_grads,
-                           keep=(state, hypers, gens, eval_batches, eval_weights), warm=warm)
+        return key, generation, gens, drop_grads, (state, hypers, gens, eval_batches, eval_weights), warm
+
+    def __call__(self, state, hypers, batches, eval_batches, eval_weights, factors, generators=None):
+        key, generation, gens, drop_grads, keep, warm = self._parts(
+            state, hypers, batches, eval_batches, eval_weights, factors, generators)
+        return self._chunk(state, key, generation, (batches, factors), gens, drop_grads, keep=keep, warm=warm)
+
+    def prepare(self, state, hypers, batches, eval_batches, eval_weights, factors, generators=None) -> None:
+        """Capture the generation's graph ahead of the first generation,
+        with no replay (``batches`` and ``factors`` give the static
+        buffers' shapes)."""
+        key, generation, gens, drop_grads, keep, warm = self._parts(
+            state, hypers, batches, eval_batches, eval_weights, factors, generators)
+        self._prepare(state, key, generation, (batches, factors), gens, drop_grads, keep, warm)
 
 
 def make_pbt_generation_step(group: TrialGroup, *, n_exploit: int, lr_min: float, lr_max: float) -> Callable:

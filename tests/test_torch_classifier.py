@@ -12,6 +12,12 @@ Adam step rtol 1e-4 / atol 1e-6 (the VAE's) plus what the gradient's
 difference moves Adam's first update by, ``lr·|Δg|/(|g| + eps)``: the
 update is ``lr·g/(|g| + eps)``, so a gradient near zero turns a rounding
 difference into a visible step; accuracies and correct counts exact.
+``Δg`` is taken against the gradient the JAX step itself applied (read
+through a transform that keeps it, ``_jax_step_grads``): XLA's program
+for the step and a separate ``jax.grad`` round a gradient near zero
+differently (on an AVX-512 host, 1.027e-8 against 9.108e-9 in
+``BasicBlock_7.Conv_0.weight``, 8.96e-6 of the tensor's largest
+gradient), and only the first moved the JAX parameters.
 Labelled batches and chunks are the JAX package's bytes for the same seed.
 A two-process gloo group, each rank holding half the batch, must give the
 JAX package's whole-batch step.
@@ -93,13 +99,24 @@ def _jax_grads(jmodel, params, x, y):
     return resnet_params_from_flax(jax.device_get(g))
 
 
-def _assert_step_close(params, grads, jparams, jgrads):
+def _jax_step_grads(jmodel, trial, x, y, grad_accum=1):
+    """The gradient JAX's train step applies, as a torch state dict: the
+    same step builder with a transform that keeps the gradient as its
+    state and leaves the parameters where they are."""
+    keep = optax.GradientTransformation(lambda p: jax.tree.map(jnp.zeros_like, p),
+                                        lambda u, s, p=None: (jax.tree.map(jnp.zeros_like, u), u))
+    js = jax_cls.create_classifier_state(trial, jmodel, keep, jax.random.key(0))
+    js, _ = jax_cls.make_classifier_train_step(trial, jmodel, keep, grad_accum=grad_accum)(js, x, y)
+    return resnet_params_from_flax(jax.device_get(js.opt_state))
+
+
+def _assert_step_close(params, grads, jparams, jgrads, jstep_grads):
     """A step's gradients and updated parameters against JAX's (module
     docstring)."""
     for k, ref in resnet_params_from_flax(jparams).items():
-        g, jg = _np(grads[k]), jgrads[k].numpy()
+        g, jg, sg = _np(grads[k]), jgrads[k].numpy(), jstep_grads[k].numpy()
         np.testing.assert_allclose(g, jg, rtol=1e-4, atol=1e-5 * float(np.abs(jg).max()), err_msg=f"grad {k}")
-        slack = LR * np.abs(g - jg) / (np.abs(jg) + 1e-8)
+        slack = LR * np.abs(g - sg) / (np.abs(sg) + 1e-8)
         diff = np.abs(_np(params[k]) - ref.numpy())
         assert np.all(diff <= 1e-6 + 1e-4 * np.abs(ref.numpy()) + slack), (k, float(diff.max()))
 
@@ -200,7 +217,7 @@ def test_one_train_step_matches_jax(setup):
     assert float(m["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
     assert float(m["accuracy"]) == float(jm["accuracy"])
     _assert_step_close(state.model.state_dict(), _grads(state), jax.device_get(jstate.params),
-                       _jax_grads(jmodel, params, x, y))
+                       _jax_grads(jmodel, params, x, y), _jax_step_grads(jmodel, trial, x, y))
 
 
 def test_grad_accum_matches_jax(setup):
@@ -215,7 +232,7 @@ def test_grad_accum_matches_jax(setup):
     assert float(m["accuracy"]) == float(jm["accuracy"])
     # The microbatches' mean gradient is the whole batch's, up to order.
     _assert_step_close(state.model.state_dict(), _grads(state), jax.device_get(jstate.params),
-                       _jax_grads(jmodel, params, x, y))
+                       _jax_grads(jmodel, params, x, y), _jax_step_grads(jmodel, trial, x, y, grad_accum=2))
 
 
 def test_multi_step_is_jaxs_scan_and_k_single_steps(setup):
@@ -347,13 +364,13 @@ def test_two_ranks_step_as_jax_steps_the_group_batch(setup, tmp_path):
     jstate = jax_cls.create_classifier_state(trial, jmodel, tx, jax.random.key(0))
     jev = jax_cls.make_classifier_eval_step(trial, jmodel)(jstate, x, y)
     jstate, jm = jax_cls.make_classifier_train_step(trial, jmodel, tx)(jstate, x, y)
-    jgrads = _jax_grads(jmodel, params, x, y)
+    jgrads, jstep_grads = _jax_grads(jmodel, params, x, y), _jax_step_grads(jmodel, trial, x, y)
     for g in got:
         assert g["world"] == 2
         assert g["loss"] == pytest.approx(float(jm["loss"]), rel=1e-5)
         assert g["accuracy"] == float(jm["accuracy"])
         assert g["eval_loss"] == pytest.approx(float(jev["loss"]), rel=1e-5) and g["correct"] == float(jev["correct"])
-        _assert_step_close(g["params"], g["grads"], jax.device_get(jstate.params), jgrads)
+        _assert_step_close(g["params"], g["grads"], jax.device_get(jstate.params), jgrads, jstep_grads)
 
 
 # --- the example -------------------------------------------------------------------

@@ -258,6 +258,8 @@ PORT_MODULES = (
     "train.classifier", "examples.beta_vae_cifar", "examples.moe_vae_hpo", "examples.resnet_hpo",
     "faults.plan", "faults.inject", "faults.harness", "telemetry.events", "telemetry.metrics",
     "telemetry.export", "telemetry.console", "examples.chaos_run",
+    "compile.programs", "compile.registry", "compile.farm", "compile.cache", "compile.coldstart", "train.adam",
+    "train.streams",
 )
 
 

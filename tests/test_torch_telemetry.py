@@ -12,9 +12,11 @@ On the CPU at batch 16, hidden 16, latent 4, 128 rows:
   through both ``prometheus_dump``s the same text;
 - per trial, the sequence of event kinds of a port sweep equals the JAX
   package's (timestamps and ids aside) for an unstacked sweep with a retry
-  and for a stacked one with a lane fault and a poisoned lane, leaving out
-  the kinds of modules the port has not ported (the compile registry's,
-  ROADMAP A.9; the device books', A.10 second part);
+  and for a stacked one with a lane fault and a poisoned lane, the compile
+  registry's events and ``first_dispatch``'s outcome included, leaving out
+  the kinds of modules the port has not ported (the device books', A.10
+  second part) and the JAX package's state-init program's events (a
+  program the port does not have: its initial weights are eager draws);
 - the ledger's, supervision's, checkpoint layer's and PBT's payloads equal
   the JAX package's on the same inputs;
 - with telemetry off no event is constructed, and an empty fault plan is
@@ -33,6 +35,7 @@ import pytest
 import torch
 
 from multidisttorch_tpu import telemetry as jax_tel
+from multidisttorch_tpu.compile.registry import get_executable_registry as jax_executable_registry
 from multidisttorch_tpu.data.datasets import synthetic_mnist
 from multidisttorch_tpu.faults.plan import FaultPlan as JaxFaultPlan
 from multidisttorch_tpu.faults.plan import FaultSpec as JaxFaultSpec
@@ -52,6 +55,7 @@ from multidisttorch_tpu.train import checkpoint as jax_ck
 from multidisttorch_tpu.train import ckpt_store as jax_ckpt_store
 from multidisttorch_tpu.train.guards import DivergenceError as JaxDivergenceError
 from multidisttorch_tpu_torch import telemetry
+from multidisttorch_tpu_torch.compile.registry import get_executable_registry
 from multidisttorch_tpu_torch.faults import CRASH, DIVERGE, FaultPlan, FaultSpec, HostPreemption
 from multidisttorch_tpu_torch.hpo import driver, pbt
 from multidisttorch_tpu_torch.hpo.driver import TrialConfig, run_hpo
@@ -67,10 +71,16 @@ from multidisttorch_tpu_torch.train.guards import DivergenceError
 from multidisttorch_tpu_torch.train.steps import wrap_step_with_hooks
 
 SMALL = dict(batch_size=16, hidden_dim=16, latent_dim=4, log_interval=10_000)
-# Kinds of modules the port has not ported: the compile registry (A.9), the
-# device books and anomaly monitor (A.10, second part) and the incident
-# plane (A.12).
-UNPORTED_KINDS = re.compile(r"^(compile_|cache_hit|precompile_|device_|anomaly_|profiler_|incident)")
+# Kinds of modules the port has not ported: the device books and anomaly
+# monitor (A.10, second part) and the incident plane (A.12).
+UNPORTED_KINDS = re.compile(r"^(device_|anomaly_|profiler_|incident)")
+
+
+def _unported(e: dict) -> bool:
+    """An event the port has no counterpart for: an unported kind, or the
+    JAX package's state-init program's compile events (``SINGLE_INIT``; the
+    port's initial weights are eager host-side draws, ROADMAP C.4)."""
+    return bool(UNPORTED_KINDS.match(e["kind"])) or str((e.get("data") or {}).get("program", "")).startswith("init:")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -241,6 +251,9 @@ def _sweeps(data, tmp_path, *, stacked: bool):
     cfgs = [dict(trial_id=i, epochs=2, seed=i, **SMALL) for i in range(n)]
     kw = dict(save_images=False, verbose=False, resilient=True, stack_trials=stacked, stack_max_lanes=4)
     out = {}
+    # Both registries start empty, so every first admission compiles.
+    jax_executable_registry().reset()
+    get_executable_registry().reset()
     with jax_tel.telemetry_run(str(tmp_path / "jax")):
         jax_run_hpo([JaxTrialConfig(**c) for c in cfgs], data[0], data[1],
                     groups=jax_setup_groups(ngroups, devices=jax.devices()[:ngroups]),
@@ -263,7 +276,7 @@ def sweeps(data, tmp_path_factory):
 
 
 def _kinds(evs, trial_id):
-    return [e["kind"] for e in evs if e.get("trial_id") == trial_id and not UNPORTED_KINDS.match(e["kind"])]
+    return [e["kind"] for e in evs if e.get("trial_id") == trial_id and not _unported(e)]
 
 
 @pytest.mark.parametrize("name", ["unstacked", "stacked"])
@@ -273,6 +286,12 @@ def test_event_kinds_per_trial_match_jax(sweeps, name):
     assert trials == sorted({e["trial_id"] for e in pev if e.get("trial_id") is not None})
     for tid in trials + [None]:
         assert _kinds(pev, tid) == _kinds(jev, tid), tid
+
+    def outcomes(evs):
+        return [(e.get("trial_id"), e["data"]["outcome"]) for e in evs if e["kind"] == "first_dispatch"]
+
+    assert outcomes(pev) == outcomes(jev)
+    assert {"compile_start", "compile_end"} <= {e["kind"] for e in pev}
     kinds = {e["kind"] for e in pev}
     if name == "stacked":
         assert {"stack_bucket", "stack_plan", "lane_fault", "lane_refill", "lane_masked", "lane_diverge",
@@ -288,7 +307,7 @@ def test_payloads_of_the_ported_kinds_carry_the_jax_fields(sweeps, name):
 
     def shapes(evs):
         return {(e["kind"], tuple(sorted(e)), tuple(sorted(e.get("data") or {}))) for e in evs
-                if not UNPORTED_KINDS.match(e["kind"])}
+                if not _unported(e)}
 
     assert shapes(pev) == shapes(jev)
 
@@ -593,8 +612,10 @@ def test_the_driver_reads_replays_through_the_wrapper(data, tmp_path):
     run = driver._TrialRun(setup_groups(1, devices=["cpu"])[0], TrialConfig(trial_id=0, epochs=1, **SMALL),
                            data[0], None, str(tmp_path), save_checkpoint=False, verbose=False,
                            injector=driver.FaultInjector(plan))
+    gen = run.run()
+    next(gen)  # admission (the train program arrives here) and the first chunk
     assert run.multi_step.__wrapped__ is not None and run.multi_step.graphed is False
-    for _ in run.run():
+    for _ in gen:
         pass
     assert run.result.graph_replays == 0 and run.result.steps == 8
     assert pbt._emit_generation is not None
