@@ -211,6 +211,25 @@ Phases, in order; any failure exits non-zero and prints no result:
     uninterrupted run's; (c) a 2-process world whose rank 1 never reaches
     ``sync_hosts``: rank 0 raises ``WedgedCollective`` within its 5 s
     deadline plus 2 s and exits 75;
+19. the sweep service (run before 13, the registry on): (a) a 4-slot
+    service on the card takes two tenants' (2:1) 8 full-width submissions:
+    7 of one shape co-pack into stacked buckets (the lane kernels), one of
+    another width runs alone (the single kernels), all settle; the lone
+    trial bit-identical to ``run_hpo`` of its config and trial id, each
+    lane within rel 1e-3 of its unstacked run; the books (queue wait and
+    placement latency p50/p99, dispatches, SLO verdicts) printed; (b) a
+    trial restored from the RAM snapshot into a registry slot, then replayed,
+    bit-identical to the eager loop; a deadline trial preempts a 3-lane
+    bucket on a one-slot service, whose lanes snapshot together and end
+    within rel 1e-3 of the undisturbed bucket; the defrag drill at full
+    width (inside (c)): a size-2 trial places after ``defrag_end`` and the
+    migrated victims end bit-identical to their uninterrupted runs; drain
+    snapshot against drain persist in ms; (c) ``service.drill.
+    run_service_bench`` on the card: a daemon child of
+    ``examples/sweep_service.py --device cuda`` serving 48 + 24
+    submissions of two tenants, SIGKILLed mid-sweep and restarted, loses no
+    submission, goodput >= 0.8 and the fair share
+    within 10 % of 2:1; each daemon's ``BOOT`` (its CUDA start) printed;
 13. a ``kernels`` JSON line, then the result line.
 
 Exits 1 without a result when CUDA is unavailable or the port is not
@@ -3565,12 +3584,12 @@ def eviction_and_cache(smi: str, tmp: str) -> None:
 
 def coldstart_phase(smi: str, tmp: str) -> None:
     """16f: the cold-start bench's three children (cold, farm, cache-warm)
-    with its gates, at its fixed sweep cut to 2 epochs (admission is over
-    in the first; the other 6 add wall time only)."""
+    with its gates, at its fixed sweep cut to 1 epoch (admission is over
+    in the first; the other 7 add wall time only)."""
     from multidisttorch_tpu_torch.compile import coldstart
 
     t0 = time.time()
-    rec = coldstart.run_coldstart_bench(os.path.join(tmp, "16f"), device="cuda", epochs=2, timeout_s=300)
+    rec = coldstart.run_coldstart_bench(os.path.join(tmp, "16f"), device="cuda", epochs=1, timeout_s=300)
     for mode in coldstart.MODES:
         r = rec["modes"][mode]
         check(r.get("ok"), f"16f {mode}: {r.get('error')} {r.get('stderr_tail', '')}")
@@ -4250,6 +4269,389 @@ def elastic_phase(E, smi: str) -> dict:
     return {**drill, "drain": drain}
 
 
+# --- phase 19: the sweep service on the card ---------------------------------
+
+# The service's trials: the 784-400-20 VAE at batch 128 in graphed chunks of
+# 10, on MNIST-sized synthetic data (468 steps an epoch).
+SERVICE = dict(batch_size=128, hidden_dim=400, latent_dim=20, fused_steps=10, log_interval=10**9)
+
+
+def _zero(E) -> None:
+    for k in E.LAUNCHES:
+        E.LAUNCHES[k] = 0
+
+
+def _ledger_losses(d: str) -> dict:
+    """trial id -> final test loss of its completed attempt."""
+    from multidisttorch_tpu_torch.hpo.ledger import SweepLedger
+
+    return {e["trial_id"]: e["summary"]["final_test_loss"] for e in SweepLedger(d).load()
+            if e.get("event") == "attempt_end" and e.get("status") == "completed"}
+
+
+def _attempt_steps(d: str) -> list:
+    """``(status, steps)`` of every attempt in a service directory's ledger:
+    the optimizer steps it ran, its last step (``steps``, or
+    ``steps_at_failure`` for a preempted one) less the step it resumed
+    from."""
+    from multidisttorch_tpu_torch.hpo.ledger import SweepLedger
+
+    out = []
+    for e in SweepLedger(d).load():
+        if e.get("event") == "attempt_end":
+            s = e["summary"]
+            last = s["steps"] if "steps" in s else s["steps_at_failure"]
+            out.append((e["status"], int(last) - int(s.get("resumed_from_step") or 0)))
+    return out
+
+
+def _same_ckpt_bits(a: str, b: str) -> bool:
+    """Whether two checkpoints hold the same state tree to the last bit."""
+    import numpy as np
+
+    from multidisttorch_tpu_torch.train import checkpoint as ck
+
+    def leaves(t, prefix=""):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                yield from leaves(t[k], f"{prefix}/{k}")
+        else:
+            yield prefix, np.asarray(t)
+
+    la, lb = dict(leaves(ck._read_tree_format(a)[0])), dict(leaves(ck._read_tree_format(b)[0]))
+    return la.keys() == lb.keys() and all(la[k].tobytes() == lb[k].tobytes() for k in la)
+
+
+def _print_books(what: str, books: dict, smi: str) -> None:
+    qw, pl = books["queue_wait"], books["placement_latency"]
+    ckb = books["checkpoint"]
+    slo = {name: [(r.get("label"), r["met"]) for r in rows] for name, rows in books["slo"]["slos"].items()}
+    print(f"{what} books: queue wait p50 {qw.get('p50_s')} s p99 {qw.get('p99_s')} s over {qw['count']}, "
+          f"placement latency p50 {pl.get('p50_s')} s p99 {pl.get('p99_s')} s (max {pl.get('max_s')}) over "
+          f"{pl['count']}; drain snapshot {ckb['drain_snapshot']}; drain persist {ckb['drain_persist']}; "
+          f"SLO verdicts {slo}; alerting {books['slo'].get('alerting')}; tenants "
+          f"{ {t: (b['goodput'], b['settled']) for t, b in books['tenants'].items()} } ({smi})")
+
+
+def service_copack(E, smi: str, train, test, tmp: str) -> dict:
+    """19a: two tenants (2:1) submit 7 trials of one shape and one of
+    another width to a 4-slot service on the card: the 7 co-pack into
+    stacked buckets (the lane kernels), the other runs alone (the single
+    kernels); all settle ``completed``; the lone trial is bit-identical to
+    run_hpo of its config and trial id, each lane within phase 10's rel 1e-3
+    of its unstacked run."""
+    from multidisttorch_tpu_torch.hpo.driver import TrialConfig, run_hpo
+    from multidisttorch_tpu_torch.parallel.mesh import setup_groups
+    from multidisttorch_tpu_torch.service.queue import SweepClient, fold_queue, load_queue
+    from multidisttorch_tpu_torch.service.runtime import SweepService
+    from multidisttorch_tpu_torch.service.scheduler import TenantPolicy
+
+    d = os.path.join(tmp, "19a")
+    ca, cb = SweepClient(d, tenant="alice"), SweepClient(d, tenant="bob")
+    base = dict(SERVICE, epochs=1)
+    ids = [ca.submit({**base, "seed": i, "lr": 1e-3 * (1 + i % 2)}) for i in range(4)]
+    ids += [cb.submit({**base, "seed": 10 + i, "beta": 0.5 + i}) for i in range(3)]
+    lone = cb.submit({**base, "hidden_dim": 256, "seed": 20})
+    svc = SweepService(d, n_slices=4, max_lanes=4, train_data=train, test_data=test, verbose=False, device="cuda",
+                       policies={"alice": TenantPolicy(weight=2.0), "bob": TenantPolicy(weight=1.0)})
+    check([str(s) for s in svc._slots] == ["cuda:0"] * 4, f"19a: slots {svc._slots}")
+    _zero(E)
+    t0 = time.time()
+    try:
+        rep = svc.serve(exit_when_drained=True, idle_grace_s=0.2, max_wall_s=300)
+    finally:
+        svc.close()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(E.LAUNCHES)
+    check(rep["outcome"] == "idle", f"19a: outcome {rep['outcome']}")
+    check(all(rep["settled"].get(s) == "completed" for s in ids + [lone]), f"19a: settled {rep['settled']}")
+    folded = fold_queue(load_queue(d))
+    stacked = [s for s in ids if folded[s]["last_placement"]["stacked"]]
+    check(len(stacked) == 7 and not folded[lone]["last_placement"]["stacked"],
+          f"19a: placements {[folded[s]['last_placement'] for s in ids + [lone]]}")
+    lanes = sorted({(folded[s]["last_placement"]["start"], folded[s]["last_placement"]["lanes"]) for s in ids})
+    buckets = len(lanes)
+    check(launches["elbo_fwd"] == launches["elbo_bwd"] == 468,
+          f"19a: single kernels launched {launches} (468 steps of the lone trial)")
+    check(launches["elbo_fwd_lanes"] == launches["elbo_bwd_lanes"] == 468 * buckets,
+          f"19a: lane kernels launched {launches} ({buckets} buckets of 468 stacked steps)")
+    print(f"19a: 8 submissions, buckets (start, lanes) {lanes} and one lone trial, all completed in {wall:.3f} s "
+          f"of service, {svc.dispatches} dispatches; launches {launches} ({smi})")
+    _print_books("19a", rep["books"], smi)
+    # The lone trial against run_hpo of its config and trial id, on the same
+    # slot's group (the registry's slot for its program is the service's).
+    losses = _ledger_losses(d)
+    tid = folded[lone]["trial_id"]
+    start = folded[lone]["last_placement"]["start"]
+    groups = setup_groups(4, devices=["cuda:0"] * 4)
+    ref_dir = os.path.join(tmp, "19a-ref")
+    run_hpo([TrialConfig(trial_id=tid, **folded[lone]["config"])], train, test, groups=[groups[start]],
+            out_dir=ref_dir, save_images=False, verbose=False)
+    check(_same_ckpt_bits(os.path.join(d, f"trial-{tid}", "state.msgpack"),
+                          os.path.join(ref_dir, f"trial-{tid}", "state.msgpack")),
+          f"19a: the lone service trial {tid} is not bit-identical to run_hpo of its config")
+    # Each lane against its unstacked run.
+    cfgs = [TrialConfig(trial_id=folded[s]["trial_id"], **folded[s]["config"]) for s in ids]
+    uns = {r.trial_id: r.final_test_loss for r in run_hpo(cfgs, train, test, groups=groups, save_images=False,
+                                                           verbose=False, out_dir=os.path.join(tmp, "19a-uns"))}
+    worst = 0.0
+    for c in cfgs:
+        rel = abs(losses[c.trial_id] - uns[c.trial_id]) / abs(uns[c.trial_id])
+        worst = max(worst, rel)
+        check(rel <= 1e-3, f"19a: lane trial {c.trial_id} test loss {losses[c.trial_id]} vs unstacked "
+                           f"{uns[c.trial_id]} (rel {rel:.3g} > 1e-3)")
+    print(f"19a: lone trial {tid} bit-identical to run_hpo; 7 lanes within rel {worst:.3g} of their unstacked "
+          f"runs (tolerance 1e-3)")
+    return {"launches": launches}
+
+
+def restore_replay_vs_eager(E, group, train) -> None:
+    """19b: graphs hold addresses. A trial restored from the RAM snapshot
+    into a registry program slot (written by value) and replayed over an
+    epoch ends bit-identical to the eager loop from the same state."""
+    from multidisttorch_tpu_torch.data.sampler import TrialDataIterator
+    from multidisttorch_tpu_torch.hpo.driver import GENERATORS_KEY, TrialConfig, _TrialRun, run_hpo
+    from multidisttorch_tpu_torch.models.vae import VAE, init_vae_params
+    from multidisttorch_tpu_torch.train import checkpoint as ck
+    from multidisttorch_tpu_torch.train.steps import EagerMultiStep, _build_body, create_train_state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = dict(SERVICE, seed=3, lr=2e-3)
+        run_hpo([TrialConfig(trial_id=900, epochs=1, **cfg)], train, None, groups=[group], out_dir=tmp,
+                save_images=False, verbose=False)
+        path = os.path.join(tmp, "trial-900", "state.msgpack")
+        tree, _ = ck._read_tree_format(path)
+        with open(path + ".json") as f:
+            meta = json.load(f)
+        ck.snapshot_cache().put(path, tree, meta)
+        before = ck.ckpt_counters()["restores_ram"]
+        run = _TrialRun(group, TrialConfig(trial_id=900, epochs=2, **cfg), train, None, tmp, save_images=False,
+                        save_checkpoint=False, verbose=False, resume="scan", ram_restore=True)
+        check(ck.ckpt_counters()["restores_ram"] == before + 1, "19b: the trial did not restore from RAM")
+        for _ in run.run():
+            pass
+        torch.cuda.synchronize()
+        check(run._admission["outcome"] in ("hit", "wait"),
+              f"19b: the restored trial did not take the registry's slot: {run._admission}")
+        state = create_train_state(group, init_vae_params(VAE(), seed=3), lr=2e-3)
+        ck.load_train_state_tree(state, tree)
+        gen = torch.Generator(device=group.device)
+        import base64
+
+        gen.set_state(torch.frombuffer(bytearray(base64.b64decode(meta[GENERATORS_KEY]["train"][0])),
+                                       dtype=torch.uint8))
+        eager = EagerMultiStep(_build_body(group, 1.0, True, 1))
+        for _, chunk in TrialDataIterator(train, group, 128, seed=3).epoch_chunks(2, 10):
+            state, _ = eager(state, chunk, generator=gen)
+        torch.cuda.synchronize()
+        got, ref = ck.train_state_to_tree(run.state), ck.train_state_to_tree(state)
+        same = all(a.tobytes() == b.tobytes() for a, b in zip(_tree_leaves(got), _tree_leaves(ref)))
+        check(same, "19b: the replay after a RAM restore into a program slot differs from the eager loop")
+        ck.snapshot_cache().drop(path)
+    print("19b: a RAM restore into a registry slot, then 47 graph replays: bit-identical to the eager loop")
+
+
+def _tree_leaves(t):
+    import numpy as np
+
+    if isinstance(t, dict):
+        for k in sorted(t):
+            yield from _tree_leaves(t[k])
+    else:
+        yield np.asarray(t)
+
+
+def service_preempt_stacked(E, smi: str, train, test, tmp: str) -> dict:
+    """19b: a deadline trial preempts a co-packed bucket on the one slot:
+    the bucket finishes its round, its lanes snapshot together (RAM and
+    disk) and re-place as unstacked trials; each lane ends within phase
+    10's rel 1e-3 of the undisturbed bucket."""
+    from multidisttorch_tpu_torch.hpo.driver import TrialConfig, run_hpo
+    from multidisttorch_tpu_torch.parallel.mesh import setup_groups
+    from multidisttorch_tpu_torch.service.queue import SweepClient, fold_queue, load_queue
+    from multidisttorch_tpu_torch.service.runtime import SweepService
+    from multidisttorch_tpu_torch.service.scheduler import PreemptionPolicy
+    from multidisttorch_tpu_torch.train.checkpoint import ckpt_counters
+
+    d = os.path.join(tmp, "19b-preempt")
+    client = SweepClient(d, tenant="batch")
+    base = dict(SERVICE, epochs=3)
+    ids = [client.submit({**base, "seed": 30 + i}) for i in range(3)]
+    svc = SweepService(d, n_slices=1, max_lanes=4, train_data=train, test_data=test, verbose=False, device="cuda",
+                       defrag_enabled=False,
+                       preempt=PreemptionPolicy(trial_cooldown_s=0.0, global_cooldown_s=0.0))
+    _zero(E)
+    restores = ckpt_counters()["restores_ram"]
+    t0 = time.time()
+    try:
+        ok = False
+        for _ in range(10**6):
+            svc.tick()
+            ap = next(iter(svc.active.values()), None)
+            if ap is not None and ap.stacked and ap.run.lanes[0] is not None and ap.run.lanes[0]["epochs_done"] >= 1:
+                ok = True
+                break
+            if time.time() - t0 > 120:
+                break
+        check(ok, "19b: the bucket never finished its first round")
+        urgent = SweepClient(d, tenant="urgent").submit({**SERVICE, "epochs": 1, "seed": 40}, deadline_s=60.0)
+        rep = None
+        for _ in range(10**7):
+            svc.tick()
+            if len(svc.settled) == 4 or time.time() - t0 > 240:
+                break
+        rep = svc.books()
+    finally:
+        svc._drain(reason="phase end")
+        svc.close()
+    torch.cuda.synchronize()
+    launches = dict(E.LAUNCHES)
+    check(all(svc.settled.get(s) == "completed" for s in ids + [urgent]), f"19b: settled {svc.settled}")
+    check(rep["preemption"]["events"] >= 1 and rep["preemption"]["evictions"] >= 1,
+          f"19b: no preemption happened: {rep['preemption']}")
+    check(rep["deadline"]["hits"] == 1, f"19b: deadline {rep['deadline']}")
+    check(ckpt_counters()["restores_ram"] - restores == 3, "19b: the drained lanes did not all restore from RAM")
+    # Exact launches: the bucket's stacked steps (its lanes' preempted
+    # attempts, in lockstep) and every unstacked attempt's steps.
+    attempts = _attempt_steps(d)
+    rounds = {n for st, n in attempts if st == "preempted"}
+    single = sum(n for st, n in attempts if st == "completed")
+    check(len(rounds) == 1 and sum(st == "preempted" for st, _ in attempts) == 3,
+          f"19b: the lanes' preempted attempts {attempts}")
+    check(launches["elbo_fwd_lanes"] == launches["elbo_bwd_lanes"] == rounds.pop(),
+          f"19b: lane kernels launched {launches}, the bucket's attempts {attempts}")
+    check(launches["elbo_fwd"] == launches["elbo_bwd"] == single,
+          f"19b: single kernels launched {launches}, {single} unstacked steps in the ledger")
+    folded = fold_queue(load_queue(d))
+    check(all(folded[s]["placements"] == 2 and not folded[s]["last_placement"]["stacked"] for s in ids),
+          f"19b: lanes' placements {[folded[s]['last_placement'] for s in ids]}")
+    losses = _ledger_losses(d)
+    cfgs = [TrialConfig(trial_id=folded[s]["trial_id"], **folded[s]["config"]) for s in ids]
+    ref = {r.trial_id: r.final_test_loss for r in run_hpo(
+        cfgs, train, test, groups=setup_groups(1, devices=["cuda:0"]), stack_trials=True, stack_max_lanes=4,
+        save_images=False, verbose=False, out_dir=os.path.join(tmp, "19b-ref"))}
+    worst = max(abs(losses[c.trial_id] - ref[c.trial_id]) / abs(ref[c.trial_id]) for c in cfgs)
+    check(worst <= 1e-3, f"19b: drained lanes' test losses {losses} vs the undisturbed bucket's {ref}")
+    print(f"19b: a deadline trial preempted a 3-lane bucket after its first round: {rep['preemption']['events']} "
+          f"preemption(s), the lanes re-placed unstacked from RAM, every lane within rel {worst:.3g} of the "
+          f"undisturbed bucket (tolerance 1e-3); deadline {rep['deadline']}; launches {launches} ({smi})")
+    _print_books("19b preemption", rep, smi)
+    return {"launches": launches}
+
+
+def service_drill(E, smi: str, train, tmp: str) -> dict:
+    """19c and 19b's defrag: ``service.drill.run_service_bench`` on the
+    card. (i) A daemon child (``examples/sweep_service.py --device cuda``)
+    serving 2 tenants (2:1, 48 and 24 submissions) of two full-width shape
+    buckets is SIGKILLed mid-sweep and restarted: zero lost submissions,
+    goodput >= 0.8, fair share within 10 % of 2:1; each daemon's start
+    printed. (ii) The defrag
+    drill at full width in this process: a size-2 trial places after
+    ``defrag_end``, the migrated victims end bit-identical to their
+    uninterrupted runs."""
+    from multidisttorch_tpu_torch.hpo.driver import TrialConfig, run_hpo
+    from multidisttorch_tpu_torch.parallel.mesh import setup_groups
+    from multidisttorch_tpu_torch.service.drill import run_service_bench
+    from multidisttorch_tpu_torch.service.queue import fold_queue, load_queue
+    from multidisttorch_tpu_torch.telemetry import device as tele_device
+
+    work = os.path.join(tmp, "19c")
+    _zero(E)
+    # The defrag drill turns telemetry on for its evidence: a device book's
+    # counted step (one eager step per program shape new to the process)
+    # launches each single kernel once more.
+    memo0 = len(tele_device._cost_cache)
+    t0 = time.time()
+    # The drill's own sizes on the card (its default device): the
+    # full-width VAE in shape buckets of different fused_steps.
+    bench = run_service_bench(
+        work,
+        kill_restart=dict(epochs=2, slices=2, max_lanes=2, submissions=SERVICE_DRILL_SUBS, timeout_s=400.0),
+        defrag=dict(long_epochs=8, train_data=train, starvation_s=1.0, timeout_s=300.0),
+    )
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counted = len(tele_device._cost_cache) - memo0
+    defrag_launches = {k: v - (counted if k in ("elbo_fwd", "elbo_bwd") else 0) for k, v in E.LAUNCHES.items()}
+    ddir = os.path.join(work, "defrag")
+    steps = sum(n for _, n in _attempt_steps(ddir))
+    check(defrag_launches["elbo_fwd"] == defrag_launches["elbo_bwd"] == steps
+          and defrag_launches["elbo_fwd_lanes"] == defrag_launches["elbo_bwd_lanes"] == 0,
+          f"19b defrag: kernels launched {dict(E.LAUNCHES)} less {counted} counted steps, {steps} steps in the "
+          f"ledger")
+    kr, df = bench["kill_restart"], bench["defrag"]
+    print(f"19c: gates {bench['gates']} in {wall:.1f} s; daemon exits {kr['daemon_exits']}, killed at "
+          f"{kr['killed_at_settled']} settled, {kr['completed']} of {kr['submissions']} completed, lost "
+          f"{kr['lost_submissions']}, fair share {kr['fair_share']}, goodput {kr['tenant_goodput']}, restart to "
+          f"all settled {kr['restart_to_all_settled_s']} s ({smi})")
+    for i, boot in enumerate(kr["daemon_boots"]):
+        print(f"19c: daemon {i + 1} BOOT {json.dumps(boot)}")
+    for rec in kr["daemon_launches"]:
+        print(f"19c: daemon LAUNCHES {json.dumps(rec)}")
+    check(all(boot["device"] == ["cuda:0"] for boot in kr["daemon_boots"]) and len(kr["daemon_boots"]) == 2,
+          f"19c: daemons' devices {kr['daemon_boots']}")
+    check(bench["ok"], f"19c: gates {bench['gates']}")
+    check(len(kr["daemon_launches"]) == 1, f"19c: the restarted daemon's LAUNCHES line {kr['daemon_launches']}")
+    drill_launches = {k: v for k, v in kr["daemon_launches"][0].items() if k in E.LAUNCHES}
+    check(all(drill_launches[k] > 0 for k in E.LAUNCHES), f"19c: the restarted daemon's launches {drill_launches}")
+    # 19b's defrag at full width: the evidence and the victims' bits.
+    check(df["fragmented"] and df["ok"], f"19b defrag: {df}")
+    check(df["big_placed_ts"] >= df["defrag_end_ts"], "19b: the size-2 trial placed before defrag_end")
+    folded = fold_queue(load_queue(ddir))
+    moved = {m["trial_id"] for m in df["migrations"]}
+    for sid, rec in folded.items():
+        if rec["trial_id"] not in moved:
+            continue
+        tid = rec["trial_id"]
+        ref_dir = os.path.join(tmp, f"19b-victim-{tid}")
+        run_hpo([TrialConfig(trial_id=tid, **rec["config"])], train, None,
+                groups=setup_groups(1, devices=["cuda:0"]), out_dir=ref_dir, save_images=False, verbose=False)
+        check(_same_ckpt_bits(os.path.join(ddir, f"trial-{tid}", "state.msgpack"),
+                              os.path.join(ref_dir, f"trial-{tid}", "state.msgpack")),
+              f"19b: migrated victim {tid} is not bit-identical to its uninterrupted run")
+    ckb = df["checkpoint_books"]
+    print(f"19b defrag: free runs {df['fragmented_free_runs']}, size-2 trial placed {df['unblock_wait_s']} s "
+          f"after submission and {df['big_placed_ts'] - df['defrag_end_ts']:.3f} s after defrag_end, "
+          f"{len(moved)} victim(s) migrated and bit-identical to their uninterrupted runs; drain snapshot "
+          f"{ckb['drain_snapshot'].get('mean_s', 0) * 1e3:.3f} ms vs drain persist "
+          f"{ckb['drain_persist'].get('mean_s', 0) * 1e3:.3f} ms (means over {ckb['drain_snapshot']['count']}), "
+          f"restores from RAM {ckb['restores_ram']} of {ckb['restores']} ({smi})")
+    return {"drill": drill_launches, "defrag": defrag_launches}
+
+
+# The drill daemons' dataset is the drill's card default, 50 full-width
+# batches an epoch (each daemon makes its own, and pays its start, inside
+# the drill's clock). The drill submits 48 + 24 trials, the JAX drill's
+# 12 + 6 four times over: at 12 + 6 one placement is 17 % of the smaller
+# share, wider than the 10 % gate (service/drill.py::run_kill_restart_phase).
+SERVICE_DRILL_SUBS = (48, 24)
+
+
+def service_phase(E, smi: str, train, test) -> dict:
+    """Phase 19, with the registry on (the service's default). Telemetry is
+    off for 19a and 19b's preemption, whose launch counts hold no counted
+    step; the defrag drill turns it on for its evidence, and its counted
+    steps are taken off its counts. Each part's count is checked exactly
+    against the steps its ledger records."""
+    from multidisttorch_tpu_torch import telemetry
+    from multidisttorch_tpu_torch.parallel.mesh import setup_groups
+
+    os.environ.pop("MDT_AOT_ADMISSION", None)
+    telemetry.disable()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        a = service_copack(E, smi, train, test, tmp)
+        restore_replay_vs_eager(E, setup_groups(1, devices=["cuda:0"])[0], train)
+        b = service_preempt_stacked(E, smi, train, test, tmp)
+        c = service_drill(E, smi, train, tmp)
+    print(f"phase 19: {time.time() - t0:.1f} s")
+    single = {k: a["launches"][k] + b["launches"][k] + c["defrag"][k] for k in ("elbo_fwd", "elbo_bwd")}
+    lanes = {k: a["launches"][k] + b["launches"][k] + c["defrag"][k] for k in ("elbo_fwd_lanes", "elbo_bwd_lanes")}
+    check(all(v > 0 for v in {**single, **lanes}.values()), f"phase 19: launches {single} {lanes}")
+    return {"service": single, "service_stacked": lanes, "service_drill": c["drill"]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail(f"torch.cuda.is_available() is False (torch {torch.__version__}); no card to drive")
@@ -4505,6 +4907,10 @@ def main() -> None:
     # drill; the workers and the drain's children count their own.
     elastic = elastic_phase(E, smi)
 
+    # Phase 19: the sweep service; counts set to 0 inside, just before each
+    # part; the drill's restarted daemon counts its own.
+    service = service_phase(E, smi, train, test)
+
     # Phase 13: the kernels line, then the result.
     # "ms", "plain_ms" and "library_ms" are device time per call at the
     # slice's shape (batch 128, f32); "*_call_ms" add the host's per-call
@@ -4517,7 +4923,9 @@ def main() -> None:
     # phase 16's registry sweeps (16a's three ways, 16b's retried run) and
     # phase 17's (17a's sweep off and on, 17b's drill, 17c's profiled run) and
     # phase 18's (18a's workers over both worlds, from their own counts, and
-    # its in-process reference; 18b's three children) ran,
+    # its in-process reference; 18b's three children) and phase 19's
+    # ("service": 19a's lone trial, 19b's preempted lanes and the defrag
+    # drill; "service_drill": 19c's restarted daemon, from its own counts) ran,
     # graph replays included, one per wrapper call; "launches_by_path" each. "conv_vae_width" holds the
     # same times at the conv beta-VAE's shape, (128, 3072, 64) f32.
     src = "multidisttorch_tpu_torch/ops/csrc/elbo.cu"
@@ -4533,7 +4941,8 @@ def main() -> None:
                    **{f"registry_{way}": n[name] for way, n in comp["parity"].items()},
                    "registry_retry": comp["retry"][name],
                    **{path: n[name] for path, n in books.items() if path != "bucket"},
-                   **{path: n[name] for path, n in elastic.items()}}
+                   **{path: n[name] for path, n in elastic.items()},
+                   "service": service["service"][name], "service_drill": service["service_drill"][name]}
         c = conv["kernels"]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
@@ -4582,7 +4991,9 @@ def main() -> None:
     # 12b, the first fused K 8 run with the feed on and off), the stacked
     # remat runs' (phase 12c), the stacked chaos drill's (15b, both of its
     # runs), phase 16's (16c's bucket alone and beside the farm, 16d's two
-    # buckets and two fused PBT runs) and 17a's bucket, "launches_by_path" each.
+    # buckets and two fused PBT runs), 17a's bucket and phase 19's
+    # ("service_stacked": 19a's buckets and 19b's preempted bucket;
+    # "service_drill": 19c's restarted daemon), "launches_by_path" each.
     by_path = {name: {"stacked_sweep": stack_launches[name], "pbt_fused": pbt["launches"][name],
                       "pbt_per_group_k4": pbt_b["per_group"][name], "pbt_fused_k4": pbt_b["fused"][name],
                       "pbt_fused_feed_on": feed["on"]["launches"][name],
@@ -4593,7 +5004,9 @@ def main() -> None:
                       "registry_bucket_beside_farm": comp["farm"]["farm"][name],
                       "registry_two_buckets": comp["slots"]["buckets"][name],
                       "registry_pbt_twice": comp["slots"]["pbt"][name],
-                      "books_bucket": books["bucket"][name]}
+                      "books_bucket": books["bucket"][name],
+                      "service_stacked": service["service_stacked"][name],
+                      "service_drill": service["service_drill"][name]}
                for name in ("elbo_fwd_lanes", "elbo_bwd_lanes")}
     for name, key, line in (("elbo_fwd_lanes", "fwd", 134), ("elbo_bwd_lanes", "bwd", 163)):
         m = lane_main

@@ -37,7 +37,7 @@ import os
 import queue as _queue
 import threading
 import time
-from typing import Callable, Iterator, Optional
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -174,6 +174,27 @@ def _gather_path(use_native: Optional[bool]) -> str:
         native.require()
         return "native"
     return "native" if native.available() else "numpy"
+
+
+_gather_pool = None
+_gather_pool_lock = threading.Lock()
+
+
+def _lane_gather_pool():
+    """The process's small thread pool for heterogeneous lanes' per-lane
+    gathers (``MDT_GATHER_THREADS``, default 4): numpy's fancy indexing
+    releases the GIL, so a few workers serve every live iterator."""
+    global _gather_pool
+    with _gather_pool_lock:
+        if _gather_pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            try:
+                workers = max(1, int(os.environ.get("MDT_GATHER_THREADS", "4")))
+            except ValueError:
+                workers = 4
+            _gather_pool = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="mdt-lane-gather")
+        return _gather_pool
 
 
 def _check_chunk_size(k: int) -> None:
@@ -317,9 +338,15 @@ class StackedTrialDataIterator:
     injected fault fires at the step it names, and a poisoned lane never
     races the copy stream), and may return a replacement.
 
-    Every lane reads the one ``dataset``: the JAX package's per-lane
-    datasets (``datasets=``) wait for ROADMAP A.12, where
-    ``TrialConfig.dataset`` is ported.
+    **Heterogeneous lanes**: ``datasets=[ds_0, ..., ds_{K-1}]`` gives each
+    lane a dataset of its own (co-packed tenants of the sweep service, each
+    with its ``TrialConfig.dataset``). Every lane's dataset must agree on the
+    feature dim and the batches per epoch (the co-pack key's shape class);
+    a mismatch raises. The gather is then one indexed read per lane, fanned
+    over a small shared thread pool (``MDT_GATHER_THREADS``, default 4);
+    when every lane reads the same dataset object it stays the single fused
+    gather (native where it builds), and the bytes are the same either way.
+    ``set_lane(k, seed, dataset=...)`` swaps a lane's dataset at a refill.
     """
 
     def __init__(
@@ -329,6 +356,7 @@ class StackedTrialDataIterator:
         batch_size: int,
         seeds,
         *,
+        datasets: Optional[Sequence[Dataset]] = None,
         use_native: Optional[bool] = None,
         prefetch: Optional[bool] = None,
         prefetch_depth: Optional[int] = None,
@@ -338,6 +366,8 @@ class StackedTrialDataIterator:
         _check_divisible(batch_size, group)
         if not seeds:
             raise ValueError("stacked iterator needs at least one lane")
+        if datasets is not None and len(datasets) != len(seeds):
+            raise ValueError(f"datasets= names {len(datasets)} lanes but seeds= names {len(seeds)}")
         self.dataset = dataset
         self.group = group
         self.batch_size = batch_size
@@ -345,21 +375,56 @@ class StackedTrialDataIterator:
         self.num_batches = len(dataset) // batch_size
         if self.num_batches == 0:
             raise ValueError(f"dataset of {len(dataset)} rows smaller than one batch of {batch_size}")
-        # (seed, epoch) determines a lane's permutation, as for one trial.
-        self._lanes = [{"seed": s, "epoch": 1} for s in seeds]
+        # (seed, epoch, dataset) determines a lane's permutation, as for one
+        # trial.
+        self._lanes = [{"seed": s, "epoch": 1, "data": dataset if datasets is None else datasets[k]}
+                       for k, s in enumerate(seeds)]
+        for k, lane in enumerate(self._lanes):
+            self._check_lane_dataset(k, lane["data"])
         self.wait_hook = wait_hook
         self.fault_hook = fault_hook
         self._prefetch = _prefetch_default() if prefetch is None else bool(prefetch)
         self._depth = _prefetch_depth() if prefetch_depth is None else max(1, int(prefetch_depth))
+        if use_native and not self._homogeneous():
+            raise RuntimeError(
+                "the native gatherer reads one shared images array; heterogeneous lane datasets take the "
+                "per-lane numpy gather (leave use_native unset)"
+            )
         self.gather_path = _gather_path(use_native)
         # The pipeline's copies to a card run on a stream of their own.
         self._copy_stream = (side_stream(group.device, self) if self._prefetch and group.device.type == "cuda"
                              else None)
 
-    def set_lane(self, k: int, seed: int, epoch: int = 1) -> None:
+    def _check_lane_dataset(self, k: int, ds: Dataset) -> None:
+        """A lane's dataset must match the iterator's feature dim (the batch
+        shape) and batches per epoch (the lockstep round)."""
+        dim0 = self.dataset.images.shape[1]
+        if ds.images.shape[1] != dim0:
+            raise ValueError(
+                f"lane {k} dataset {ds.name!r} has feature dim {ds.images.shape[1]} != {dim0} (stacked lanes "
+                "must agree on batch shape)"
+            )
+        nb = len(ds) // self.batch_size
+        if nb != self.num_batches:
+            raise ValueError(
+                f"lane {k} dataset {ds.name!r} yields {nb} batches per epoch != {self.num_batches} (lockstep "
+                "rounds need equal per-epoch batch counts; the co-pack key carries this)"
+            )
+
+    def _homogeneous(self) -> bool:
+        """Whether every lane reads the same dataset object (the fused
+        single gather, native where it builds)."""
+        first = self._lanes[0]["data"]
+        return all(lane["data"] is first for lane in self._lanes)
+
+    def set_lane(self, k: int, seed: int, epoch: int = 1, dataset: Optional[Dataset] = None) -> None:
         """Rebind lane ``k`` to a fresh (seed, epoch) stream (a refill),
-        from the next round on."""
-        self._lanes[k] = {"seed": seed, "epoch": epoch}
+        from the next round on, with ``dataset`` (shape-checked) in place of
+        its current one when given. Nothing is captured anew."""
+        if dataset is not None:
+            self._check_lane_dataset(k, dataset)
+        ds = self._lanes[k]["data"] if dataset is None else dataset
+        self._lanes[k] = {"seed": seed, "epoch": epoch, "data": ds}
 
     @property
     def samples_per_epoch(self) -> int:
@@ -367,17 +432,29 @@ class StackedTrialDataIterator:
         unstacked iterator)."""
         return self.num_batches * self.batch_size
 
-    def _round_perms(self) -> np.ndarray:
-        """``(K, rows)``: each lane's permutation for its current epoch."""
-        rows = np.arange(len(self.dataset))
-        return np.stack([epoch_permutation(lane["seed"], lane["epoch"], rows) for lane in self._lanes])
+    def _round_perms(self) -> list:
+        """Each lane's permutation of its own dataset's rows for its
+        current epoch."""
+        return [epoch_permutation(lane["seed"], lane["epoch"], np.arange(len(lane["data"])))
+                for lane in self._lanes]
 
     def _gather(self, perms: np.ndarray, b: int) -> np.ndarray:
-        """The numpy gather of stacked step ``b``: one fancy index, ``(K, B,
-        D)``."""
+        """The numpy gather of stacked step ``b`` when every lane reads one
+        dataset: one fancy index over the ``(K, rows)`` permutations, ``(K,
+        B, D)``."""
         bs = self.batch_size
         idx = perms[:, b * bs : (b + 1) * bs].reshape(-1)
-        return self.dataset.images[idx].reshape(self.num_lanes, bs, -1)
+        return self._lanes[0]["data"].images[idx].reshape(self.num_lanes, bs, -1)
+
+    def _gather_lanes(self, perms: list, b: int) -> np.ndarray:
+        """The gather of stacked step ``b`` for heterogeneous lanes: one
+        indexed read per lane over the shared pool, ``(K, B, D)``."""
+        bs = self.batch_size
+
+        def lane_rows(j: int) -> np.ndarray:
+            return self._lanes[j]["data"].images[perms[j][b * bs : (b + 1) * bs]]
+
+        return np.stack(list(_lane_gather_pool().map(lane_rows, range(self.num_lanes))))
 
     def _host_chunks(self, k_steps: int, endless: bool) -> Iterator[tuple]:
         """Host ``(start_batch_index, (s, K, B, D))`` chunks of one lockstep
@@ -389,7 +466,11 @@ class StackedTrialDataIterator:
         nb, chunk, start, j = self.num_batches, None, 0, 0
         while True:
             perms = self._round_perms()
-            g = native.StackedBatchGatherer(self.dataset.images) if self.gather_path == "native" else None
+            fused = self._homogeneous()
+            if fused:
+                perms = np.stack(perms)
+            g = (native.StackedBatchGatherer(self._lanes[0]["data"].images)
+                 if self.gather_path == "native" and fused else None)
             try:
                 if g is not None:
                     g.start_round(perms, self.batch_size)
@@ -398,7 +479,7 @@ class StackedTrialDataIterator:
                         s = k_steps if endless else min(k_steps, nb - b)
                         chunk, start, j = [] if g is None else _staging((s, *shape), self.group.device), b, 0
                     if g is None:
-                        chunk.append(self._gather(perms, b))
+                        chunk.append(self._gather(perms, b) if fused else self._gather_lanes(perms, b))
                     else:
                         g.next_stacked(chunk[j])
                     j += 1

@@ -47,7 +47,7 @@ so several ranks may share one card.
 
 Service-fabric worlds (the JAX package's ``tools/sweep_service.py
 --fabric`` replicas as the worker command) need the service fabric, which
-is not ported (ROADMAP A.12); the worker command is the caller's, so the
+is not ported (ROADMAP A.12b); the worker command is the caller's, so the
 supervisor itself does not refuse one.
 """
 

@@ -30,7 +30,7 @@ Hook sites (threaded by ``hpo/driver.py``):
 Host-scoped kinds: HOST_LOST keeps its ``os._exit``; WEDGE suspends the
 membership heartbeat (``parallel/membership.py``), stalls and then raises
 :class:`HostPreemption`. DAEMON_LOST and SHARD_SPLIT_LOST need the service
-fabric (ROADMAP A.12): each raises ``NotImplementedError`` naming its item
+fabric (ROADMAP A.12b): each raises ``NotImplementedError`` naming its item
 when it comes due.
 """
 
@@ -260,7 +260,7 @@ class FaultInjector:
     def split_step(self, n_steps: int = 1) -> None:
         """Advance the replica's cumulative split-handoff clock. A due
         ``shard_split_lost`` fault raises ``NotImplementedError``: shard
-        splits belong to the service fabric (ROADMAP A.12)."""
+        splits belong to the service fabric (ROADMAP A.12b)."""
         if self.host_slot is None:
             return
         window_end = self._split_steps + n_steps
@@ -357,8 +357,8 @@ class FaultInjector:
 
 # Host and service kinds whose seams are not ported yet: kind -> ROADMAP item.
 _UNPORTED_KINDS = {
-    DAEMON_LOST: "A.12 (the service fabric's replicas)",
-    SHARD_SPLIT_LOST: "A.12 (the service fabric's shard splits)",
+    DAEMON_LOST: "A.12b (the service fabric's replicas)",
+    SHARD_SPLIT_LOST: "A.12b (the service fabric's shard splits)",
 }
 
 

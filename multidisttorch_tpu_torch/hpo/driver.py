@@ -72,9 +72,20 @@ registry marks ``FAILED``, a ``model_builder`` family and a multi-process
 world keep per-trial graphs (``graph``; ``eager`` where the step does not
 capture). ``first_dispatch`` reports the outcome.
 
+``TrialConfig.dataset`` names a trial's own dataset (``data/store.py``'s
+references: a builtin, ``file:`` or ``cas:``), resolved once at sweep entry;
+a stacked bucket's lanes each read their own (heterogeneous lanes) as long
+as they share a shape class. For the sweep service (``service/runtime.py``)
+the runners also take ``ckpt_format``, ``ram_restore`` (a same-process
+re-place restores from the RAM snapshot, ``train/checkpoint.py``) and, for
+a bucket, per-lane ``datasets`` and the drain (``request_drain``,
+``drain_snapshot``): the bucket stops at its next round boundary and every
+live lane's state is written as an unstacked trial's checkpoint, which the
+unstacked resume restores. ``run_hpo``'s SIGTERM drain takes a bucket
+through the same drain.
+
 What this slice does not port raises ``NotImplementedError`` naming its
-ROADMAP item: weight sharding and model parallel, pipeline stages and
-per-trial dataset references.
+ROADMAP item: weight sharding and model parallel, and pipeline stages.
 """
 
 from __future__ import annotations
@@ -125,11 +136,15 @@ from multidisttorch_tpu_torch.telemetry.anomaly import get_monitor
 from multidisttorch_tpu_torch.telemetry.events import get_bus
 from multidisttorch_tpu_torch.telemetry.metrics import get_registry
 from multidisttorch_tpu_torch.train.checkpoint import (
+    RAM_SNAPSHOT,
+    _count as _ckpt_count,
     agreed_restore_step,
     default_format,
+    load_train_state_tree,
     restore_latest_valid,
     restore_state,
     save_state,
+    snapshot_cache,
     train_state_to_tree,
 )
 from multidisttorch_tpu_torch.train.guards import DivergenceError, check_finite
@@ -175,6 +190,9 @@ class TrialConfig:
     eval_sampled: bool = False
     remat: bool = False
     grad_accum: int = 1
+    # The trial's own dataset reference ("" = the sweep's dataset):
+    # data/store.py resolves it. It is part of the config hash and the
+    # resume guard, so weights never resume under another dataset.
     dataset: str = ""
     zero_update: bool = False
     pipeline_stages: int = 1
@@ -211,7 +229,6 @@ class TrialResult:
 
 # TrialConfig fields this slice does not port: (inert value, ROADMAP item).
 _UNPORTED_FIELDS = {
-    "dataset": ("", "A.12 (service and its dataset store)"),
     "zero_update": (False, "A.13 (sharding)"),
     "pipeline_stages": (1, "A.14 (pipelines)"),
 }
@@ -427,6 +444,8 @@ class _TrialRun:
         ckpt_keep_last: int = 1,
         model_builder=None,
         injector: Optional[FaultInjector] = None,
+        ckpt_format: Optional[str] = None,
+        ram_restore: bool = False,
     ):
         _check_config(cfg)
         self.group = group
@@ -455,7 +474,11 @@ class _TrialRun:
         self._attempt = attempt
         self._deferred_error: Optional[BaseException] = None
         self._ckpt_keep_last = ckpt_keep_last
-        self._ckpt_format = default_format()
+        self._ckpt_format = ckpt_format if ckpt_format is not None else default_format()
+        # The snapshot-fast drain's warm restore (the sweep service): each
+        # epoch's host snapshot also goes to the RAM snapshot cache, and a
+        # scan restore takes it before any file.
+        self._ram_restore = bool(ram_restore)
         # Fault-injection seams (None outside a chaos drill): the drill's
         # faults take the same dispatch, data and checkpoint paths real
         # faults take.
@@ -575,6 +598,28 @@ class _TrialRun:
         """
         def accept(meta: dict) -> bool:
             return not config_mismatch_vs_meta(self.cfg, meta) and int(meta.get("completed_epochs", 0)) >= 1
+
+        # A trial re-placed in the process that drained it restores from
+        # the RAM snapshot: written at the same device-to-host fetch that
+        # feeds the durable write, it is never older than the newest file,
+        # and its metadata passes the same config gate. The copy is by
+        # value into the state's own tensors, as a file restore's is.
+        snap = snapshot_cache().get(self._ckpt_path) if self._ram_restore else None
+        if snap is not None:
+            tree, meta = snap
+            if accept(meta):
+                try:
+                    load_train_state_tree(self.state, tree)
+                except Exception:  # noqa: BLE001 — fall back to the files
+                    pass
+                else:
+                    _ckpt_count(restores=1, restores_ram=1)
+                    bus = get_bus()
+                    if bus is not None:
+                        bus.emit("ckpt_restore", group_id=self.group.group_id, path=RAM_SNAPSHOT, format="ram",
+                                 trial_id=self.cfg.trial_id, step=meta.get("step"))
+                    return self.state, dict(meta), RAM_SNAPSHOT
+            snapshot_cache().drop(self._ckpt_path)
 
         if self.group.size == 1:
             return restore_latest_valid(self.state, self._ckpt_path, accept_meta=accept,
@@ -785,6 +830,11 @@ class _TrialRun:
         t = self._ckpt_thread
         return t is None or not t.is_alive()
 
+    @property
+    def _step_no(self) -> int:
+        """The optimizer steps taken (the JAX runner's ``_step_no``)."""
+        return int(self.state.step)
+
     def _log(self, *args, level: int = logging.INFO):
         if self._verbose:
             log0(*args, trial=self.group, level=level)
@@ -938,6 +988,12 @@ class _TrialRun:
                             "history": list(self.result.history),
                             GENERATORS_KEY: generators,
                         }
+                        # The host snapshot is the drain boundary: once it
+                        # is in the RAM cache, a drain may free this
+                        # trial's slot and a re-place restores from RAM
+                        # while the write below lands behind it.
+                        if self._ram_restore:
+                            snapshot_cache().put(self._ckpt_path, tree, meta)
                         self._join_ckpt()
                         # Non-daemon: interpreter exit waits for the write.
                         self._ckpt_thread = threading.Thread(
@@ -1045,8 +1101,19 @@ class _StackedBucketRun:
     straggler series are bucket-scoped (``bucket-g{group}``): the counted
     step covers every compiled lane, live or masked.
 
-    Not ported here: the drain (``request_drain``, ``drain_snapshot``,
-    ROADMAP A.12).
+    ``datasets`` (config index -> Dataset) gives members a dataset of their
+    own (heterogeneous lanes, ``StackedTrialDataIterator(datasets=)``);
+    every member's dataset must share the bucket's shape class
+    (:func:`data_shape_sig`), else the constructor raises.
+
+    The drain: :meth:`request_drain` makes :meth:`run` return at the next
+    round boundary, where every live lane sits at an exact epoch boundary;
+    :meth:`drain_snapshot` then reads each live lane out of the stacked
+    state, puts its host tree in the RAM snapshot cache and writes it as
+    the unstacked trial's checkpoint on one background writer
+    (``_ckpt_thread`` / :meth:`_ckpt_idle` / :meth:`_join_ckpt`, the trial
+    runner's protocol). An unstacked resume of the lane restores it and
+    trains on to the bits of the undisturbed bucket.
     """
 
     def __init__(
@@ -1066,6 +1133,8 @@ class _StackedBucketRun:
         injector: Optional[FaultInjector] = None,
         retry: Optional[RetryPolicy] = None,
         infra_fails: Optional[dict] = None,
+        datasets: Optional[dict] = None,
+        ckpt_format: Optional[str] = None,
     ):
         template = items[0][1]
         for _, cfg in items:
@@ -1073,16 +1142,36 @@ class _StackedBucketRun:
                 raise ValueError(
                     f"stacked bucket mixes shape keys: {stack_bucket_key(cfg)} vs {stack_bucket_key(template)}"
                 )
+        # Heterogeneous lanes: a member with a dataset of its own reads it
+        # through its lane of the one stacked gather; the others read the
+        # bucket's. The shape class is the co-pack contract callers grouped
+        # by; it is checked again here and by the iterator.
+        self._default_data = train_data
+        self._datasets = dict(datasets or {})
+        ref_data = self._datasets.get(items[0][0], train_data)
+        base_sig = data_shape_sig(ref_data, template.batch_size)
+        for idx, _ in items:
+            ds = self._datasets.get(idx, train_data)
+            if data_shape_sig(ds, template.batch_size) != base_sig:
+                raise ValueError(
+                    f"stacked bucket mixes dataset shape classes: {data_shape_sig(ds, template.batch_size)} vs "
+                    f"{base_sig} (member {idx}, dataset {ds.name!r})"
+                )
         self.group = group
         self.out_dir = out_dir
         self.queue = list(items)
         self.results: dict[int, TrialResult] = {}
         self._train_data = train_data
         self._save_checkpoint = save_checkpoint
-        self._ckpt_format = default_format()
+        self._ckpt_format = ckpt_format if ckpt_format is not None else default_format()
         self._verbose = verbose
         self._host_syncs = 0
         self._is_writer = group.is_writer_process
+        # The drain (class docstring): the round-boundary flag and the
+        # lanes' background writer.
+        self._drain_requested = False
+        self._ckpt_thread: Optional[threading.Thread] = None
+        self._ckpt_error: Optional[BaseException] = None
         self._ledger = ledger
         self._attempts = attempts if attempts is not None else {}
         self._chashes = chashes if chashes is not None else {}
@@ -1118,7 +1207,8 @@ class _StackedBucketRun:
                 self._wait_counts["bytes"] += nbytes
         self._input_t0 = time.time()
         self.data = StackedTrialDataIterator(
-            train_data, group, template.batch_size, [c.seed for _, c in first], wait_hook=wait_hook,
+            ref_data, group, template.batch_size, [c.seed for _, c in first],
+            datasets=[self._data_of(i) for i, _ in first], wait_hook=wait_hook,
             fault_hook=None if injector is None else self._stacked_fault_hook)
         self.test_iter = (
             EvalDataIterator(test_data, group, template.batch_size)
@@ -1151,9 +1241,15 @@ class _StackedBucketRun:
     def _noise_seed(self, cfg: TrialConfig) -> int:
         return _stream_seed(cfg.seed, self.group.local_rank, 0)
 
+    def _data_of(self, idx: int) -> Dataset:
+        """The dataset config index ``idx``'s lane reads: its own, else the
+        bucket's."""
+        return self._datasets.get(idx, self._default_data)
+
     def _fresh_lane(self, idx: int, cfg: TrialConfig) -> dict:
         return {"idx": idx, "cfg": cfg, "epochs_done": 0, "history": [], "steps": 0, "t0": time.time(),
-                "syncs0": self._host_syncs, "replays0": 0 if self.multi is None else self.multi.replays}
+                "syncs0": self._host_syncs, "replays0": 0 if self.multi is None else self.multi.replays,
+                "data": self._data_of(idx)}
 
     def _log(self, *args, level: int = logging.INFO):
         if self._verbose:
@@ -1258,8 +1354,67 @@ class _StackedBucketRun:
         """The ledger's ``preempted`` row for every live lane, when a
         preemption elsewhere ends the sweep."""
         for lane in self.lanes:
-            if lane is not None:
+            if lane is not None and lane["idx"] not in self.results:
                 self._note_attempt_end(lane, "preempted", error=error_text, summary=self.lane_progress(lane["idx"]))
+
+    def unfinished(self) -> list:
+        """Config items not yet settled: the live lanes, then the queue."""
+        return self.live_items() + list(self.queue)
+
+    def request_drain(self) -> None:
+        """Arm the drain: :meth:`run` returns at the next round boundary
+        instead of starting another round."""
+        self._drain_requested = True
+
+    def drain_snapshot(self, idxs, reason: str = "") -> None:
+        """Snapshot every live lane whose config index is in ``idxs``, at its
+        epoch boundary (the caller drove :meth:`run` to a round boundary
+        first, :meth:`request_drain`): the lane is read out of the stacked
+        state, its host tree goes to the RAM snapshot cache (a re-place in
+        this process restores from RAM), and all of them are written as
+        the unstacked trials' checkpoints on one background writer. The
+        metadata is an unstacked trial's, generator state included, so the
+        unstacked resume continues the lane's noise stream."""
+        wanted = set(idxs)
+        jobs = []
+        for k, lane in enumerate(self.lanes):
+            if lane is None or lane["idx"] not in wanted:
+                continue
+            cfg: TrialConfig = lane["cfg"]
+            generators = _gather_generator_states(self.group, {"train": self.generators[k]})
+            tree = train_state_to_tree(self.read_lane(self.state, k))
+            ckpt = os.path.join(self.out_dir, f"trial-{cfg.trial_id}", "state.msgpack")
+            meta = {**asdict(cfg), "completed_epochs": lane["epochs_done"], "step": int(tree["step"]),
+                    "history": list(lane["history"]), GENERATORS_KEY: generators}
+            snapshot_cache().put(ckpt, tree, meta)
+            jobs.append((tree, ckpt, meta))
+        if not jobs or not self._is_writer:
+            return
+        self._join_ckpt()
+        # Non-daemon: interpreter exit waits for the writes.
+        self._ckpt_thread = threading.Thread(target=self._write_drain_ckpts, args=(jobs,), daemon=False)
+        self._ckpt_thread.start()
+
+    def _write_drain_ckpts(self, jobs) -> None:
+        try:
+            for tree, ckpt, meta in jobs:
+                save_state(tree, ckpt, metadata=meta, format=self._ckpt_format)
+        except BaseException as e:  # noqa: BLE001 — re-raised at the next join
+            self._ckpt_error = e
+
+    def _join_ckpt(self) -> None:
+        if self._ckpt_thread is not None:
+            self._ckpt_thread.join()
+            self._ckpt_thread = None
+        if self._ckpt_error is not None:
+            e, self._ckpt_error = self._ckpt_error, None
+            raise RuntimeError(f"stacked bucket g{self.group.group_id}: drain checkpoint write failed") from e
+
+    def _ckpt_idle(self) -> bool:
+        """No drain write in flight (the non-blocking sibling of
+        :meth:`_join_ckpt`)."""
+        t = self._ckpt_thread
+        return t is None or not t.is_alive()
 
     def _result(self, k: int, **kw) -> TrialResult:
         lane = self.lanes[k]
@@ -1268,8 +1423,8 @@ class _StackedBucketRun:
             trial_id=cfg.trial_id, group_id=self.group.group_id, config=cfg, history=list(lane["history"]),
             out_dir=os.path.join(self.out_dir, f"trial-{cfg.trial_id}"), steps=lane["steps"],
             wall_s=time.time() - lane["t0"], host_syncs=self._host_syncs - lane["syncs0"],
-            graph_replays=self.multi.replays - lane["replays0"], dataset=self._train_data.name,
-            dataset_synthetic=self._train_data.synthetic, stacked=True,
+            graph_replays=self.multi.replays - lane["replays0"], dataset=lane["data"].name,
+            dataset_synthetic=lane["data"].synthetic, stacked=True,
             attempt=self._attempts.get(lane["idx"], 1), **kw,
         )
 
@@ -1355,7 +1510,7 @@ class _StackedBucketRun:
             self.results[idx] = TrialResult(
                 trial_id=cfg.trial_id, group_id=self.group.group_id, config=cfg,
                 out_dir=os.path.join(self.out_dir, f"trial-{cfg.trial_id}"), status="failed", error=error_text,
-                dataset=self._train_data.name, dataset_synthetic=self._train_data.synthetic, stacked=True,
+                dataset=lane["data"].name, dataset_synthetic=lane["data"].synthetic, stacked=True,
                 attempt=self._attempts.get(idx, 1),
             )
             self._note_attempt_end(lane, "failed", error=error_text, summary=progress)
@@ -1411,7 +1566,7 @@ class _StackedBucketRun:
             self.write_lane(self.state, self._init_model(nxt.seed), k)
             self.hypers.set_lane(k, nxt.lr, nxt.beta, 1.0)
             self.generators[k].manual_seed(self._noise_seed(nxt))
-            self.data.set_lane(k, nxt.seed)
+            self.data.set_lane(k, nxt.seed, dataset=self._data_of(idx))
             self.lanes[k] = self._fresh_lane(idx, nxt)
             self._note_attempt_start(self.lanes[k])
             self._emit_lane("lane_refill", k, trial_id=nxt.trial_id)
@@ -1449,6 +1604,10 @@ class _StackedBucketRun:
         yield from self._admit_programs()
         n_per_epoch = self.data.samples_per_epoch
         while any(lane is not None for lane in self.lanes):
+            if self._drain_requested:
+                # The drain: every live lane is at an exact epoch boundary
+                # here, where drain_snapshot's checkpoints resume bitwise.
+                return
             # Lane-scoped infra faults due this round fire before it: the
             # faulted lane retires and refills, the others never notice.
             self._round_start_faults()
@@ -1531,9 +1690,10 @@ class _StackedBucketRun:
 # sets the flag: the loop finishes its dispatch cycle and drains
 # (``drain_now``). The second means it: the default disposition is restored
 # and the signal raised again. Module state, because the handler outlives
-# run_hpo's closures and signal.signal works on the main thread only. Only
-# the trial runner drains; a stacked bucket's in-flight lanes are recorded
-# ``preempted`` with no drain snapshot (ROADMAP A.12).
+# run_hpo's closures and signal.signal works on the main thread only. A
+# stacked bucket finishes its round and writes every live lane's drain
+# snapshot (``_StackedBucketRun.drain_snapshot``) before its lanes are
+# recorded ``preempted``.
 _DRAIN: dict = {"sig": None, "prev": None}
 
 
@@ -1738,6 +1898,26 @@ def run_hpo(
         raise ValueError(f"resume must be False, True or 'scan', got {resume!r}")
     for cfg in configs:
         _check_config(cfg)
+    # Per-trial datasets: every distinct cfg.dataset resolves once here
+    # (data/store.py's process memo makes twin references share one array,
+    # which keeps a bucket's gather fused). Trial sharding partitions the
+    # one shared dataset, which a per-trial dataset contradicts.
+    data_by_idx: dict[int, Dataset] = {}
+    if any(cfg.dataset for cfg in configs):
+        if shard_across_trials:
+            raise ValueError(
+                "per-trial cfg.dataset is incompatible with shard_across_trials (trial sharding partitions the "
+                "one shared dataset)"
+            )
+        from multidisttorch_tpu_torch.data.store import resolve_dataset
+
+        for i, cfg in enumerate(configs):
+            if cfg.dataset:
+                data_by_idx[i] = resolve_dataset(cfg.dataset)
+
+    def data_of(i: int) -> Dataset:
+        return data_by_idx.get(i, train_data)
+
     if groups is None:
         groups = setup_groups(
             num_groups if num_groups is not None else len(configs), device=device
@@ -1789,11 +1969,11 @@ def run_hpo(
         if skipped:
             log0(f"sweep ledger: {len(skipped)} of {len(configs)} trials already settled; re-running only the rest")
 
-    def make_run(g: TrialGroup, cfg: TrialConfig, resume_mode, attempt: int) -> _TrialRun:
+    def make_run(g: TrialGroup, i: int, cfg: TrialConfig, resume_mode, attempt: int) -> _TrialRun:
         return _TrialRun(
             g,
             cfg,
-            train_data,
+            data_of(i),
             test_data,
             out_dir,
             shard_across_trials=shard_across_trials,
@@ -1825,7 +2005,10 @@ def run_hpo(
         singles = []
         for item in indexed:
             if config_is_stackable(item[1]):
-                key = (stack_bucket_key(item[1]), data_shape_sig(train_data, item[1].batch_size))
+                # The co-pack key is the shape bucket and the dataset's
+                # shape class, never its identity: trials reading
+                # different datasets still share one stacked program.
+                key = (stack_bucket_key(item[1]), data_shape_sig(data_of(item[0]), item[1].batch_size))
                 buckets.setdefault(key, []).append(item)
             else:
                 singles.append(item)
@@ -1975,7 +2158,8 @@ def run_hpo(
             run = _StackedBucketRun(g, members, train_data, test_data, out_dir, max_lanes=stack_max_lanes,
                                     save_checkpoint=save_checkpoints, verbose=verbose, ledger=led,
                                     attempts=attempts, chashes=chashes, injector=injector, retry=retry,
-                                    infra_fails=infra_fails)
+                                    infra_fails=infra_fails,
+                                    datasets={i: data_by_idx[i] for i, _ in members if i in data_by_idx})
         except Exception as e:  # noqa: BLE001 — setup failure isolation
             err = e
         if needs_agreement(g):
@@ -2050,7 +2234,7 @@ def run_hpo(
             err: Optional[BaseException] = None
             run: Optional[_TrialRun] = None
             try:
-                run = make_run(g, cfg, "scan" if kind == "retry" else resume, attempts[i])
+                run = make_run(g, i, cfg, "scan" if kind == "retry" else resume, attempts[i])
             except Exception as e:  # noqa: BLE001 — setup failure isolation
                 err = e
             if needs_agreement(g):
@@ -2127,6 +2311,27 @@ def run_hpo(
         bus.emit("sweep_start", configs=len(configs), groups=len(groups), stacked=bool(stack_trials),
                  resume=bool(resume), resilient=bool(resilient), skipped_settled=len(skipped), **fleet_id)
 
+    def drain_bucket(run: _StackedBucketRun, gen, error_text: str) -> None:
+        """Take a bucket to its next round boundary (at most the round in
+        flight), then write every live lane's drain snapshot and wait for
+        it; lanes that finish on the way settle as usual. A failure on the
+        way leaves the lanes to their ``preempted`` record alone."""
+        run.request_drain()
+        try:
+            while True:
+                with device_turn():
+                    next(gen)
+        except StopIteration:
+            pass
+        except Exception:  # noqa: BLE001 — the drain goes on without snapshots
+            return
+        results.update(run.results)
+        try:
+            run.drain_snapshot([i for i, _ in run.live_items()], reason=error_text)
+            run._join_ckpt()
+        except Exception:  # noqa: BLE001 — recording must go on
+            pass
+
     def drain_now():
         """The graceful drain's end (the first SIGTERM or SIGINT): the
         dispatch cycle is finished, every in-flight attempt's checkpoint
@@ -2138,6 +2343,9 @@ def run_hpo(
         dbus = get_bus()
         if dbus is not None:
             dbus.emit("sweep_drain", signal=int(sig), in_flight=len(active))
+        for kind2, _, run2, gen2 in list(active.values()):
+            if kind2 == "bucket":
+                drain_bucket(run2, gen2, error_text)
         record_preempted_peers(error_text)
         raise HostPreemption(
             f"{error_text}: in-flight work checkpointed to the last epoch boundary and recorded in the "

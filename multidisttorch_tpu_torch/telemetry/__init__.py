@@ -24,8 +24,13 @@ Counterpart of the JAX package's ``telemetry/`` package, first part
   elastic sweep's per-host, per-world shards (skew-corrected timeline,
   fleet trace, restart tax, ``fleet_summary.json``).
 
-Not ported here: the incident plane and control-plane profiler (ROADMAP
-A.12), so the bus has no tap.
+- :mod:`~multidisttorch_tpu_torch.telemetry.ctlprof`: the control-plane
+  profiler (the sweep service's phase books, pass ring and sampler), on the
+  same switch; :mod:`~multidisttorch_tpu_torch.telemetry.slo` and
+  :mod:`~multidisttorch_tpu_torch.telemetry.trace`: the service's SLO
+  engine and submission traces.
+
+Not ported here: the incident plane (ROADMAP A.12b), so the bus has no tap.
 
 **Zero cost when off**: telemetry is disabled by default. Every hot-path
 seam is written as ``bus = get_bus(); if bus is not None: bus.emit(...)``:
@@ -52,11 +57,13 @@ import os
 from typing import Optional
 
 from multidisttorch_tpu_torch.telemetry import anomaly as _anomaly
+from multidisttorch_tpu_torch.telemetry import ctlprof as _ctlprof
 from multidisttorch_tpu_torch.telemetry import events as _events
 from multidisttorch_tpu_torch.telemetry import metrics as _metrics
 
 get_bus = _events.get_bus
 get_registry = _metrics.get_registry
+get_ctlprof = _ctlprof.get_ctlprof
 get_monitor = _anomaly.get_monitor
 AnomalyConfig = _anomaly.AnomalyConfig
 read_events = _events.read_events
@@ -111,7 +118,12 @@ def configure(
             name = f"events.p{process_id}.jsonl"
         path = os.path.join(out_dir, name)
     _events.configure(path=path, queue_max=queue_max, host=host, world=world)
-    _metrics.configure(device_sample_every=device_sample_every)
+    reg = _metrics.configure(device_sample_every=device_sample_every)
+    # The control-plane profiler rides the same switch: its wall histograms
+    # are registry series; its flame file (MDT_CTLPROF_SAMPLE_HZ) lands
+    # beside the event stream.
+    _ctlprof.configure(registry=reg,
+                       flame_path=os.path.join(out_dir, "ctl_flame.txt") if out_dir is not None else None)
     if anomaly_capture_dir is not None:
         anomaly = dataclasses.replace(anomaly or _anomaly.AnomalyConfig(), capture_dir=anomaly_capture_dir)
     _anomaly.configure(anomaly)
@@ -119,8 +131,9 @@ def configure(
 
 def disable() -> None:
     """Turn telemetry OFF (close the sink, stop any profiler window, drop
-    bus, registry and anomaly monitor)."""
+    bus, registry, anomaly monitor and control-plane profiler)."""
     _anomaly.disable()
+    _ctlprof.disable()
     _events.disable()
     _metrics.disable()
 
@@ -188,6 +201,7 @@ __all__ = [
     "get_bus",
     "get_monitor",
     "get_registry",
+    "get_ctlprof",
     "read_events",
     "telemetry_run",
 ]

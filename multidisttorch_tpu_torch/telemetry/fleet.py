@@ -36,9 +36,10 @@ This module builds the one timeline a fleet question needs:
   per-host health, per-world goodput, migration lineage, preflight
   verdicts and the fired-fault cross-check, as ``fleet_summary.json``.
 
-Not ported here: the control-plane profiler's track in the fleet trace
-(``telemetry/ctlprof.py``, ROADMAP A.12), so :func:`export_fleet` passes no
-``ctl_events``. Nothing here touches torch or a device.
+A live control-plane profiler (``telemetry/ctlprof.py``; the process is
+the sweep service's daemon) adds its pass ring to the fleet trace as a
+track of its own, as in the JAX package. Nothing here touches torch or a
+device.
 """
 
 from __future__ import annotations
@@ -855,8 +856,14 @@ def export_fleet(
     with open(paths["events"], "w") as f:
         for ev in merged["events"]:
             f.write(json.dumps(ev, default=str) + "\n")
+    # A live control-plane profiler (this process is the daemon) adds its
+    # pass-ring track to the exported trace.
+    from multidisttorch_tpu_torch.telemetry import ctlprof as _ctlprof
+
+    prof = _ctlprof.get_ctlprof()
     with open(paths["trace"], "w") as f:
-        json.dump(build_fleet_trace(merged, lineage=lineage), f)
+        json.dump(build_fleet_trace(merged, lineage=lineage,
+                                    ctl_events=prof.trace_events(pid=0) if prof is not None else None), f)
     summary = fleet_summary(run_dir, merged=merged, lineage=lineage)
     with open(paths["summary"], "w") as f:
         json.dump(summary, f, indent=2, default=str)

@@ -42,8 +42,14 @@ Telemetry: the JAX package's checkpoint events ride the bus when it is on
 A multi-rank group agrees on its restore step through
 :func:`agreed_restore_step`, over the world's store
 (``parallel/cluster.py::agree_min_int``), as the JAX package agrees over its
-coordination service. Not ported here: the JAX package's RAM snapshot cache
-(ROADMAP A.12's drain).
+coordination service.
+
+The RAM snapshot cache (:func:`snapshot_cache`, ``MDT_SNAPSHOT_CACHE``
+entries, default 8) keeps the newest host-side state tree per checkpoint
+path, written at the same device-to-host fetch that feeds the durable
+write: the snapshot-fast drain's warm restore source, so a trial re-placed
+in the same process restores from RAM (``RAM_SNAPSHOT`` as the restore's
+path) without reading its files.
 """
 
 from __future__ import annotations
@@ -55,7 +61,8 @@ import shutil
 import threading
 import time
 import zlib
-from typing import Callable, Optional, Union
+from collections import OrderedDict
+from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -65,6 +72,9 @@ from multidisttorch_tpu_torch.train import _msgpack, ckpt_store
 from multidisttorch_tpu_torch.train.steps import TrainState
 
 _VERSION_RE = re.compile(r"\.v(\d+)$")
+
+# The restore path a RAM-snapshot restore reports (the JAX package's).
+RAM_SNAPSHOT = "<ram-snapshot>"
 
 
 def default_format() -> str:
@@ -86,6 +96,7 @@ _CKPT_COUNTERS = {
     "bytes_reused": 0,
     "chunks_written": 0,
     "restores": 0,
+    "restores_ram": 0,
 }
 
 
@@ -104,6 +115,71 @@ def _count(**kw) -> None:
     with _CKPT_LOCK:
         for k, v in kw.items():
             _CKPT_COUNTERS[k] += v
+
+
+class _SnapshotCache:
+    """Process-wide RAM cache of the newest host-side checkpoint snapshot
+    per checkpoint path (the snapshot-fast drain's warm restore source): a
+    preempted trial re-placed in the same process restores from RAM instead
+    of re-reading its files.
+
+    An entry is written only at the device-to-host fetch that also feeds
+    the durable write, so it is never older than the newest candidate on
+    disk for its path while this process owns the path. A change of owner
+    must :meth:`drop_under` the directory, or a stale snapshot would come
+    back over the new owner's newer state. A bounded LRU
+    (``MDT_SNAPSHOT_CACHE``). The values are the host trees of
+    :func:`train_state_to_tree` (numpy arrays no later step changes) and
+    their metadata; a restore copies them into the live state by value."""
+
+    def __init__(self, max_entries: int = 8):
+        self._lock = threading.Lock()
+        self._max = max(1, int(max_entries))
+        self._entries: OrderedDict[str, tuple[Any, dict]] = OrderedDict()
+
+    def put(self, path: str, host_state: Any, meta: dict) -> None:
+        key = os.path.abspath(path)
+        with self._lock:
+            self._entries.pop(key, None)
+            self._entries[key] = (host_state, dict(meta))
+            while len(self._entries) > self._max:
+                self._entries.popitem(last=False)
+
+    def get(self, path: str) -> Optional[tuple[Any, dict]]:
+        key = os.path.abspath(path)
+        with self._lock:
+            got = self._entries.get(key)
+            if got is not None:
+                self._entries.move_to_end(key)
+            return got
+
+    def drop(self, path: str) -> None:
+        with self._lock:
+            self._entries.pop(os.path.abspath(path), None)
+
+    def drop_under(self, prefix: str) -> int:
+        """Invalidate every snapshot under a directory; how many went."""
+        pre = os.path.abspath(prefix).rstrip(os.sep) + os.sep
+        with self._lock:
+            dead = [k for k in self._entries if k.startswith(pre)]
+            for k in dead:
+                del self._entries[k]
+            return len(dead)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+
+_SNAPSHOTS = _SnapshotCache(int(os.environ.get("MDT_SNAPSHOT_CACHE", "8")))
+
+
+def snapshot_cache() -> _SnapshotCache:
+    return _SNAPSHOTS
 
 
 # --------------------------------------------------------------------

@@ -312,6 +312,17 @@ _FAKE_WORKER = textwrap.dedent(
     """
     import os, signal, sys, time
     sys.path.insert(0, {repo!r})
+
+    def on_term(sig, frame):
+        membership = sys.modules.get("{package}.parallel.membership")
+        if membership is not None:
+            membership.stop_heartbeat()
+        sys.exit(75)  # the drain contract: a healthy host in a lost world
+
+    # Before the package import, which loads torch or jax and can take
+    # seconds under parallel test workers: a drain that lands during it
+    # must still exit 75, not die by the signal.
+    signal.signal(signal.SIGTERM, on_term)
     from {package}.parallel import membership
 
     slot = int(os.environ["MDT_HOST_SLOT"])
@@ -320,13 +331,14 @@ _FAKE_WORKER = textwrap.dedent(
     size = os.environ.get("WORLD_SIZE") or os.environ["OMPI_COMM_WORLD_SIZE"]
     membership.start_heartbeat(run_dir, slot, interval_s=0.05, world_epoch=epoch, world_size=int(size))
 
-    def on_term(sig, frame):
-        membership.stop_heartbeat()
-        sys.exit(75)  # the drain contract: a healthy host in a lost world
-
-    signal.signal(signal.SIGTERM, on_term)
     if epoch == 0:
         if slot == 1:
+            # Every peer is up (its lease exists) before this host is lost,
+            # so each survivor drains through its handler to 75.
+            peers = [membership.lease_path(run_dir, s) for s in range(int(size)) if s != slot]
+            deadline = time.time() + 60
+            while not all(os.path.exists(p) for p in peers) and time.time() < deadline:
+                time.sleep(0.02)
             time.sleep(0.6)
             os._exit(86)  # a hard host loss
         while True:

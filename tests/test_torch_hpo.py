@@ -224,7 +224,10 @@ def test_unported_run_hpo_arguments_raise(data, tmp_path, name):
 @pytest.mark.parametrize("field, value", [("dataset", "cas:x"), ("zero_update", True), ("pipeline_stages", 2)])
 def test_unported_config_fields_raise(data, tmp_path, field, value):
     cfg = TrialConfig(trial_id=0, **SMALL, **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    # TrialConfig.dataset is ported now: a malformed reference is refused by
+    # the dataset store at sweep entry, before any trial starts.
+    error, match = (ValueError, "cas digest") if field == "dataset" else (NotImplementedError, "ROADMAP A")
+    with pytest.raises(error, match=match):
         run_hpo([cfg], data[0], groups=setup_groups(1, devices=["cpu"]), out_dir=str(tmp_path))
 
 
@@ -261,6 +264,8 @@ PORT_MODULES = (
     "compile.programs", "compile.registry", "compile.farm", "compile.cache", "compile.coldstart", "train.adam",
     "train.streams", "telemetry.device", "telemetry.anomaly", "utils.profiling", "utils.preflight",
     "parallel.membership", "telemetry.fleet", "examples.sweep_supervisor", "examples.elastic_worker",
+    "telemetry.ctlprof", "telemetry.slo", "telemetry.trace", "data.store", "service.queue", "service.scheduler",
+    "service.defrag", "service.runtime", "service.drill", "examples.sweep_service", "examples.sweep_submit",
 )
 
 

@@ -15,7 +15,7 @@ On the CPU at batch 16, hidden 16, latent 4, 128 rows:
   and for a stacked one with a lane fault and a poisoned lane, the compile
   registry's events, ``first_dispatch``'s outcome and the device books'
   ``device_cost`` and ``device_memory`` (with its ``where``) included,
-  leaving out the incident plane's kinds (not ported, A.12), the kinds the
+  leaving out the incident plane's kinds (not ported, A.12b), the kinds the
   wall clock decides (a straggler and the capture it opens; their parity on
   the same step times is ``test_torch_anomaly.py``'s) and the JAX
   package's state-init program's events (a program the port does not have:
@@ -74,7 +74,8 @@ from multidisttorch_tpu_torch.train.guards import DivergenceError
 from multidisttorch_tpu_torch.train.steps import wrap_step_with_hooks
 
 SMALL = dict(batch_size=16, hidden_dim=16, latent_dim=4, log_interval=10_000)
-# Kinds of modules the port has not ported: the incident plane (A.12).
+# Kinds of modules the port has not ported: the incident plane (A.12b; the
+# service's own kinds are ported with it, A.12).
 UNPORTED_KINDS = re.compile(r"^incident")
 # Kinds the wall clock decides: a step slower than its series' median fires
 # in one run and not in another.
