@@ -230,6 +230,29 @@ Phases, in order; any failure exits non-zero and prints no result:
     submissions of two tenants, SIGKILLed mid-sweep and restarted, loses no
     submission, goodput >= 0.8 and the fair share
     within 10 % of 2:1; each daemon's ``BOOT`` (its CUDA start) printed;
+20. the operator plane (run before 13, the registry on): (a)
+    ``service.incident_drill.run_incidents_bench`` on the card: each of the
+    eight fault scenarios that need no fabric opens exactly one incident of
+    its expected kind and publishes its bundle, the soak opens none, the
+    fabric scenarios print as not ported, and the ELBO kernels launch once
+    per train step of the drill's sweeps; (b) a telemetry-on ``run_hpo`` of
+    four full-width trials (one epoch, chunks of 10) with trials 0-2
+    poisoned at step 2: exactly one ``divergence_storm``, naming them;
+    trial 3 completes bit-identical (history, losses, graph replays, final
+    checkpoint) to trial 3 of the same configs with no plan and telemetry
+    off; ``build_incident_report`` gives the same verdict offline; the
+    flight ring's length and drops and the detector's events per step
+    printed; (c) every console as a child (``python -m
+    multidisttorch_tpu_torch.tools.<name>``, no card visible) over
+    directories the card wrote: over (b)'s, ``sweep_top`` (text and
+    ``--json``), ``ledger_view --json``, ``incident`` list, show and
+    report, ``ckpt_gc --dry-run --json`` then a real pass, after which
+    trial 3's checkpoint still restores bit-identical; over phase 19's
+    kill -9 service directory (rendered inside phase 19), ``sweep_top
+    --service --json``, ``ledger_view --queue --json`` and ``sweep_trace
+    --json``; over phase 18's run directory (rendered inside phase 18),
+    ``sweep_top --fleet --json``; each exits 0 and its JSON agrees with
+    its phase's own results;
 13. a ``kernels`` JSON line, then the result line.
 
 Exits 1 without a result when CUDA is unavailable or the port is not
@@ -3074,6 +3097,12 @@ def empty_plan_and_telemetry(E, group, smi: str, train, test) -> dict:
                 walls[mode].append(time.time() - t0)
                 if bus is not None:
                     per_step.append(bus.emitted / sum(r.steps for r in res))
+                    # The incident plane's tap saw every event; a clean
+                    # slice opens no incident.
+                    ring, det = telemetry.get_flight_ring(), telemetry.get_incident_detector()
+                    check(ring is not None and ring.noted == bus.emitted and det.opened == 0,
+                          f"15c: the incident plane saw {ring and ring.noted} of {bus.emitted} events, opened "
+                          f"{det and det.opened}")
             check(summary(res) == summary(plain), f"15c: telemetry {mode} changed the slice's results")
     busy = {}
     for mode in ("off", "on"):
@@ -3084,7 +3113,8 @@ def empty_plan_and_telemetry(E, group, smi: str, train, test) -> dict:
                     lambda: run_hpo(configs[:1], train, test, groups=[group], out_dir=tmp, verbose=False),
                     len(train) // 128, guard="elbo_fwd")
     med = {m: statistics.median(w) for m, w in walls.items()}
-    print(f"15c telemetry off vs on, phase 6's slice ({steps} steps, checkpoints on), rounds {TELEMETRY_ROUNDS}: wall s "
+    print(f"15c telemetry off vs on (the incident plane armed), phase 6's slice ({steps} steps, checkpoints on), "
+          f"rounds {TELEMETRY_ROUNDS}: wall s "
           f"off {walls['off']} (median {med['off']:.6f}), on {walls['on']} (median {med['on']:.6f}), on/off "
           f"{med['on'] / med['off']:.4f}; events per step {per_step}; device busy ms per step over one epoch "
           f"of trial 0 (468 steps) off {busy['off']}, on {busy['on']} ({smi})")
@@ -4140,6 +4170,8 @@ def elastic_drill(E, smi: str, tmp: str) -> dict:
     kinds = ("sweep_start", "attempt_start", "optimizer_state", "ckpt_scan_restore", "first_dispatch", "epoch")
     print("18a world 1 first events after its launch (s): " + "; ".join(
         f"host {h}: " + ", ".join(f"{k} {v[k]}" for k in kinds if k in v) for h, v in sorted(firsts.items())))
+    # 20c's fleet view, before the run directory goes.
+    fleet_console(os.path.join(tmp, "mh_chaos"), rep)
     return {"elastic_drill": {k: wl[k] for k in ("elbo_fwd", "elbo_bwd")}, "elastic_reference": rl}
 
 
@@ -4592,6 +4624,8 @@ def service_drill(E, smi: str, train, tmp: str) -> dict:
     check(all(boot["device"] == ["cuda:0"] for boot in kr["daemon_boots"]) and len(kr["daemon_boots"]) == 2,
           f"19c: daemons' devices {kr['daemon_boots']}")
     check(bench["ok"], f"19c: gates {bench['gates']}")
+    # 20c's service consoles, before the service directory goes.
+    service_consoles(os.path.join(work, "service"), kr)
     check(len(kr["daemon_launches"]) == 1, f"19c: the restarted daemon's LAUNCHES line {kr['daemon_launches']}")
     drill_launches = {k: v for k, v in kr["daemon_launches"][0].items() if k in E.LAUNCHES}
     check(all(drill_launches[k] > 0 for k in E.LAUNCHES), f"19c: the restarted daemon's launches {drill_launches}")
@@ -4650,6 +4684,256 @@ def service_phase(E, smi: str, train, test) -> dict:
     lanes = {k: a["launches"][k] + b["launches"][k] + c["defrag"][k] for k in ("elbo_fwd_lanes", "elbo_bwd_lanes")}
     check(all(v > 0 for v in {**single, **lanes}.values()), f"phase 19: launches {single} {lanes}")
     return {"service": single, "service_stacked": lanes, "service_drill": c["drill"]}
+
+
+# --- phase 20: the operator plane (the incident plane and the consoles) ------
+
+# The seconds each console child took, by phase (20c), for the phase's line.
+CONSOLES: list = []
+
+
+def _consoles(what: str, runs: list, timeout_s: float = 180.0) -> list:
+    """Each ``(name, args)`` of ``runs`` as a child, ``python -m
+    multidisttorch_tpu_torch.tools.<name> *args``, all started together and
+    with no card visible (the consoles read files only): their stdouts, in
+    order. Fails unless every one exits 0."""
+    t0 = time.time()
+    env = _child_env(CUDA_VISIBLE_DEVICES="")
+    procs = [(name, args, subprocess.Popen([sys.executable, "-m", f"multidisttorch_tpu_torch.tools.{name}", *args],
+                                           env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+             for name, args in runs]
+    outs = []
+    try:
+        for name, args, proc in procs:
+            out, err = proc.communicate(timeout=max(1.0, timeout_s - (time.time() - t0)))
+            check(proc.returncode == 0,
+                  f"20c {what}: {name} {' '.join(args)} exited {proc.returncode}\n{out[-2000:]}\n{err[-2000:]}")
+            outs.append(out)
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    CONSOLES.append((what, len(runs), round(time.time() - t0, 3)))
+    return outs
+
+
+def fleet_console(run_dir: str, rep: dict) -> None:
+    """20c over phase 18's run directory: ``sweep_top --fleet --json``
+    against the drill's own report (its hosts, worlds and trials)."""
+    (out,) = _consoles("18a", [("sweep_top", [run_dir, "--fleet", "--json"])])
+    snap = json.loads(out)
+    hosts = sorted(int(h) for h in snap["hosts"])
+    check(hosts == list(range(ELASTIC["hosts"])) and len(snap["worlds"]) == rep["worlds_formed"]
+          and snap["all_hosts_traced"],
+          f"20c 18a: the fleet view's hosts {hosts}, worlds {len(snap['worlds'])}: the drill had "
+          f"{ELASTIC['hosts']} hosts, {rep['worlds_formed']} worlds")
+    # The fleet fold's trial status is the merged event stream's last word
+    # (the JAX console's fold); the drill's is the ledger's.
+    statuses = {int(t): v["status"] for t, v in snap["trials"].items()}
+    check(sorted(statuses) == sorted(int(t) for t in rep["statuses"]),
+          f"20c 18a: the fleet view's trials {statuses} against the drill's {rep['statuses']}")
+    print(f"20c over 18a's run directory: sweep_top --fleet --json: hosts {hosts}, {len(snap['worlds'])} worlds and "
+          f"trials {sorted(statuses)}, as the drill's; restart tax {[t.get('total_s') for t in snap['restart_tax']]} "
+          f"s; the fold's statuses {statuses} (the ledger's {rep['statuses']})")
+
+
+def service_consoles(service_dir: str, kr: dict) -> None:
+    """20c over phase 19's kill -9 service directory: ``sweep_top --service
+    --json``, ``ledger_view --queue --json`` and ``sweep_trace --json``
+    against the drill's own report (every submission settled, with its
+    status)."""
+    top, queue, trace = _consoles("19c", [
+        ("sweep_top", [service_dir, "--service", "--json"]),
+        ("ledger_view", [service_dir, "--queue", "--json"]),
+        ("sweep_trace", [service_dir, "--json"]),
+    ])
+    top, queue, trace = json.loads(top), json.loads(queue)["by_submission"], json.loads(trace)
+    want = kr["statuses"]
+    for what, folded in (("sweep_top --service", top["queue"]), ("ledger_view --queue", queue)):
+        got = {sid: rec.get("status") for sid, rec in folded.items() if rec["state"] == "settled"}
+        check(got == want, f"20c 19c: {what} settled {len(got)} submissions, the drill {len(want)}: "
+              f"{sorted(set(got.items()) ^ set(want.items()))[:6]}")
+    check(sorted(bd["submission_id"] for bd in trace) == sorted(want)
+          and all(bd["state"] == "settled" for bd in trace),
+          f"20c 19c: sweep_trace listed {len(trace)} submissions, the drill {len(want)}")
+    print(f"20c over 19c's service directory: sweep_top --service --json and ledger_view --queue --json settled "
+          f"{len(want)} of {kr['submissions']} submissions ({kr['completed']} completed), sweep_trace --json "
+          f"{len(trace)} span trees, as the drill's; incidents "
+          f"{[(i['kind'], i['subject'], i['status']) for i in (top.get('incidents') or {}).values()]}")
+
+
+def incident_drill_phase(E, smi: str, tmp: str) -> dict:
+    """20a: the incident drill on the card. Counts set to 0 just before;
+    the device books' counted step (one eager step per program shape new
+    to the process) is taken off."""
+    from multidisttorch_tpu_torch.service.incident_drill import run_incidents_bench
+    from multidisttorch_tpu_torch.telemetry import device as tele_device
+
+    _zero(E)
+    memo0 = len(tele_device._cost_cache)
+    t0 = time.time()
+    rep = run_incidents_bench(os.path.join(tmp, "20a"), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counted = len(tele_device._cost_cache) - memo0
+    launches = {k: v - (counted if k in ("elbo_fwd", "elbo_bwd") else 0) for k, v in E.LAUNCHES.items()}
+    check(rep["device"] == "cuda", f"20a: the drill ran on {rep['device']}")
+    for name, sc in rep["scenarios"].items():
+        check(sc["error"] is None and sc["n_incidents"] == 1 and sc["verdict"] == sc["expected"] and sc["bundle_ok"],
+              f"20a {name}: {sc['n_incidents']} incidents {sc['incidents']}, expected one {sc['expected']}, "
+              f"bundle {sc['bundle_ok']}, error {sc['error']}")
+        print(f"20a {name} ({sc['fault']}{', scripted seam' if sc['scripted_seam'] else ''}): "
+              f"{sc['incidents'][0]['kind']} [{sc['incidents'][0]['subject']}] x{sc['incidents'][0]['count']}, "
+              f"bundle {os.path.basename(sc['bundle'])}, flight ring {sc['flight_ring']}, {sc['train_steps']} train "
+              f"steps, {sc['elapsed_s']} s")
+    soak = rep["soak"]
+    check(len(rep["scenarios"]) == 8 and soak["error"] is None and soak["n_incidents"] == 0,
+          f"20a: {len(rep['scenarios'])} scenarios, the soak {soak['n_incidents']} incidents, error {soak['error']}")
+    check(rep["ok"], f"20a: gates {rep['gates']}")
+    for name, item in rep["not_ported"].items():
+        print(f"20a {name}: not ported ({item})")
+    check(launches["elbo_fwd"] == launches["elbo_bwd"] == rep["train_steps"]
+          and launches["elbo_fwd_lanes"] == launches["elbo_bwd_lanes"] == 0,
+          f"20a: kernels launched {dict(E.LAUNCHES)} less {counted} counted steps, {rep['train_steps']} train "
+          f"steps in the drill's ledgers")
+    print(f"20a: 8 fault scenarios on the diagonal and the soak at 0 (9 of 9; confusion {rep['confusion']}), bundles "
+          f"present, taxonomy {rep['taxonomy_hit']} (not covered: {rep['taxonomy_not_covered']}), gates "
+          f"{rep['gates']}, soak {soak['train_steps']} steps; {rep['train_steps']} train steps, launches "
+          f"{launches} (+{counted} counted steps); {wall:.1f} s ({smi})")
+    return launches
+
+
+# 20b's sweep: four full-width trials, one MNIST-sized epoch each, in chunks of
+# 10; trials 0-2 poisoned at step 2 (a divergence storm), trial 3 clean.
+PLANE_TRIALS = 4
+
+
+def plane_sweep(E, smi: str, train, test, tmp: str) -> tuple:
+    """20b. The reference (no plan, telemetry off) first; counts set to 0
+    just before the telemetry-on run and read just after (its device
+    books' counted steps taken off)."""
+    from multidisttorch_tpu_torch import telemetry
+    from multidisttorch_tpu_torch.faults import DIVERGE, FaultPlan, FaultSpec
+    from multidisttorch_tpu_torch.hpo.driver import TrialConfig, run_hpo
+    from multidisttorch_tpu_torch.parallel.mesh import setup_groups
+    from multidisttorch_tpu_torch.telemetry import device as tele_device
+    from multidisttorch_tpu_torch.telemetry import incident as tincident
+    from multidisttorch_tpu_torch.train import checkpoint as ck
+
+    group = setup_groups(1, devices=["cuda:0"])[0]
+    configs = [TrialConfig(trial_id=t, epochs=1, batch_size=128, seed=t, fused_steps=10) for t in range(PLANE_TRIALS)]
+    plan = FaultPlan(specs=tuple(FaultSpec(DIVERGE, t, step=2) for t in range(PLANE_TRIALS - 1)))
+    ref_dir, d = os.path.join(tmp, "20b-ref"), os.path.join(tmp, "20b")
+    tel = os.path.join(d, "telemetry")
+    ref = run_hpo(configs, train, test, groups=[group], out_dir=ref_dir, verbose=False)
+    _zero(E)
+    memo0 = len(tele_device._cost_cache)
+    t0 = time.time()
+    with telemetry.telemetry_run(tel) as bus:
+        res = run_hpo(configs, train, test, groups=[group], out_dir=d, verbose=False, fault_plan=plan)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        ring, det = telemetry.get_flight_ring(), telemetry.get_incident_detector()
+        held, noted, emitted, opened = len(ring.snapshot()), ring.noted, bus.emitted, det.opened
+    counted = len(tele_device._cost_cache) - memo0
+    launches = {k: v - (counted if k in ("elbo_fwd", "elbo_bwd") else 0) for k, v in E.LAUNCHES.items()}
+    steps = sum(n for _, n in _attempt_steps(d))
+    check(launches["elbo_fwd"] == launches["elbo_bwd"] == steps and not launches["elbo_fwd_lanes"],
+          f"20b: kernels launched {dict(E.LAUNCHES)} less {counted} counted steps, {steps} steps in the ledger")
+    statuses = [r.status for r in res]
+    check(statuses == ["diverged"] * (PLANE_TRIALS - 1) + ["completed"], f"20b: statuses {statuses}")
+
+    def summary(r):
+        return (r.status, r.steps, r.history, r.final_train_loss, r.final_test_loss, r.graph_replays)
+
+    t3 = PLANE_TRIALS - 1
+    check(summary(res[t3]) == summary(ref[t3]), f"20b: trial {t3} {summary(res[t3])} against {summary(ref[t3])}")
+    check(res[t3].graph_replays >= 46, f"20b: trial {t3} ran {res[t3].graph_replays} graph replays")
+    _same_checkpoint(ck, ref_dir, d, "20b trial 3 beside the storm", trial_id=t3)
+    folded = tincident.load_incidents(tel)
+    check(len(folded) == 1 and opened == 1, f"20b: {len(folded)} incidents (opened {opened}): {folded}")
+    (inc,) = folded.values()
+    check(inc["kind"] == tincident.DIVERGENCE_STORM and inc["detail"]["trials"] == list(range(t3)),
+          f"20b: {inc['kind']} naming {inc['detail'].get('trials')}")
+    bundle = os.path.join(tel, tincident.BUNDLE_DIRNAME, inc["id"])
+    check(all(os.path.isfile(os.path.join(bundle, n)) for n in ("trigger.json", "flight_ring.json")),
+          f"20b: {inc['id']}'s bundle is not whole")
+    t1 = time.time()
+    report = tincident.build_incident_report(d, inc["id"])
+    report_s = time.time() - t1
+    check(report["verdict"] == inc["kind"] and "events" in report["corroborating_surfaces"],
+          f"20b: the offline autopsy says {report['verdict']} from {report['corroborating_surfaces']}")
+    print(f"20b: {PLANE_TRIALS} trials {statuses} in {wall:.3f} s; one {inc['kind']} ({inc['id']}) naming trials "
+          f"{inc['detail']['trials']}, count {inc['count']}; trial {t3} bit-identical to its run with no plan and "
+          f"telemetry off ({res[t3].steps} steps, {res[t3].graph_replays} graph replays, test loss "
+          f"{res[t3].final_test_loss:.6f}); the offline autopsy: {report['verdict']} from "
+          f"{report['corroborating_surfaces']} in {report_s:.3f} s, {len(report['timeline'])} timeline records; "
+          f"flight ring {held} held of {noted} noted ({noted - held} dropped, maxlen {ring.maxlen}); the detector "
+          f"saw {noted} events ({emitted} emitted), {noted / steps:.4f} per step over {steps} steps; launches "
+          f"{launches} (+{counted} counted steps) ({smi})")
+    return launches, d, res, inc
+
+
+def plane_consoles(d: str, res: list, inc: dict, smi: str) -> None:
+    """20c over 20b's directory: the run view and its JSON, the ledger, the
+    incident CLI and the checkpoint GC, against 20b's own results; after
+    the GC's real pass trial 3's checkpoint still restores."""
+    from multidisttorch_tpu_torch.train import checkpoint as ck
+
+    tel = os.path.join(d, "telemetry")
+    text, top, led, incs, show, report, gc_dry = _consoles("20b", [
+        ("sweep_top", [tel]),
+        ("sweep_top", [tel, "--json"]),
+        ("ledger_view", [d, "--json"]),
+        ("incident", [d, "--json"]),
+        ("incident", [d, "show", inc["id"]]),
+        ("incident", [d, "report", inc["id"], "--json"]),
+        ("ckpt_gc", [d, "--dry-run", "--json"]),
+    ])
+    top, led, incs, report, gc_dry = map(json.loads, (top, led, incs, report, gc_dry))
+    want = {r.trial_id: (r.status, r.steps) for r in res}
+    # The run view's step is the last epoch's: a trial that diverged in its
+    # first epoch ended none (the ledger has its steps).
+    got = {int(t): (v["status"], v["step"]) for t, v in top["trials"].items()}
+    check(got == {t: (st, n if st == "completed" else 0) for t, (st, n) in want.items()} and top["done"]
+          and "sweep finished" in text, f"20c 20b: sweep_top's trials {got} against the sweep's {want}")
+    rows = {v["trial_id"]: (v["attempts"][-1]["status"], v["attempts"][-1]["steps"]) for v in led["by_config"].values()}
+    check(rows == want and led["settled"] == len(res), f"20c 20b: ledger_view's configs {rows} against {want}")
+    check(list(incs) == [inc["id"]] and incs[inc["id"]]["kind"] == inc["kind"] and inc["id"] in show
+          and report["verdict"] == inc["kind"],
+          f"20c 20b: the incident CLI listed {list(incs)}, reported {report.get('verdict')}")
+    # Only trial 3 ended an epoch, so only it saved a checkpoint.
+    t3 = res[-1].trial_id
+    stores = {os.path.basename(rep["dir"]): rep["live_chunks"] for rep in gc_dry["reports"]}
+    check(list(stores) == [f"trial-{t3}"] and stores[f"trial-{t3}"] > 0 and gc_dry["totals"]["orphans_removed"] == 0,
+          f"20c 20b: ckpt_gc --dry-run found {stores}, {gc_dry['totals']}")
+    (gc,) = _consoles("20b gc", [("ckpt_gc", [d, "--json"])])
+    gc = json.loads(gc)
+    path = os.path.join(d, f"trial-{t3}", "state.msgpack")
+    ok, _meta, reason = ck.verify_checkpoint(path)
+    check(ok, f"20c 20b: trial {t3}'s checkpoint after ckpt_gc: {reason}")
+    _same_checkpoint(ck, os.path.join(os.path.dirname(d), "20b-ref"), d, "20c trial 3 after ckpt_gc", trial_id=t3)
+    print(f"20c over 20b's directory: sweep_top (text, --json) trials {got}; ledger_view --json {led['configs']} "
+          f"configs, {led['settled']} settled; incident list/show/report: {list(incs)} {report['verdict']}; ckpt_gc "
+          f"--dry-run {gc_dry['totals']}, then {gc['totals']}; trial {t3}'s checkpoint verifies and restores "
+          f"bit-identical ({smi})")
+
+
+def plane_phase(E, smi: str, train, test) -> dict:
+    """Phase 20, with the registry on (as phase 19 left it)."""
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        drill = incident_drill_phase(E, smi, tmp)
+        t1 = time.time()
+        plane, d, res, inc = plane_sweep(E, smi, train, test, tmp)
+        t2 = time.time()
+        plane_consoles(d, res, inc, smi)
+        t3 = time.time()
+    print(f"20c consoles (phase, children, s started together): {CONSOLES}")
+    print(f"phase 20: {time.time() - t0:.1f} s (20a {t1 - t0:.1f} s, 20b {t2 - t1:.1f} s, 20c over 20b {t3 - t2:.1f} s; "
+          f"20c's children in phases 18 and 19 {sum(s for w, _, s in CONSOLES if w in ('18a', '19c')):.1f} s)")
+    return {"incident_drill": drill, "plane": plane}
 
 
 def main() -> None:
@@ -4911,6 +5195,11 @@ def main() -> None:
     # part; the drill's restarted daemon counts its own.
     service = service_phase(E, smi, train, test)
 
+    # Phase 20: the operator plane; counts set to 0 inside, just before the
+    # drill and the telemetry-on sweep; phases 18 and 19 ran its consoles
+    # over their own directories.
+    plane = plane_phase(E, smi, train, test)
+
     # Phase 13: the kernels line, then the result.
     # "ms", "plain_ms" and "library_ms" are device time per call at the
     # slice's shape (batch 128, f32); "*_call_ms" add the host's per-call
@@ -4925,8 +5214,9 @@ def main() -> None:
     # phase 18's (18a's workers over both worlds, from their own counts, and
     # its in-process reference; 18b's three children) and phase 19's
     # ("service": 19a's lone trial, 19b's preempted lanes and the defrag
-    # drill; "service_drill": 19c's restarted daemon, from its own counts) ran,
-    # graph replays included, one per wrapper call; "launches_by_path" each. "conv_vae_width" holds the
+    # drill; "service_drill": 19c's restarted daemon, from its own counts) and
+    # phase 20's ("incident_drill": 20a's sweeps; "plane": 20b's telemetry-on
+    # sweep) ran, graph replays included, one per wrapper call; "launches_by_path" each. "conv_vae_width" holds the
     # same times at the conv beta-VAE's shape, (128, 3072, 64) f32.
     src = "multidisttorch_tpu_torch/ops/csrc/elbo.cu"
     m = main_shape
@@ -4942,7 +5232,8 @@ def main() -> None:
                    "registry_retry": comp["retry"][name],
                    **{path: n[name] for path, n in books.items() if path != "bucket"},
                    **{path: n[name] for path, n in elastic.items()},
-                   "service": service["service"][name], "service_drill": service["service_drill"][name]}
+                   "service": service["service"][name], "service_drill": service["service_drill"][name],
+                   "incident_drill": plane["incident_drill"][name], "plane": plane["plane"][name]}
         c = conv["kernels"]
         kernels.append({
             "name": name, "route": "cuda", "source": src,

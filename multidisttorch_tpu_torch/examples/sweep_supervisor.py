@@ -45,10 +45,11 @@ The worker processes of one machine share its cards (``LOCAL_RANK`` modulo
 the visible cards); nothing on the drill's path forms an NCCL communicator,
 so several ranks may share one card.
 
-Service-fabric worlds (the JAX package's ``tools/sweep_service.py
---fabric`` replicas as the worker command) need the service fabric, which
-is not ported (ROADMAP A.12b); the worker command is the caller's, so the
-supervisor itself does not refuse one.
+Service-fabric worlds (``examples/sweep_service.py --fabric`` replicas,
+the JAX package's ``tools/sweep_service.py --fabric``, as the worker
+command) need the sharded service fabric, which is not ported (ROADMAP
+A.12b: the port's ``--fabric`` raises); the worker command is the
+caller's, so the supervisor itself does not refuse one.
 """
 
 from __future__ import annotations

@@ -22,14 +22,16 @@ the front door that turns the same machinery into a long-running service
   device slots, with its books; ``examples/sweep_service.py`` is the CLI.
 - :mod:`service.drill`: the kill -9 restart drill, the defrag drill and
   the service bench, through that CLI.
+- :mod:`service.incident_drill`: the incident plane's chaos drill (one
+  scenario per fault family that needs no fabric, and a no-fault soak).
 
 The scheduler, queue and defrag modules are copies of the JAX package's
 (no torch), held to them by ``tests/test_torch_service.py``.
 
 Not ported here (ROADMAP A.12b): the sharded fabric (``FabricClient``,
 ``FabricReplica``, ``FenceLost``, ``ShardFence``, ``shard_of``,
-``try_claim``), the topology, the fabric, checkpoint and incident drills
-and the load generator.
+``try_claim``), the topology, the fabric and checkpoint drills, the
+incident drill's fabric scenarios and the load generator.
 """
 
 from multidisttorch_tpu_torch.service.queue import (  # noqa: F401

@@ -30,7 +30,12 @@ Counterpart of the JAX package's ``telemetry/`` package, first part
   :mod:`~multidisttorch_tpu_torch.telemetry.trace`: the service's SLO
   engine and submission traces.
 
-Not ported here: the incident plane (ROADMAP A.12b), so the bus has no tap.
+- :mod:`~multidisttorch_tpu_torch.telemetry.incident`: the incident plane
+  (the flight ring, the root-cause detector, the incident ledger and
+  bundles, the offline autopsy). It rides the same switch: ``configure``
+  installs its tap on the bus, so every event passes through the ring and
+  the detector, and the ledger and bundles land beside the event stream.
+  Not ported (ROADMAP A.12b): the autopsy's fabric surface.
 
 **Zero cost when off**: telemetry is disabled by default. Every hot-path
 seam is written as ``bus = get_bus(); if bus is not None: bus.emit(...)``:
@@ -59,15 +64,19 @@ from typing import Optional
 from multidisttorch_tpu_torch.telemetry import anomaly as _anomaly
 from multidisttorch_tpu_torch.telemetry import ctlprof as _ctlprof
 from multidisttorch_tpu_torch.telemetry import events as _events
+from multidisttorch_tpu_torch.telemetry import incident as _incident
 from multidisttorch_tpu_torch.telemetry import metrics as _metrics
 
 get_bus = _events.get_bus
 get_registry = _metrics.get_registry
 get_ctlprof = _ctlprof.get_ctlprof
 get_monitor = _anomaly.get_monitor
+get_flight_ring = _incident.get_flight_ring
+get_incident_detector = _incident.get_detector
 AnomalyConfig = _anomaly.AnomalyConfig
 read_events = _events.read_events
 EVENTS_NAME = _events.EVENTS_NAME
+INCIDENTS_NAME = _incident.INCIDENTS_NAME
 
 
 def enabled() -> bool:
@@ -99,7 +108,8 @@ def configure(
     world: Optional[int] = None,
 ) -> None:
     """Turn telemetry ON: create the event bus (JSONL sink under
-    ``out_dir`` when given, in-memory only otherwise), the metrics
+    ``out_dir`` when given, in-memory only otherwise), the incident plane
+    (its ledger and bundles under ``out_dir`` too), the metrics
     registry and the anomaly monitor (``anomaly=`` tunes its thresholds;
     ``anomaly_capture_dir=`` also arms the bounded profiler capture, off by
     default since a process holds one profiler session at a time). In a
@@ -117,7 +127,12 @@ def configure(
         if num_processes > 1:
             name = f"events.p{process_id}.jsonl"
         path = os.path.join(out_dir, name)
-    _events.configure(path=path, queue_max=queue_max, host=host, world=world)
+    bus = _events.configure(path=path, queue_max=queue_max, host=host, world=world)
+    # The incident plane rides the same switch: the flight ring and the
+    # detector tap every emit, and the ledger and bundles land beside the
+    # event stream. The tap goes on after the detector exists, so no emit
+    # sees a half-armed plane.
+    bus.tap = _incident.configure(out_dir, host=bus.host)
     reg = _metrics.configure(device_sample_every=device_sample_every)
     # The control-plane profiler rides the same switch: its wall histograms
     # are registry series; its flame file (MDT_CTLPROF_SAMPLE_HZ) lands
@@ -131,10 +146,12 @@ def configure(
 
 def disable() -> None:
     """Turn telemetry OFF (close the sink, stop any profiler window, drop
-    bus, registry, anomaly monitor and control-plane profiler)."""
+    bus, registry, anomaly monitor, flight ring, incident detector and
+    control-plane profiler)."""
     _anomaly.disable()
     _ctlprof.disable()
     _events.disable()
+    _incident.disable()
     _metrics.disable()
 
 
@@ -192,6 +209,7 @@ def telemetry_run(out_dir: Optional[str] = None, **kwargs):
 
 __all__ = [
     "EVENTS_NAME",
+    "INCIDENTS_NAME",
     "AnomalyConfig",
     "configure",
     "configure_from_env",
@@ -199,6 +217,8 @@ __all__ = [
     "enabled",
     "export_run",
     "get_bus",
+    "get_flight_ring",
+    "get_incident_detector",
     "get_monitor",
     "get_registry",
     "get_ctlprof",

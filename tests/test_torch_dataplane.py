@@ -3,8 +3,8 @@ content-addressed cache (``data/store.py``, a copy of the JAX package's),
 heterogeneous stacked lanes, the pipelined input path, the per-series
 input-stall books, per-trial datasets in ``run_hpo`` and the service's
 data plane; one test for each of ``tests/test_dataplane.py``'s with the same
-assertions (its ``sweep_top`` snapshot test waits for the console's service
-panel, ROADMAP A.12b). Then the store against the JAX store: the same
+assertions (its ``sweep_top`` snapshot test is
+``tests/test_torch_consoles.py``'s). Then the store against the JAX store: the same
 digests, probe shapes and byte-identical arrays for each reference form.
 
 The load-bearing contracts:

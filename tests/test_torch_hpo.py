@@ -266,6 +266,8 @@ PORT_MODULES = (
     "parallel.membership", "telemetry.fleet", "examples.sweep_supervisor", "examples.elastic_worker",
     "telemetry.ctlprof", "telemetry.slo", "telemetry.trace", "data.store", "service.queue", "service.scheduler",
     "service.defrag", "service.runtime", "service.drill", "examples.sweep_service", "examples.sweep_submit",
+    "telemetry.incident", "service.incident_drill", "tools.sweep_top", "tools.ledger_view", "tools.sweep_trace",
+    "tools.ckpt_gc", "tools.incident",
 )
 
 

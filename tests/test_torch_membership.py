@@ -137,7 +137,10 @@ def test_membership_events_ride_the_port_bus(tmp_path):
         assert view.lost_hosts(3.0, now=now) == [1]
         pm.record_world(str(tmp_path / "run"), epoch=1, hosts=[0], lost=[1], reason="host_lost")
         kinds = [e.kind for e in bus.recent()]
-    assert kinds == ["host_lost", "world_shrunk"]
+    # The lost host opens a replica_lost incident (the incident plane's
+    # event, between the two).
+    assert kinds == ["host_lost", "incident", "world_shrunk"]
     events = telemetry.read_events(str(tmp_path / "tel" / telemetry.EVENTS_NAME))
     assert events[0]["data"]["slot"] == 1 and events[0]["data"]["stale_s"] == pytest.approx(10.0, abs=0.01)
-    assert events[1]["data"] == {"epoch": 1, "hosts": [0], "lost": [1], "reason": "host_lost"}
+    assert events[1]["data"]["incident_kind"] == "replica_lost" and events[1]["data"]["subject"] == "host:1"
+    assert events[2]["data"] == {"epoch": 1, "hosts": [0], "lost": [1], "reason": "host_lost"}

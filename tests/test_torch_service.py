@@ -1,8 +1,8 @@
 """The port's sweep service (docs/SERVICE.md): queue durability, scheduler
 invariants, defrag policy and the daemon runtime on device slots; one test
 for each of ``tests/test_service.py``'s with the same assertions (its
-``ledger_view --queue`` and ``sweep_top --service`` tests wait for those
-consoles, ROADMAP A.12b). Then the copies against their originals (exact),
+``ledger_view --queue`` and ``sweep_top --service`` tests are
+``tests/test_torch_consoles.py``'s). Then the copies against their originals (exact),
 the port's service against the JAX service on the same submissions, the
 snapshot-fast drain and resume, and the kill -9 drill on the CPU.
 

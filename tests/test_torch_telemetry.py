@@ -14,8 +14,8 @@ On the CPU at batch 16, hidden 16, latent 4, 128 rows:
   package's (timestamps and ids aside) for an unstacked sweep with a retry
   and for a stacked one with a lane fault and a poisoned lane, the compile
   registry's events, ``first_dispatch``'s outcome and the device books'
-  ``device_cost`` and ``device_memory`` (with its ``where``) included,
-  leaving out the incident plane's kinds (not ported, A.12b), the kinds the
+  ``device_cost`` and ``device_memory`` (with its ``where``) and the
+  incident plane's kinds included, leaving out the kinds the
   wall clock decides (a straggler and the capture it opens; their parity on
   the same step times is ``test_torch_anomaly.py``'s) and the JAX
   package's state-init program's events (a program the port does not have:
@@ -74,20 +74,16 @@ from multidisttorch_tpu_torch.train.guards import DivergenceError
 from multidisttorch_tpu_torch.train.steps import wrap_step_with_hooks
 
 SMALL = dict(batch_size=16, hidden_dim=16, latent_dim=4, log_interval=10_000)
-# Kinds of modules the port has not ported: the incident plane (A.12b; the
-# service's own kinds are ported with it, A.12).
-UNPORTED_KINDS = re.compile(r"^incident")
 # Kinds the wall clock decides: a step slower than its series' median fires
 # in one run and not in another.
 TIMING_KINDS = {"anomaly_step_straggler", "profiler_capture_started"}
 
 
 def _unported(e: dict) -> bool:
-    """An event the sequences are not compared on: an unported kind, a
-    timing-driven one, or the JAX package's state-init program's compile
-    events (``SINGLE_INIT``; the port's initial weights are eager host-side
-    draws, ROADMAP C.4)."""
-    return (bool(UNPORTED_KINDS.match(e["kind"])) or e["kind"] in TIMING_KINDS
+    """An event the sequences are not compared on: a timing-driven kind, or
+    the JAX package's state-init program's compile events (``SINGLE_INIT``;
+    the port's initial weights are eager host-side draws, ROADMAP C.4)."""
+    return (e["kind"] in TIMING_KINDS
             or str((e.get("data") or {}).get("program", "")).startswith("init:"))
 
 
@@ -463,8 +459,7 @@ def test_failure_classified_matches_jax(make):
                           (jax_tel, jax_classify_failure, {"div": JaxDivergenceError, "agree": JaxAgreementTimeout})):
         with tel.telemetry_run():
             cls = fn(make(mods), trial_id=4)
-            got.append((cls, [_no_ts(e.to_dict()) for e in tel.get_bus().recent()
-                              if not UNPORTED_KINDS.match(e.kind)]))
+            got.append((cls, [_no_ts(e.to_dict()) for e in tel.get_bus().recent()]))
     assert got[0] == got[1] and got[0][1][0]["kind"] == "failure_classified"
 
 
@@ -489,11 +484,13 @@ def test_checkpoint_scan_and_gc_events_match_jax(tmp_path):
             cands = ckmod.valid_candidates_by_step(str(root / "trial-0" / "state.msgpack"),
                                                    accept_meta=lambda m: m["step"] < 16)
             storemod.sweep_ckpt_dir(str(root / "trial-0"), grace_s=0.0)
-            evs = json.dumps([_no_ts(e.to_dict()) for e in tel.get_bus().recent()
-                              if not UNPORTED_KINDS.match(e.kind)]).replace(str(root), "<root>")
+            evs = json.dumps([_no_ts(e.to_dict()) for e in tel.get_bus().recent()]).replace(str(root), "<root>")
             got.append((sorted(cands), json.loads(evs)))
     assert got[0] == got[1]
-    assert [e["kind"] for e in got[0][1]] == ["ckpt_scan_reject", "ckpt_scan_reject", "ckpt_gc"]
+    # The first reject opens a ckpt_integrity incident (the incident
+    # plane's event); the second one dedups into it.
+    assert [e["kind"] for e in got[0][1]] == ["ckpt_scan_reject", "incident", "ckpt_scan_reject", "ckpt_gc"]
+    assert got[0][1][1]["data"]["incident_kind"] == "ckpt_integrity"
     assert got[0][0] == [8] and got[0][1][0]["data"]["reason"].startswith("crc32 mismatch")
 
 

@@ -1,8 +1,9 @@
 """The port's end-to-end submission tracing and SLO engine
 (``telemetry/trace.py`` and ``telemetry/slo.py``, copies of the JAX
 package's), one test for each of ``tests/test_trace.py``'s with the same
-assertions; the JAX file's ``sweep_trace`` CLI and load-generator tests wait
-for their modules (ROADMAP A.12b).
+assertions; the JAX file's ``sweep_trace`` CLI test is
+``tests/test_torch_consoles.py``'s, and its load-generator test waits for
+its module (ROADMAP A.12b).
 
 The honesty contracts under test:
 
