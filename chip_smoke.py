@@ -179,7 +179,8 @@ Phases, in order; any failure exits non-zero and prints no result:
     2); (e) eviction under ``MDT_REGISTRY_MAX_PROGRAMS=2`` frees the slot,
     the scan quarantines a truncated ELBO library, the canary passes on the
     real libraries; (f) the cold-start bench's cold, precompiled and
-    cache-warm children with its gates;
+    cache-warm children with its gates (the cold and precompiled children
+    started together);
 17. device books, the anomaly monitor and profiling (run before 13, the
     registry on): (a) 16a's six replicas with telemetry off and on, bits
     identical; each trial's FLOPs a step equal to the same step counted on
@@ -253,6 +254,27 @@ Phases, in order; any failure exits non-zero and prints no result:
     --json``; over phase 18's run directory (rendered inside phase 18),
     ``sweep_top --fleet --json``; each exits 0 and its JSON agrees with
     its phase's own results;
+21. fused PBT over a model family (run before 13): (a) ``run_pbt(fused=True,
+    model_builder=ConvVAE)`` at full width (latent 64, base 32, 32x32x3,
+    CIFAR-sized synthetic data), K 8, 5 generations of 50 steps, batch 128,
+    11a's lr range and exchange, counts set to 0 just before: one capture
+    and 5 replays, one host fetch per generation, each lane kernel once per
+    stacked step and once in the warm-up, the single-trial kernels never,
+    every eval sum finite and the best falling; ms per generation and
+    train samples/s, and from torch.profiler over two replays of the same
+    generation built anew the device's busy time (or kernel time, where
+    kernels overlap) and the top kernels; (b) the same for the MoE VAE (784-400-20, 4 experts,
+    capacity factor 2.0) on MNIST-sized data; (c) each family fused at K 4
+    against its per-group run (one-slot groups on the card), 3
+    generations: generation 0's eval sums within rel 1e-3 for the MoE VAE,
+    and for the conv VAE (two runs of each mode) within the larger of 4x
+    the same-mode spread and 1e-3 of the largest sum (cuDNN's atomics,
+    ``_graph_within_spread``'s rule); the rankings and edges equal
+    wherever the scores separate by more than that; (d) the lane kernels against their plain versions at
+    the families' widths, (8, 128, 3072, 64) and (8, 128, 784, 20) f32,
+    timed (device, call, graph and cold-L2 ms beside the bound and its
+    share), then at a ragged (3, 100, 3072, 64) and bf16 activations
+    untimed, each with 100 bit-identical graph replays;
 13. a ``kernels`` JSON line, then the result line.
 
 Exits 1 without a result when CUDA is unavailable or the port is not
@@ -316,17 +338,23 @@ def device_ms(fn, name: str = "", iters: int = 50) -> float | None:
     """Device time per call, in ms, of the CUDA kernels whose names contain
     ``name`` (all of them for ""), summed from torch.profiler's CUDA
     activity: the kernels' own time, without the host's per-call cost.
-    None if the profiler saw no device time."""
+    A trace counts only if it holds device time and, for a named kernel, at
+    least one launch of it per call (late in a long process the profiler
+    can drop events), in three tries; None if none did."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.key_averages() if name in e.key)
-    return total_us / iters / 1e3 if total_us > 0 else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if name in e.key and e.device_time_total > 0]
+        total_us = sum(e.device_time_total for e in events)
+        if total_us > 0 and (not name or sum(e.count for e in events) >= iters):
+            return total_us / iters / 1e3
+    return None
 
 
 def _capture(fn, graph) -> tuple:
@@ -1415,21 +1443,33 @@ def lane_kernel_vs_plain(E, lanes: int, b: int, d: int, lat: int, act_dtype, *, 
             times[f"{key}_graph_ms"] = graph_ms(fn)
     times["fwd_kernels_per_call"] = kernels_per_call(calls["fwd"][0])
     times["bwd_kernels_per_call"] = kernels_per_call(calls["bwd"][0])
+    # Cold L2: 64 MB written before each call; the name filter keeps it out.
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    times["fwd_cold_ms"] = device_ms(lambda: (flush.zero_(), E.elbo_fwd_lanes_cuda(*args)), "elbo_fwd_lanes")
+    times["bwd_cold_ms"] = device_ms(lambda: (flush.zero_(), E.elbo_bwd_lanes_cuda(*args, g)), "elbo_bwd_lanes")
+    del flush
     print(
         f"kernel {tag}: elbo_fwd_lanes kernel_ms={times['fwd_ms']:.6f} call_ms={times['fwd_call_ms']:.6f} "
         f"graph_ms={times['fwd_graph_ms']:.6f} plain_ms={times['fwd_plain_ms']:.6f} "
         f"{lanes} single launches ms={times['fwd_singles_ms']:.6f} (graph {times['fwd_singles_graph_ms']:.6f}) "
-        f"bound_us={fwd_bound * 1e3:.4f} ({fwd_by}) rel_err={rel:.3e} | "
+        f"bound_us={fwd_bound * 1e3:.4f} ({fwd_by}, {_share(fwd_bound, times['fwd_ms'])} of the kernel's) "
+        f"cold_ms={times['fwd_cold_ms']} rel_err={rel:.3e} | "
         f"elbo_bwd_lanes kernel_ms={times['bwd_ms']:.6f} call_ms={times['bwd_call_ms']:.6f} "
         f"graph_ms={times['bwd_graph_ms']:.6f} plain_ms={times['bwd_plain_ms']:.6f} "
         f"{lanes} single launches ms={times['bwd_singles_ms']:.6f} (graph {times['bwd_singles_graph_ms']:.6f}) "
-        f"bound_us={bwd_bound * 1e3:.4f} ({bwd_by}) max_abs_err={bwd_err:.3e} "
+        f"bound_us={bwd_bound * 1e3:.4f} ({bwd_by}, {_share(bwd_bound, times['bwd_ms'])} of the kernel's) "
+        f"cold_ms={times['bwd_cold_ms']} max_abs_err={bwd_err:.3e} "
         f"| device kernels per call: {times['fwd_kernels_per_call']}, {times['bwd_kernels_per_call']} ({launch}) "
         f"| bit-identical reruns, 100 graph replays and {lanes} single-trial launches | device ms from: "
         + ", ".join(f"{k} {times[f'{k}_from']}" for k in calls) + f" ({smi})"
     )
     return {**times, "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by, "bwd_bound_ms": bwd_bound,
             "bwd_bound_by": bwd_by, "fwd_err": fwd_err, "bwd_err": bwd_err, "launch": launch}
+
+
+def _share(bound: float, ms) -> str:
+    """The bound as a share of a measured time, or "not measured"."""
+    return "not measured" if not ms else f"{bound / ms:.1%}"
 
 
 def reseeded_generator_check() -> None:
@@ -1694,6 +1734,10 @@ def _pbt_run_counted(E, what: str, cfg, train, test, **kw) -> tuple:
     from multidisttorch_tpu_torch.hpo import run_pbt
 
     warmups = kw.pop("warmups")
+    # A model family's per-group members are unstacked trials: the
+    # single-trial kernels once per step of every member, the lane kernels
+    # never.
+    single = kw.pop("single_trial", False)
     for k in E.LAUNCHES:
         E.LAUNCHES[k] = 0
     t0 = time.time()
@@ -1703,7 +1747,9 @@ def _pbt_run_counted(E, what: str, cfg, train, test, **kw) -> tuple:
     launches = dict(E.LAUNCHES)
     steps = cfg.generations * cfg.steps_per_generation
     for k, n in launches.items():
-        want = (steps + warmups) * (cfg.population if what == "per-group" else 1) if k.endswith("_lanes") else 0
+        want = (steps + warmups) * (cfg.population if what.startswith("per-group") else 1)
+        if k.endswith("_lanes") == single:
+            want = 0
         check(n == want, f"{what} PBT (population {cfg.population}): {k} launched {n} times, expected {want}")
     return res, launches, wall
 
@@ -1756,7 +1802,6 @@ def pbt_generation_checks(group, smi: str, train, test, ms_per_generation: float
     step's elbo_fwd_lanes) and the idle share against the main path's ms
     per generation."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from multidisttorch_tpu_torch.data.sampler import StackedTrialDataIterator
     from multidisttorch_tpu_torch.hpo import PBTConfig
@@ -1823,13 +1868,24 @@ def pbt_generation_checks(group, smi: str, train, test, ms_per_generation: float
           f"edges {[(int(src[j]), j) for j in range(K) if exploited[j]]}; lanes {kept} untouched by the exchange, "
           "the exploited ones their sources' bits")
 
-    # Device busy per generation: two replays under the profiler, the trace
-    # kept only when it holds every step's elbo_fwd_lanes.
+    busy = _pbt_generation_busy("PBT fused generation", lambda: fetch_pbt_books(
+        gen_step(state, hypers, next(chunks), eval_b, eval_w, factors, gens), K), S, ms_per_generation, smi)
+    return {"busy_ms": busy, "idle": (1 - busy / ms_per_generation) if busy else None}
+
+
+def _pbt_generation_busy(what: str, generation, S: int, ms_per_generation: float, smi: str):
+    """Device busy ms per generation: two calls of ``generation`` (one
+    replay each) under the profiler, the trace kept only when it holds every
+    step's elbo_fwd_lanes, in three tries; printed with the idle share
+    against ``ms_per_generation`` and the top kernels. None if no trace
+    held them all."""
+    from torch.profiler import ProfilerActivity, profile
+
     busy, seen = 0.0, 0
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(2):
-                fetch_pbt_books(gen_step(state, hypers, next(chunks), eval_b, eval_w, factors, gens), K)
+                generation()
             torch.cuda.synchronize()
         seen = sum(e.count for e in prof.key_averages() if "elbo_fwd_lanes" in e.key and e.device_time_total > 0)
         if seen == 2 * S:
@@ -1837,14 +1893,20 @@ def pbt_generation_checks(group, smi: str, train, test, ms_per_generation: float
             break
     by_kernel = sorted(((e.device_time_total / 2 / 1e3, e.count / 2, e.key) for e in prof.key_averages()
                         if e.device_time_total > 0), reverse=True)
-    busy_s = (f"device busy not measured, idle share not measured (the profiler saw {seen} of {2 * S} "
-              "elbo_fwd_lanes launches)" if not busy else
-              f"device busy {busy:.3f} ms per generation, idle share {1 - busy / ms_per_generation:.3f} of the "
-              f"main path's {ms_per_generation:.3f} ms")
-    print(f"PBT fused generation: {busy_s}; {sum(k[1] for k in by_kernel):.0f} device kernels per generation; "
+    if not busy:
+        busy_s = (f"device busy not measured, idle share not measured (the profiler saw {seen} of {2 * S} "
+                  "elbo_fwd_lanes launches)")
+    elif busy > ms_per_generation:
+        busy_s = (f"device kernel time {busy:.3f} ms per generation, more than the main path's {ms_per_generation:.3f} "
+                  "ms of wall time (kernels that overlap: a library's branches in the graph, or the profiler's "
+                  "accounting of a replay), so the idle share is not measured")
+    else:
+        busy_s = (f"device busy {busy:.3f} ms per generation, idle share {1 - busy / ms_per_generation:.3f} of the "
+                  f"main path's {ms_per_generation:.3f} ms")
+    print(f"{what}: {busy_s}; {sum(k[1] for k in by_kernel):.0f} device kernels per generation; "
           "device ms per generation by kernel (launches), top 10: "
-          + "; ".join(f"{t:.3f} ({n:g}) {key[:50]}" for t, n, key in by_kernel[:10]) + f" ({smi})")
-    return {"busy_ms": busy or None, "idle": (1 - busy / ms_per_generation) if busy else None}
+          + "; ".join(f"{t:.3f} ({n:g}) {key[:50]}" for t, n, key in by_kernel[:10]) + f" ({smi})", flush=True)
+    return busy or None
 
 
 def pbt_exchange_under_capture(group) -> None:
@@ -2723,7 +2785,7 @@ def conv_vae_phase(E, F, group, smi: str, floor) -> dict:
               f"wall {r.wall_s:.3f} s ({smi})")
     print(f"14a run_hpo(model_builder=ConvVAE): {steps} steps in {wall:.3f} s, {steps * 128 / wall:.1f} train "
           f"samples/s (eval, samples and checkpoints included); launches {launches} ({_conv_flags()}; {smi})")
-    return {"kernels": kernels, "launches": launches, "step": step_res}
+    return {"kernels": kernels, "launches": launches, "step": step_res, "data": (train, test)}
 
 
 def moe_vae_phase(E, group, smi: str, train, test) -> dict:
@@ -2792,7 +2854,7 @@ def moe_vae_phase(E, group, smi: str, train, test) -> dict:
     return {"launches": launches, "step": step_res}
 
 
-def resnet_phase(E, group, smi: str) -> dict:
+def resnet_phase(E, group, smi: str, cifar: tuple) -> dict:
     """Phase 14c: ResNet-18 (base channels 64, GroupNorm, batch 128) through
     ``make_classifier_multi_step`` at K 4: graphed against eager, under the
     defaults within the eager runs' spread and under
@@ -2803,7 +2865,6 @@ def resnet_phase(E, group, smi: str) -> dict:
     test accuracy over the synthetic test set."""
     import numpy as np
 
-    from multidisttorch_tpu_torch.data.datasets import synthetic_cifar10
     from multidisttorch_tpu_torch.data.sampler import TrialDataIterator
     from multidisttorch_tpu_torch.models import ResNet18
     from multidisttorch_tpu_torch.train.classifier import (
@@ -2812,8 +2873,7 @@ def resnet_phase(E, group, smi: str) -> dict:
     )
 
     dev = group.device
-    train = synthetic_cifar10(50000, seed=0)
-    test = synthetic_cifar10(10000, seed=1)
+    train, test = cifar  # phase 14a's CIFAR-sized rows
     weights = ResNet18(base_channels=64).init_params(0).state_dict()
     n_params = sum(v.numel() for v in weights.values())
 
@@ -3121,7 +3181,7 @@ def empty_plan_and_telemetry(E, group, smi: str, train, test) -> dict:
     return {"launches": launches, "walls": walls, "busy": busy}
 
 
-def conv_resume(E, group, smi: str) -> dict:
+def conv_resume(E, group, smi: str, cifar: tuple) -> dict:
     """Phase 15d (ROADMAP C.18): a ConvVAE trial (phase 14a's: latent 64,
     base channels 32, batch 128, chunks of 10) of 2 epochs of
     ``synthetic_cifar10`` at CIFAR size, with a CRASH from a ``FaultPlan``
@@ -3135,7 +3195,6 @@ def conv_resume(E, group, smi: str) -> dict:
     losses and the final parameters. Counts set to 0 just before the
     faulted run under the defaults and read just after: each ELBO kernel
     once per executed step of both attempts."""
-    from multidisttorch_tpu_torch.data.datasets import synthetic_cifar10
     from multidisttorch_tpu_torch.faults.plan import CRASH, FaultPlan, FaultSpec
     from multidisttorch_tpu_torch.hpo.driver import TrialConfig, run_hpo
     from multidisttorch_tpu_torch.hpo.ledger import SweepLedger
@@ -3143,8 +3202,7 @@ def conv_resume(E, group, smi: str) -> dict:
     from multidisttorch_tpu_torch.models import ConvVAE
     from multidisttorch_tpu_torch.train import checkpoint as ck
 
-    train = synthetic_cifar10(50000, seed=0)
-    test = synthetic_cifar10(10000, seed=1)
+    train, test = cifar  # phase 14a's CIFAR-sized rows
     cfg = TrialConfig(trial_id=0, epochs=2, batch_size=128, lr=1e-3, beta=1.0, seed=0, fused_steps=10)
     per_epoch = len(train) // 128
 
@@ -3615,11 +3673,14 @@ def eviction_and_cache(smi: str, tmp: str) -> None:
 def coldstart_phase(smi: str, tmp: str) -> None:
     """16f: the cold-start bench's three children (cold, farm, cache-warm)
     with its gates, at its fixed sweep cut to 1 epoch (admission is over
-    in the first; the other 7 add wall time only)."""
+    in the first; the other 7 add wall time only), the cold and farm
+    children started together (``overlap``: about 40 s of the script's
+    time budget; their admission latencies include each other's load)."""
     from multidisttorch_tpu_torch.compile import coldstart
 
     t0 = time.time()
-    rec = coldstart.run_coldstart_bench(os.path.join(tmp, "16f"), device="cuda", epochs=1, timeout_s=300)
+    rec = coldstart.run_coldstart_bench(os.path.join(tmp, "16f"), device="cuda", epochs=1, timeout_s=300,
+                                        overlap=True)
     for mode in coldstart.MODES:
         r = rec["modes"][mode]
         check(r.get("ok"), f"16f {mode}: {r.get('error')} {r.get('stderr_tail', '')}")
@@ -3636,7 +3697,8 @@ def coldstart_phase(smi: str, tmp: str) -> None:
         parts.append(f"{mode}: mean admission {1e3 * r['books']['mean_admission_s']:.1f} ms (max "
                      f"{1e3 * max(lat):.1f}), child {r['child_wall_s']:.1f} s, sweep {r['wall_s']:.2f} s, {builds}")
     print(f"16f cold-start ({len(coldstart.COLDSTART_HIDDENS)} buckets, {rec['epochs']} epochs of "
-          f"{coldstart.COLDSTART_ROWS} rows at batch {coldstart.COLDSTART_BATCH}): " + "; ".join(parts)
+          f"{coldstart.COLDSTART_ROWS} rows at batch {coldstart.COLDSTART_BATCH}; the cold and farm children "
+          "together): " + "; ".join(parts)
           + f"; speedup cold/precompiled {rec['speedup_cold_over_precompiled']:.2f}, cold/cache-warm "
           f"{rec['speedup_cold_over_cache_warm']:.2f}; losses bit-identical; admission_blocked_on_compile 0; "
           f"{time.time() - t0:.1f} s ({smi})")
@@ -4628,7 +4690,13 @@ def service_drill(E, smi: str, train, tmp: str) -> dict:
     service_consoles(os.path.join(work, "service"), kr)
     check(len(kr["daemon_launches"]) == 1, f"19c: the restarted daemon's LAUNCHES line {kr['daemon_launches']}")
     drill_launches = {k: v for k, v in kr["daemon_launches"][0].items() if k in E.LAUNCHES}
-    check(all(drill_launches[k] > 0 for k in E.LAUNCHES), f"19c: the restarted daemon's launches {drill_launches}")
+    # The restarted daemon trains what the kill left: always stacked
+    # buckets (the lane kernels), and a single-shape trial (the single
+    # kernels) only when one was still queued or running at the kill, which
+    # depends on when the kill lands.
+    check(drill_launches["elbo_fwd_lanes"] > 0 and all(
+        drill_launches[k] == drill_launches[k.replace("fwd", "bwd")] for k in ("elbo_fwd", "elbo_fwd_lanes")),
+          f"19c: the restarted daemon's launches {drill_launches}")
     # 19b's defrag at full width: the evidence and the victims' bits.
     check(df["fragmented"] and df["ok"], f"19b defrag: {df}")
     check(df["big_placed_ts"] >= df["defrag_end_ts"], "19b: the size-2 trial placed before defrag_end")
@@ -4936,7 +5004,198 @@ def plane_phase(E, smi: str, train, test) -> dict:
     return {"incident_drill": drill, "plane": plane}
 
 
+PBT_FAMILY_K4 = dict(PBT_FUSED, population=4, generations=3)
+
+
+def _family_builders() -> dict:
+    """Phase 21's families at full width: what each is and its
+    ``model_builder``."""
+    from multidisttorch_tpu_torch.models import ConvVAE, MoEVAE
+
+    return {
+        "conv": ("conv beta-VAE (latent 64, base 32, 32x32x3)", lambda cfg: ConvVAE(latent_dim=64, base_channels=32)),
+        "moe": ("MoE VAE (784-400-20, 4 experts, capacity factor 2.0)",
+                lambda cfg: MoEVAE(hidden_dim=400, latent_dim=20, num_experts=4, capacity_factor=2.0)),
+    }
+
+
+def pbt_family_fused(E, group, smi: str, part: str, name: str, what: str, builder, train, test) -> dict:
+    """Phase 21a/b: ``run_pbt(fused=True, model_builder=...)`` at full width,
+    K 8, 5 generations of 50 steps, counts set to 0 just before and read
+    just after (``_pbt_run_counted``): one capture and 5 replays, one host
+    fetch per generation, each lane kernel once per stacked step and once
+    in the warm-up, the single-trial kernels never; every eval sum finite
+    and the best falling; ms per generation and train samples/s."""
+    from multidisttorch_tpu_torch.hpo import PBTConfig
+
+    cfg = PBTConfig(**PBT_FUSED)
+    G, S, K = cfg.generations, cfg.steps_per_generation, cfg.population
+    print(f"phase 21{part}: fused PBT of the {what}, K {K}, {G} generations x {S} steps, batch {cfg.batch_size}, "
+          f"{len(train)} train rows, eval {-(-len(test) // cfg.batch_size)} batches ({_conv_flags()})", flush=True)
+    res, launches, wall = _pbt_run_counted(E, f"21{part} fused {name}", cfg, train, test, warmups=1,
+                                           groups=[group], fused=True, model_builder=builder)
+    book = res.dispatch_book
+    check(book["captures"] == 1 and book["graph_replays"] == G and book["program_calls"] == G,
+          f"21{part} fused {name}: {book['captures']} captures, {book['graph_replays']} replays, "
+          f"{book['program_calls']} calls in {G} generations")
+    check(book["host_fetches"] == G, f"21{part} fused {name}: {book['host_fetches']} host fetches in {G} generations")
+    check(len(res.history) == G and all(math.isfinite(v) for h in res.history for v in h["loss_sums"]),
+          f"21{part} fused {name}: a generation's eval sums are missing or not finite")
+    best = [min(h["loss_sums"]) for h in res.history]
+    check(best[-1] < best[0], f"21{part} fused {name}: the best eval sum did not fall ({best[0]} -> {best[-1]})")
+    for h in res.history:
+        print(f"21{part} {name} gen {h['generation']}: order {h['order']}, best eval loss "
+              f"{min(h['scores'].values()):.4f}, exploits "
+              + (", ".join(f"{e['from']}->{e['to']} lr {e['new_lr']:.6e}" for e in h["exploits"]) or "none"))
+    gen_ms = [v * 1e3 for v in book["generation_s"]]
+    steady = statistics.median(gen_ms[1:])
+    busy = _family_generation_busy(group, smi, part, name, cfg, builder, train, test, steady)
+    print(f"21{part} fused PBT of the {what}: ms per generation {', '.join(f'{v:.3f}' for v in gen_ms)} (the first "
+          f"captures); median of the later {steady:.3f} ms, {S * K * cfg.batch_size / steady * 1e3:.1f} train "
+          f"samples/s (the eval and the exchange included), {S / steady * 1e3:.1f} graphed stacked steps/s; "
+          f"{book['host_fetches']} host fetches, {book['captures']} capture, {book['graph_replays']} replays; "
+          f"wall {wall:.3f} s; best eval sum {best[0]:.2f} -> {best[-1]:.2f}; launches {launches} ({smi})",
+          flush=True)
+    return {"launches": launches, "ms_per_generation": steady, "generation_ms": gen_ms, "busy_ms": busy}
+
+
+def _family_generation_busy(group, smi: str, part: str, name: str, cfg, builder, train, test, steady: float):
+    """Where a family's fused generation spends the device's time: the
+    run's generation step built anew at its config (lanes from the same
+    seeds, one capture), one replay, then two under the profiler
+    (``_pbt_generation_busy``) against the run's ms per generation."""
+    from multidisttorch_tpu_torch.data.sampler import StackedTrialDataIterator
+    from multidisttorch_tpu_torch.hpo._threefry import pbt_explore_key, pbt_perturb_factors
+    from multidisttorch_tpu_torch.hpo.pbt import _init_lrs, _init_model, _noise_seed, _place_eval, _stage_eval_host
+    from multidisttorch_tpu_torch.hpo.pbt import n_exploit_for
+    from multidisttorch_tpu_torch.train.steps import TrialHypers, create_stacked_train_state, fetch_pbt_books
+    from multidisttorch_tpu_torch.train.steps import make_pbt_generation_step
+
+    K, S, dev = cfg.population, cfg.steps_per_generation, group.device
+    seeds = [cfg.seed + k for k in range(K)]
+    state = create_stacked_train_state(group, [_init_model(cfg, s, builder) for s in seeds])
+    hypers = TrialHypers.stack([float(v) for v in _init_lrs(cfg)], [cfg.beta] * K, device=dev)
+    gens = [torch.Generator(device=dev).manual_seed(_noise_seed(cfg.seed, k, 0)) for k in range(K)]
+    chunks = StackedTrialDataIterator(train, group, cfg.batch_size, seeds).stream_chunks(S)
+    eval_b, eval_w = _place_eval(group, *_stage_eval_host(test, group, cfg.batch_size)[:2])
+    factors = torch.from_numpy(pbt_perturb_factors(pbt_explore_key(cfg.seed), 0, K, cfg.perturb_factors)).to(dev)
+    gen_step = make_pbt_generation_step(group, n_exploit=n_exploit_for(cfg), lr_min=cfg.lr_min, lr_max=cfg.lr_max)
+
+    def generation():
+        fetch_pbt_books(gen_step(state, hypers, next(chunks), eval_b, eval_w, factors, gens), K)
+
+    generation()
+    check(gen_step.captures == 1 and gen_step.replays == 1,
+          f"21{part} {name}: {gen_step.captures} captures, {gen_step.replays} replays before the profiler")
+    return _pbt_generation_busy(f"21{part} fused {name} generation", generation, S, steady, smi)
+
+
+def pbt_family_per_group_vs_fused(E, group, smi: str, name: str, builder, train, test) -> dict:
+    """Phase 21c for one family: per group (4 one-slot groups on cuda:0,
+    each member the family's unstacked model, a graphed multi-step) against
+    fused at K 4, 3 generations, each run's launches counted on their own.
+
+    Generation 0's eval sums: the MoE VAE's within ``PBT_EVAL_RTOL`` per
+    lane (phase 11b's rule). The conv VAE's by ``_graph_within_spread``'s
+    rule, since cuDNN's default algorithms sum with atomics and the two
+    modes run other convolutions (grouped against single), whose rounding
+    50 Adam steps carry into another trajectory now and then: each mode
+    runs twice, and every per-group run must lie within the larger of
+    ``SPREAD_FACTOR`` times the largest same-mode |diff| and
+    ``SPREAD_VALUE_FLOOR`` times the largest |sum| of every fused run. The
+    rankings and edges are equal wherever the lanes they place differently
+    lie further apart than that (phase 11b's near-tie rule; the
+    generations after a near-tie are not compared)."""
+    import numpy as np
+
+    from multidisttorch_tpu_torch.hpo import PBTConfig
+    from multidisttorch_tpu_torch.parallel.mesh import setup_groups
+
+    cfg = PBTConfig(**PBT_FAMILY_K4)
+    repeats = 2 if name == "conv" else 1
+    per, fused = [], []
+    for r in range(repeats):
+        groups = setup_groups(cfg.population, devices=["cuda:0"] * cfg.population)
+        per.append(_pbt_run_counted(E, f"per-group {name}", cfg, train, test, warmups=0, single_trial=True,
+                                    model_builder=builder, groups=groups))
+        fused.append(_pbt_run_counted(E, f"fused {name}", cfg, train, test, warmups=1, groups=[group], fused=True,
+                                      model_builder=builder))
+        book = fused[-1][0].dispatch_book
+        check(book["captures"] == 1 and book["graph_replays"] == cfg.generations,
+              f"21c fused {name} K 4: {book['captures']} captures, {book['graph_replays']} replays")
+    sums = {mode: [np.array(run[0].history[0]["loss_sums"]) for run in runs]
+            for mode, runs in (("per", per), ("fused", fused))}
+    check(all(bool(np.isfinite(v).all()) for vs in sums.values() for v in vs), f"21c {name}: non-finite eval sums {sums}")
+    cross = max(float(np.max(np.abs(p - f))) for p in sums["per"] for f in sums["fused"])
+    if name == "conv":
+        spread = max(float(np.max(np.abs(vs[0] - vs[1]))) for vs in sums.values())
+        floor = SPREAD_VALUE_FLOOR * max(float(np.max(np.abs(v))) for vs in sums.values() for v in vs)
+        bound = max(SPREAD_FACTOR * spread, floor)
+        ok = cross <= bound
+        rule = (f"max |diff| {cross:.1f} within {bound:.1f}, the larger of {SPREAD_FACTOR:g} x the same-mode spread "
+                f"{spread:.1f} and the floor {floor:.1f}")
+        tie = lambda i, j, v: abs(v[i] - v[j]) <= bound  # noqa: E731
+    else:
+        rel = max(float(np.max(np.abs(p - f) / np.abs(f))) for p in sums["per"] for f in sums["fused"])
+        ok = rel <= PBT_EVAL_RTOL
+        rule = f"rel {rel:.3e} within {PBT_EVAL_RTOL}"
+        tie = lambda i, j, v: abs(v[i] - v[j]) / max(abs(v[i]), abs(v[j])) <= PBT_EVAL_RTOL  # noqa: E731
+    check(ok, f"21c {name}: per-group vs fused generation 0 eval sums: {rule} does not hold ({sums})")
+    hist_p, hist_f = per[0][0].history, fused[0][0].history
+    compared = 0
+    for hp, hf in zip(hist_p, hist_f):
+        compared += 1
+        if hp["order"] == hf["order"] and hp["exploits"] == hf["exploits"]:
+            continue
+        v = np.array(hf["loss_sums"])
+        pairs = _near_tie_pairs(hp["order"], hf["order"], hp["exploits"], hf["exploits"])
+        check(bool(pairs) and all(tie(i, j, v) for i, j in pairs),
+              f"21c {name} gen {hp['generation']}: rankings or edges differ where the scores separate: lanes "
+              f"{pairs}, sums {v.tolist()}; {hp['order']} {hp['exploits']} vs {hf['order']} {hf['exploits']}")
+        print(f"21c {name} near-tie at gen {hp['generation']}: lanes {pairs}, fused sums {v.tolist()}; later "
+              "generations not compared")
+        break
+    per_launches, fused_launches = per[0][1], fused[0][1]
+    print(f"21c {name}: per-group ({cfg.population} one-slot groups on cuda:0, the family's unstacked model each) vs "
+          f"fused K {cfg.population}, {cfg.generations} x {cfg.steps_per_generation} steps, {repeats} run(s) of each: "
+          f"generation 0 eval sums {rule}; per-group {[v.tolist() for v in sums['per']]}, fused "
+          f"{[v.tolist() for v in sums['fused']]}; decisions compared over {compared} generation(s): orders "
+          f"{[h['order'] for h in hist_p]} vs {[h['order'] for h in hist_f]}, edges {[h['exploits'] for h in hist_p]} "
+          f"vs {[h['exploits'] for h in hist_f]}; wall {[round(r[2], 3) for r in per]} s vs "
+          f"{[round(r[2], 3) for r in fused]} s; launches {per_launches} vs {fused_launches} each run ({smi})",
+          flush=True)
+    return {mode: {k: sum(r[1][k] for r in runs) for k in per_launches}
+            for mode, runs in (("per_group", per), ("fused", fused))}
+
+
+def pbt_family_phase(E, group, smi: str, mnist: tuple, cifar: tuple) -> dict:
+    """Phase 21: fused PBT over a model family (module docstring), on the
+    MNIST-sized and CIFAR-sized (phase 14a's) train and eval sets. Returns
+    the lane kernels' 3072-wide times and every run's launch counts."""
+    t0 = time.time()
+    # 21d first: the lane kernels at the families' widths.
+    print("phase 21d: the lane ELBO kernels at the model families' widths", flush=True)
+    conv_width = lane_kernel_vs_plain(E, STACK_LANES, 128, 3072, 64, torch.float32, smi=smi)
+    moe_width = lane_kernel_vs_plain(E, STACK_LANES, 128, 784, 20, torch.float32, smi=smi)
+    lane_kernel_vs_plain(E, 3, 100, 3072, 64, torch.float32, timed=False)
+    lane_kernel_vs_plain(E, STACK_LANES, 128, 3072, 64, torch.bfloat16, timed=False)
+    out = {"conv_width": conv_width, "moe_width": moe_width}
+    for part, name in (("a", "conv"), ("b", "moe")):
+        what, builder = _family_builders()[name]
+        train, test = mnist if name == "moe" else cifar
+        out[name] = pbt_family_fused(E, group, smi, part, name, what, builder, train, test)
+        out[f"{name}_k4"] = pbt_family_per_group_vs_fused(E, group, smi, name, builder, train, test)
+    print(f"phase 21: {time.time() - t0:.1f} s ({smi})", flush=True)
+    return out
+
+
 def main() -> None:
+    t_start = time.time()
+
+    def mark(phase: str) -> None:
+        """Each phase's end on the script's clock, for its time budget."""
+        print(f"phase {phase} ended at {time.time() - t_start:.1f} s", flush=True)
+
     if not torch.cuda.is_available():
         fail(f"torch.cuda.is_available() is False (torch {torch.__version__}); no card to drive")
     sys.path.insert(0, HERE)
@@ -4954,6 +5213,7 @@ def main() -> None:
 
     # Phase 0: the backend preflight, before this process touches CUDA.
     preflight_phase()
+    mark("0")
 
     # Phase 1: the card.
     smi = subprocess.run(
@@ -4983,6 +5243,7 @@ def main() -> None:
         floor = floor_job.result()["empty"]
     print(f"built {[p.name for p in built]} and the ELBO launch-floor build in {time.time() - t0:.1f} s")
     check(any(p.name.startswith("libfastloader_") for p in built), "phase 2: the native gatherer was not built")
+    mark("2")
     for name, log in _build.ptxas_reports.items():
         regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", log)})
         spills = sorted({int(s) for s in re.findall(r"(\d+) bytes spill stores", log)})
@@ -5025,12 +5286,15 @@ def main() -> None:
     check(main_shape["bwd_kernels_per_call"] == 1,
           f"elbo_bwd at (128, 784, 20) f32: {main_shape['bwd_kernels_per_call']} device kernels per call, expected 1")
 
+    mark("3")
+
     # Phase 4: one train step, fused against plain.
     group = setup_groups(1, device="cuda:0")[0]
     train_step_fused_vs_plain(group, smi)
 
     # Phase 5: the multi-step as CUDA graphs against its eager loop.
     graphed_vs_eager(E, group, smi)
+    mark("4-5")
 
     # Phase 6: the slice, through run_hpo (graph replays), writing its
     # checkpoints (the default) into a temporary directory. Counts reset
@@ -5098,10 +5362,12 @@ def main() -> None:
           f"(rounds off, on, on, off, twice; {smi})")
 
     _check_feeds("6")
+    mark("6")
 
     # Phase 7: checkpoints, resume and a supervised retry on the main path.
     checkpoint_phase(E, group, smi, train, test)
     _check_feeds("7")
+    mark("7")
 
 
     # Phase 8: each flash kernel against its plain version. Timed at the
@@ -5129,9 +5395,11 @@ def main() -> None:
     flash_autograd_check(A, 4, 96, 20, False)
     flash_padding_check(A)
     flash_padding_check(A, torch.bfloat16, 64)
+    mark("8")
 
     # Phase 9: the LM slice; counts set to 0 inside, just before each part.
     lm_launches, lm_variants = lm_slice(A, group, smi)
+    mark("9")
 
     # Phase 10: trial stacking; counts set to 0 inside (c), just before the
     # stacked sweep.
@@ -5146,6 +5414,7 @@ def main() -> None:
     stacked_graph_vs_eager(E, group, smi)
     stack_launches = stacked_sweep(E, group, smi, train, test, slice_samples_s)
     _check_feeds("10c")
+    mark("10")
 
     # Phase 11: population-based training; counts set to 0 inside (a) and
     # (b), just before each run.
@@ -5155,6 +5424,7 @@ def main() -> None:
     _check_feeds("11")
     pbt_exchange_under_capture(group)
     set_lr_recapture_check(group)
+    mark("11")
 
     # Phase 12: the input feed and remat; counts set to 0 inside (b) and (c),
     # just before each run.
@@ -5162,43 +5432,57 @@ def main() -> None:
     feed = pbt_feed_on_off(E, group, smi, train, test, pbt_busy)
     slice_feed_on_off(group, smi, train, test)
     remat_launches = remat_phase(E, group, smi)
+    mark("12")
 
     # Phase 14: the model families at full width; counts set to 0 inside,
     # just before each family's run_hpo.
     conv = conv_vae_phase(E, F, group, smi, floor)
+    cifar = conv.pop("data")
     moe = moe_vae_phase(E, group, smi, train, test)
     _check_feeds("14")
-    resnet_phase(E, group, smi)
+    resnet_phase(E, group, smi, cifar)
+    mark("14")
 
     # Phase 15: fault plans, the chaos drill and the event bus; counts set to
     # 0 inside, just before each drill.
     chaos = chaos_drill(E, smi, stacked=False)
     chaos_stacked = chaos_drill(E, smi, stacked=True)
     tele = empty_plan_and_telemetry(E, group, smi, train, test)
-    resume = conv_resume(E, group, smi)
+    resume = conv_resume(E, group, smi, cifar)
     _check_feeds("15")
+    mark("15")
 
     # Phase 16: compile and dispatch, the registry on; counts set to 0 inside,
     # just before each run.
     comp = compile_phase(E, smi, train, test)
+    mark("16")
 
     # Phase 17: device books, the anomaly monitor, profiling and the
     # families' books (the registry on); counts set to 0 inside, just before
     # each run.
     books = books_phase(E, smi, train, test)
+    mark("17")
 
     # Phase 18: elastic multi-host; counts set to 0 inside, just before the
     # drill; the workers and the drain's children count their own.
     elastic = elastic_phase(E, smi)
+    mark("18")
 
     # Phase 19: the sweep service; counts set to 0 inside, just before each
     # part; the drill's restarted daemon counts its own.
     service = service_phase(E, smi, train, test)
+    mark("19")
 
     # Phase 20: the operator plane; counts set to 0 inside, just before the
     # drill and the telemetry-on sweep; phases 18 and 19 ran its consoles
     # over their own directories.
     plane = plane_phase(E, smi, train, test)
+    mark("20")
+
+    # Phase 21: fused PBT over a model family; counts set to 0 inside, just
+    # before each run.
+    fam = pbt_family_phase(E, group, smi, (train, test), cifar)
+    mark("21")
 
     # Phase 13: the kernels line, then the result.
     # "ms", "plain_ms" and "library_ms" are device time per call at the
@@ -5216,7 +5500,8 @@ def main() -> None:
     # ("service": 19a's lone trial, 19b's preempted lanes and the defrag
     # drill; "service_drill": 19c's restarted daemon, from its own counts) and
     # phase 20's ("incident_drill": 20a's sweeps; "plane": 20b's telemetry-on
-    # sweep) ran, graph replays included, one per wrapper call; "launches_by_path" each. "conv_vae_width" holds the
+    # sweep) and phase 21c's per-group family members ran, graph replays
+    # included, one per wrapper call; "launches_by_path" each. "conv_vae_width" holds the
     # same times at the conv beta-VAE's shape, (128, 3072, 64) f32.
     src = "multidisttorch_tpu_torch/ops/csrc/elbo.cu"
     m = main_shape
@@ -5233,7 +5518,9 @@ def main() -> None:
                    **{path: n[name] for path, n in books.items() if path != "bucket"},
                    **{path: n[name] for path, n in elastic.items()},
                    "service": service["service"][name], "service_drill": service["service_drill"][name],
-                   "incident_drill": plane["incident_drill"][name], "plane": plane["plane"][name]}
+                   "incident_drill": plane["incident_drill"][name], "plane": plane["plane"][name],
+                   "pbt_family_conv_per_group_k4": fam["conv_k4"]["per_group"][name],
+                   "pbt_family_moe_per_group_k4": fam["moe_k4"]["per_group"][name]}
         c = conv["kernels"]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
@@ -5284,7 +5571,10 @@ def main() -> None:
     # runs), phase 16's (16c's bucket alone and beside the farm, 16d's two
     # buckets and two fused PBT runs), 17a's bucket and phase 19's
     # ("service_stacked": 19a's buckets and 19b's preempted bucket;
-    # "service_drill": 19c's restarted daemon), "launches_by_path" each.
+    # "service_drill": 19c's restarted daemon) and phase 21's (21a-b's fused
+    # family runs, 21c's fused K 4 runs), "launches_by_path" each;
+    # "conv_vae_width" holds the same times at the conv beta-VAE's lanes,
+    # (8, 128, 3072, 64) f32 (21d).
     by_path = {name: {"stacked_sweep": stack_launches[name], "pbt_fused": pbt["launches"][name],
                       "pbt_per_group_k4": pbt_b["per_group"][name], "pbt_fused_k4": pbt_b["fused"][name],
                       "pbt_fused_feed_on": feed["on"]["launches"][name],
@@ -5297,10 +5587,14 @@ def main() -> None:
                       "registry_pbt_twice": comp["slots"]["pbt"][name],
                       "books_bucket": books["bucket"][name],
                       "service_stacked": service["service_stacked"][name],
-                      "service_drill": service["service_drill"][name]}
+                      "service_drill": service["service_drill"][name],
+                      "pbt_family_conv": fam["conv"]["launches"][name],
+                      "pbt_family_moe": fam["moe"]["launches"][name],
+                      "pbt_family_conv_fused_k4": fam["conv_k4"]["fused"][name],
+                      "pbt_family_moe_fused_k4": fam["moe_k4"]["fused"][name]}
                for name in ("elbo_fwd_lanes", "elbo_bwd_lanes")}
     for name, key, line in (("elbo_fwd_lanes", "fwd", 134), ("elbo_bwd_lanes", "bwd", 163)):
-        m = lane_main
+        m, c = lane_main, fam["conv_width"]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": f"multidisttorch_tpu/ops/pallas_elbo.py:{line}",
@@ -5312,7 +5606,15 @@ def main() -> None:
             "call_ms": m[f"{key}_call_ms"], "plain_call_ms": m[f"{key}_plain_call_ms"],
             "graph_ms": m[f"{key}_graph_ms"], "singles_ms": m[f"{key}_singles_ms"],
             "singles_graph_ms": m[f"{key}_singles_graph_ms"], "ms_from": m[f"{key}_from"],
+            "cold_ms": m[f"{key}_cold_ms"],
             "grid_launches_per_call": m[f"{key}_kernels_per_call"], "launch": m["launch"],
+            "conv_vae_width": {
+                "shape": [STACK_LANES, 128, 3072, 64], "ms": c[f"{key}_ms"], "plain_ms": c[f"{key}_plain_ms"],
+                "bound_ms": c[f"{key}_bound_ms"], "bound_by": c[f"{key}_bound_by"], "library_ms": None,
+                "graph_ms": c[f"{key}_graph_ms"], "cold_ms": c[f"{key}_cold_ms"], "call_ms": c[f"{key}_call_ms"],
+                "singles_ms": c[f"{key}_singles_ms"], "max_abs_err": c[f"{key}_err"],
+                "grid_launches_per_call": c[f"{key}_kernels_per_call"], "launch": c["launch"],
+            },
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -150,21 +150,36 @@ def _fold_admissions(tel_dir: str) -> dict:
 
 
 def run_coldstart_bench(work_dir: str, *, device: str = "cuda", epochs: int = COLDSTART_EPOCHS,
-                        timeout_s: int = CHILD_TIMEOUT_S) -> dict:
+                        timeout_s: int = CHILD_TIMEOUT_S, overlap: bool = False) -> dict:
     """The cold, farm and warm children, folded into one record (module
     docstring for the gates). ``epochs`` below the fixed sweep's is a cut
-    for a quick run; the record says so."""
+    for a quick run, and ``overlap`` (the cold and farm children started
+    together, each on its own build directory; the warm child after them,
+    on the cold child's sealed libraries) a cut of wall time whose
+    admission latencies then include the other child's load; the record
+    says both."""
     os.makedirs(work_dir, exist_ok=True)
     cold_dir = os.path.join(work_dir, "kernels_cold")
     dirs = {"cold": cold_dir, "farm": os.path.join(work_dir, "kernels_farm"), "warm": cold_dir}
     out: dict = {"protocol": "coldstart_v1", "device": device, "buckets": len(COLDSTART_HIDDENS),
                  "hidden_dims": list(COLDSTART_HIDDENS), "epochs": epochs, "batch_size": COLDSTART_BATCH,
-                 "rows": COLDSTART_ROWS, "modes": {}}
-    for mode in MODES:
+                 "rows": COLDSTART_ROWS, "overlap": overlap, "modes": {}}
+
+    def run(mode: str) -> dict:
         rec = _run_child(mode, work_dir, dirs[mode], device, epochs, timeout_s)
         if rec.get("ok"):
             rec["books"] = _fold_admissions(rec["tel_dir"])
-        out["modes"][mode] = rec
+        return rec
+
+    if overlap:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(2) as pool:
+            for mode, rec in zip(("cold", "farm"), list(pool.map(run, ("cold", "farm")))):
+                out["modes"][mode] = rec
+    for mode in MODES:
+        if mode not in out["modes"]:
+            out["modes"][mode] = run(mode)
 
     def trials_hex(rec) -> Optional[dict]:
         if not rec.get("ok"):

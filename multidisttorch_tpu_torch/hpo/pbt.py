@@ -1,4 +1,5 @@
-"""Population-based training of VAEs: per group and fused over lanes.
+"""Population-based training of VAEs and their families: per group and
+fused over lanes.
 
 Counterpart of ``multidisttorch_tpu/hpo/pbt.py`` (its ``docs/PBT.md``
 holds the protocol). ``run_pbt(cfg, train, eval)`` runs synchronous
@@ -23,9 +24,12 @@ exchange) is one replay of one CUDA graph on a card
 the books per generation.
 
 Both modes follow one seeding contract, so on the CPU they give the same
-bits:
+bits for the VAE (a family's fused lanes run other products than its
+per-group members, grouped convolutions and batched einsums, and round
+differently):
 
-- member/lane k's weights: ``init_vae_params(seed + k)``;
+- member/lane k's weights: ``init_vae_params(seed + k)`` (a family's
+  ``init_params(seed + k)``);
 - its noise: a ``torch.Generator`` seeded ``seed + k + 1`` (on group rank
   ``r`` of a multi-rank group, ``seed + k + 1 + r * 2**32``); the JAX
   package folds ``key(seed + k + 1)`` with the step, which torch cannot
@@ -37,19 +41,21 @@ bits:
   draw, written out in numpy (``hpo/_threefry.py``), so the factors, and
   the lrs wherever the scores rank alike, are the JAX package's bits.
 
-``model_builder(cfg)`` swaps the model family in the per-group mode, as
-in the JAX package: each member is then the family's model in an unstacked
+``model_builder(cfg)`` swaps the model family, as in the JAX package. Per
+group, each member is then the family's model in an unstacked
 ``TrainState`` (:class:`_FamilyMember`: ``make_multi_step``, a CUDA graph
-on a one-rank card group, and ``make_eval_step`` over the staged eval
-set), initialised by the family's ``init_params(seed + k)``, with the
-same noise, data and lr contract.
+on a one-rank card group, and ``make_eval_step`` over the staged eval set);
+fused, the lanes are the family's stacked form
+(``models/vae.py::LaneStacked``, built by ``create_stacked_train_state``
+from the first lane's family), through the same generation step and lane
+ELBO kernels as the VAE's. Member/lane k is initialised by the family's
+``init_params(seed + k)``, with the same noise, data and lr contract. A
+family's fused program bypasses the compile registry, as in the JAX
+package (the registry's keys name only the VAE's widths), and is captured
+at its first generation.
 
-Not ported here, each raising ``NotImplementedError`` or left out as
-named: the fused mode with a ``model_builder`` (ROADMAP A.16b: the JAX
-package vmaps any family over the lanes, while the port's fused mode is
-written over ``StackedVAE``, and a lane-stacked form of each family is
-work of its own); the compile registry's ``pbt_gen`` admission (A.9: the
-graph table is per generation step).
+Not ported here, left out as named: the compile registry's ``pbt_gen``
+admission (A.9: the graph table is per generation step).
 
 Telemetry: each generation emits the JAX package's ``pbt_gen`` (population
 statistics) and one ``pbt_exploit`` per exchange edge, which
@@ -210,8 +216,12 @@ def _noise_seed(seed: int, member: int, local_rank: int) -> int:
     return seed + member + 1 + (local_rank << 32)
 
 
-def _init_model(cfg: PBTConfig, seed: int) -> VAE:
-    return init_vae_params(VAE(hidden_dim=cfg.hidden_dim, latent_dim=cfg.latent_dim), seed)
+def _init_model(cfg: PBTConfig, seed: int, model_builder=None):
+    """Member ``seed - cfg.seed``'s initial model: the VAE, or
+    ``model_builder``'s family initialised by its ``init_params(seed)``."""
+    if model_builder is None:
+        return init_vae_params(VAE(hidden_dim=cfg.hidden_dim, latent_dim=cfg.latent_dim), seed)
+    return model_builder(cfg).init_params(seed)
 
 
 def _stage_eval_host(eval_data: Dataset, group: TrialGroup, batch_size: int) -> tuple[np.ndarray, np.ndarray, int]:
@@ -236,7 +246,8 @@ def _state_tensors(state: StackedTrainState) -> list[torch.Tensor]:
 
 
 def _lane_state(state: StackedTrainState, k: int) -> dict:
-    """Lane ``k``'s state as host copies: ``params`` (a VAE state dict),
+    """Lane ``k``'s state as host copies: ``params`` (a state dict of the
+    lanes' family),
     ``exp_avg``, ``exp_avg_sq`` (lists) and ``count``."""
     return {
         "params": {name: v.detach()[k].cpu().clone() for name, v in state.model.state_dict().items()},
@@ -327,9 +338,7 @@ class _FamilyMember:
         self.group = group
         self.member_id = member_id
         seed = cfg.seed + member_id
-        model = model_builder(cfg)
-        model.init_params(seed)
-        self.state = create_train_state(group, model, lr)
+        self.state = create_train_state(group, _init_model(cfg, seed, model_builder), lr)
         self.generator = torch.Generator(device=group.device).manual_seed(
             _noise_seed(cfg.seed, member_id, group.local_rank))
         self.multi_step = make_multi_step(group, beta=cfg.beta)
@@ -440,16 +449,12 @@ def run_pbt(
     one graph replay per generation on a card. ``device`` is the card
     unless ``"cpu"`` is asked for. ``return_states=True`` attaches each
     member's final state (the parity surface). ``model_builder(cfg)``
-    swaps the model family (per-group mode only; module docstring).
+    swaps the model family, in both modes (module docstring).
     """
     _telemetry.configure_from_env()
-    if fused and model_builder is not None:
-        raise NotImplementedError(
-            "run_pbt(fused=True, model_builder=...) is not ported yet: ROADMAP A.16b (the fused lanes are "
-            "written over StackedVAE; run the family per group with fused=False)")
     if fused:
         return _run_pbt_fused(cfg, train_data, eval_data, groups=groups, out_dir=out_dir, verbose=verbose,
-                              return_states=return_states, device=device)
+                              model_builder=model_builder, return_states=return_states, device=device)
     world, rank = process_world()
     if groups is None:
         groups = default_groups(cfg.population, device)
@@ -531,21 +536,24 @@ def run_pbt(
     return result
 
 
-def _admit_fused_program(group: TrialGroup, cfg: PBTConfig, n_exploit: int, eval_batches: int, owner):
+def _admit_fused_program(group: TrialGroup, cfg: PBTConfig, n_exploit: int, eval_batches: int, owner,
+                         family: bool = False):
     """The fused generation's program from the process's registry
     (``compile/registry.py``; the JAX package's ``_admit_fused_program``):
     a slot of the population's key, taken (``cache_hit``) or captured
     inline on its first admission (one capture per program in the
     process). Returns ``(slot, key)``; ``(None, None)`` outside the
-    registry's envelope (a multi-rank group, several processes,
-    ``MDT_AOT_ADMISSION=0``) or when the key is ``FAILED``, where the run
-    builds its own generation step (captured at its first call on a card;
-    a failed capture raises). The third value says whether this call
-    captured the slot."""
+    registry's envelope (a ``model_builder`` family, whose widths the key
+    does not name, as the JAX package's policy; a multi-rank group,
+    several processes, ``MDT_AOT_ADMISSION=0``) or when the key is
+    ``FAILED``, where the run builds its own generation step (captured at
+    its first call on a card; a failed capture raises). The third value
+    says whether this call captured the slot."""
     from multidisttorch_tpu_torch.compile import programs as _cprog
     from multidisttorch_tpu_torch.compile.registry import READY, get_executable_registry
 
-    if group.size != 1 or process_world()[0] != 1 or os.environ.get("MDT_AOT_ADMISSION", "1") == "0":
+    if (family or group.size != 1 or process_world()[0] != 1
+            or os.environ.get("MDT_AOT_ADMISSION", "1") == "0"):
         return None, None, False
     key = _cprog.pbt_gen_key(group, _cprog.bucket_key_of(cfg), lanes=cfg.population,
                              steps_per_generation=cfg.steps_per_generation, eval_batches=eval_batches,
@@ -579,6 +587,7 @@ def _run_pbt_fused(
     groups: Optional[Sequence[TrialGroup]] = None,
     out_dir: Optional[str] = None,
     verbose: bool = True,
+    model_builder=None,
     return_states: bool = False,
     device=None,
 ) -> PBTResult:
@@ -595,7 +604,7 @@ def _run_pbt_fused(
     n_exploit = n_exploit_for(cfg)
     seeds = [cfg.seed + k for k in range(K)]
     lrs = _init_lrs(cfg)
-    state = create_stacked_train_state(group, [_init_model(cfg, s) for s in seeds])
+    state = create_stacked_train_state(group, [_init_model(cfg, s, model_builder) for s in seeds])
     hypers = TrialHypers.stack([float(v) for v in lrs], [cfg.beta] * K, device=dev)
     generators = [torch.Generator(device=dev).manual_seed(_noise_seed(cfg.seed, k, group.local_rank))
                   for k in range(K)]
@@ -603,7 +612,8 @@ def _run_pbt_fused(
     eval_imgs, eval_w, num_rows = _stage_eval_host(eval_data, group, cfg.batch_size)
     eval_batches, eval_weights = _place_eval(group, eval_imgs, eval_w)
     owner = object()
-    slot, prog_key, captured = _admit_fused_program(group, cfg, n_exploit, eval_batches.shape[0], owner)
+    slot, prog_key, captured = _admit_fused_program(group, cfg, n_exploit, eval_batches.shape[0], owner,
+                                                    family=model_builder is not None)
     # This run's captures: the slot's own when it captured it here.
     captures0 = 0 if slot is None or captured else slot.step.captures
     if slot is not None:

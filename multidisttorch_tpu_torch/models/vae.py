@@ -29,8 +29,11 @@ generator. Nothing inside draws, so no RNG state is stashed
 a leading lane axis (weights ``(K, out, in)``, biases ``(K, out)``): the
 JAX package's ``vmap`` of ``VAE`` over stacked parameters
 (``train/steps.py`` trial stacking) written out, each layer one batched
-product over the lanes. :func:`stack_vae_params` stacks K VAEs' weights,
-:func:`lane_params` and :func:`write_lane_params` read and write one lane.
+product over the lanes. :class:`LaneStacked` writes down, once, what every
+family's stacked form gives its callers; :func:`stack_params` stacks K
+models' weights, :func:`stack_params_from_flax` K flax trees, and
+:func:`lane_params` and :func:`write_lane_params` read and write one lane,
+for every family.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from multidisttorch_tpu_torch.models.layers import Dense
+from multidisttorch_tpu_torch.ops.lanes import StackedLinear
 
 LAYERS = ("fc1", "fc21", "fc22", "fc3", "fc4")
 
@@ -141,57 +145,82 @@ class VAE(VAEMethods, nn.Module):
     def params_from_flax(self, tree) -> dict[str, torch.Tensor]:
         return vae_params_from_flax(tree)
 
-
-class _LaneLinear(torch.autograd.Function):
-    """``baddbmm(b, x, wᵀ)`` with the backward that ``F.linear`` takes per
-    lane: the weight's gradient is ``dyᵀ·x`` in the weight's own layout
-    (``mm_mat2_backward``'s product for a transposed weight), where
-    baddbmm's own backward forms ``xᵀ·dy`` and transposes it. The two
-    products round differently for some shapes on a CPU BLAS (an AVX-512
-    host: 9.5e-7 apart at rows 16, 16 to 4 features), and a lane must
-    round as its trial run alone."""
-
-    @staticmethod
-    def forward(ctx, x, w, b):
-        ctx.save_for_backward(x, w)
-        return torch.baddbmm(b.unsqueeze(1), x, w.transpose(1, 2))
-
-    @staticmethod
-    def backward(ctx, dy):
-        x, w = ctx.saved_tensors
-        gx = torch.bmm(dy, w) if ctx.needs_input_grad[0] else None
-        gw = torch.bmm(dy.transpose(1, 2), x) if ctx.needs_input_grad[1] else None
-        gb = dy.sum(1) if ctx.needs_input_grad[2] else None
-        return gx, gw, gb
+    def stacked(self, lanes: int) -> "StackedVAE":
+        """The stacked form of ``lanes`` VAEs of this one's widths."""
+        return StackedVAE(lanes, self.input_dim, self.hidden_dim, self.latent_dim, self.dtype)
 
 
-class StackedLinear(nn.Module):
-    """K ``nn.Linear`` layers of one shape, stacked: ``weight`` ``(K, out,
-    in)``, ``bias`` ``(K, out)``; ``(K, rows, in)`` to ``(K, rows, out)`` in
-    one ``torch.baddbmm`` (:class:`_LaneLinear`)."""
+class LaneStacked:
+    """The lane-stacked model contract, which every stacked family gives
+    (:class:`StackedVAE`, ``models/conv_vae.py::StackedConvVAE``,
+    ``models/moe_vae.py::StackedMoEVAE``) and the stacked step, eval,
+    Adam update and exchange rely on (``train/steps.py``:
+    ``_build_stacked_body``, ``_stacked_eval_sums``, ``_stacked_adam_update``,
+    ``pbt_exchange``; ``hpo/pbt.py::_state_tensors``):
 
-    def __init__(self, lanes: int, in_features: int, out_features: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.zeros(lanes, out_features, in_features))
-        self.bias = nn.Parameter(torch.zeros(lanes, out_features))
+    - ``lanes``, K;
+    - parameters that are leaf tensors with a leading K axis, under the
+      unstacked family's names and in its ``parameters()`` order, so that
+      lane k of the stacked ``state_dict`` is a ``state_dict`` of the
+      family (:func:`lane_params`, :func:`write_lane_params`) and Adam's
+      moments pair with the unstacked optimizer's;
+    - ``encode(x)``: ``(K, rows, ...)``, or one ``(rows, features)`` batch
+      that every lane scores (the stacked eval), to ``(mu, logvar)``, each
+      ``(K, rows, latent)``;
+    - ``decode(z)``: ``(K, rows, latent)`` to contiguous logits ``(K, rows,
+      input_dim)``, lane k's in the order its unstacked twin gives them
+      (the lane ELBO kernels compare them with the rows);
+    - ``noise(rows, device, generators)`` and ``reparameterize``, below:
+      lane k draws from ``generators[k]`` exactly as the unstacked
+      ``reparameterize`` draws, so a lane given its twin's generator draws
+      the twin's noise;
+    - ``forward(x, eps=, generators=, remat=)`` to ``(recon_logits, mu,
+      logvar)``, ``remat`` as for :meth:`VAEMethods.forward`;
+    - ``lane_model()``: a fresh unstacked model of the family, of the
+      stacked one's widths (a lane read out as a trial).
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        w, b = self.weight, self.bias
-        if dtype != torch.float32:
-            x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
-        return _LaneLinear.apply(x, w, b)
+    Each unstacked family gives ``stacked(lanes)``, its stacked form."""
+
+    def noise(self, rows: int, device, generators=None) -> torch.Tensor:
+        """``(K, rows, latent)`` draws of N(0, I) in float32, lane k's from
+        ``generators[k]`` (all from the default generator when None)."""
+        shape = (rows, self.latent_dim)
+        if generators is None:
+            return torch.randn((self.lanes, *shape), device=device, dtype=torch.float32)
+        return torch.stack([torch.randn(shape, generator=g, device=device, dtype=torch.float32) for g in generators])
+
+    def reparameterize(
+        self,
+        mu: torch.Tensor,
+        logvar: torch.Tensor,
+        eps: Optional[torch.Tensor] = None,
+        generators=None,
+    ) -> torch.Tensor:
+        """``z = mu + eps * exp(0.5*logvar)``; ``eps`` given, or drawn by
+        :meth:`noise`."""
+        if eps is None:
+            eps = self.noise(mu.shape[1], mu.device, generators)
+        return mu + eps.to(mu.dtype) * torch.exp(0.5 * logvar)
+
+    def forward(self, x: torch.Tensor, eps: Optional[torch.Tensor] = None, generators=None, remat: bool = False):
+        """``(K, rows, ...)`` to ``(recon_logits, mu, logvar)``; ``remat`` as
+        for :meth:`VAE.forward`."""
+        if not remat:
+            return self._forward(x, eps, generators)
+        if eps is None:
+            eps = self.noise(x.shape[1], x.device, generators)
+        return checkpoint(self._forward, x, eps, None, use_reentrant=False, preserve_rng_state=False)
+
+    def _forward(self, x, eps, generators):
+        mu, logvar = self.encode(x)
+        z = self.reparameterize(mu, logvar, eps=eps, generators=generators)
+        return self.decode(z), mu, logvar
 
 
-class StackedVAE(nn.Module):
+class StackedVAE(LaneStacked, nn.Module):
     """K same-shape :class:`VAE` s on a leading lane axis: lane k computes
-    what a :class:`VAE` with lane k's parameters computes on lane k's rows.
-
-    Inputs are ``(K, rows, ...)``; :meth:`encode` also takes one
-    ``(rows, features)`` batch that every lane scores (the stacked eval). Noise
-    is ``eps`` ``(K, rows, latent)`` or drawn per lane, lane k from
-    ``generators[k]`` with the unstacked :meth:`VAE.reparameterize`'s draw,
-    so a lane given its unstacked twin's generator draws the twin's noise.
-    """
+    what a :class:`VAE` with lane k's parameters computes on lane k's rows
+    (the :class:`LaneStacked` contract)."""
 
     def __init__(
         self,
@@ -222,61 +251,39 @@ class StackedVAE(nn.Module):
         h1 = F.relu(self.fc1(x, self.dtype))
         return self.fc21(h1, self.dtype), self.fc22(h1, self.dtype)
 
-    def noise(self, rows: int, device, generators=None) -> torch.Tensor:
-        """``(K, rows, latent)`` draws of N(0, I) in float32, lane k's from
-        ``generators[k]`` (all from the default generator when None)."""
-        shape = (rows, self.latent_dim)
-        if generators is None:
-            return torch.randn((self.lanes, *shape), device=device, dtype=torch.float32)
-        return torch.stack([torch.randn(shape, generator=g, device=device, dtype=torch.float32) for g in generators])
-
-    def reparameterize(
-        self,
-        mu: torch.Tensor,
-        logvar: torch.Tensor,
-        eps: Optional[torch.Tensor] = None,
-        generators=None,
-    ) -> torch.Tensor:
-        """``z = mu + eps * exp(0.5*logvar)``; ``eps`` given, or drawn by
-        :meth:`noise`."""
-        if eps is None:
-            eps = self.noise(mu.shape[1], mu.device, generators)
-        return mu + eps.to(mu.dtype) * torch.exp(0.5 * logvar)
-
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """``(K, rows, latent)`` to logits ``(K, rows, input_dim)``."""
         h3 = F.relu(self.fc3(z.to(self.dtype), self.dtype))
         return self.fc4(h3, self.dtype)
 
-    def forward(self, x: torch.Tensor, eps: Optional[torch.Tensor] = None, generators=None, remat: bool = False):
-        """``(K, rows, ...)`` to ``(recon_logits, mu, logvar)``; ``remat`` as
-        for :meth:`VAE.forward`."""
-        if not remat:
-            return self._forward(x, eps, generators)
-        if eps is None:
-            eps = self.noise(x.shape[1], x.device, generators)
-        return checkpoint(self._forward, x, eps, None, use_reentrant=False, preserve_rng_state=False)
-
-    def _forward(self, x, eps, generators):
-        mu, logvar = self.encode(x)
-        z = self.reparameterize(mu, logvar, eps=eps, generators=generators)
-        return self.decode(z), mu, logvar
+    def lane_model(self) -> VAE:
+        return VAE(self.input_dim, self.hidden_dim, self.latent_dim, self.dtype)
 
 
-def stack_vae_params(models) -> dict[str, torch.Tensor]:
-    """K :class:`VAE` s (or their ``state_dict`` s) as one
-    :class:`StackedVAE` ``state_dict``, lane k the k-th."""
+def stack_params(models) -> dict[str, torch.Tensor]:
+    """K models of one family (or their ``state_dict`` s) as one ``state_dict``
+    of its stacked form, lane k the k-th."""
     dicts = [m.state_dict() if isinstance(m, nn.Module) else m for m in models]
     return {key: torch.stack([d[key].detach() for d in dicts]) for key in dicts[0]}
 
 
-def lane_params(stacked: StackedVAE, k: int) -> dict[str, torch.Tensor]:
-    """Lane ``k`` of ``stacked`` as a :class:`VAE` ``state_dict`` (copies)."""
+stack_vae_params = stack_params
+
+
+def stack_params_from_flax(model: nn.Module, trees) -> dict[str, torch.Tensor]:
+    """K flax parameter trees of ``model``'s family (the JAX package's lanes,
+    one tree each) as one ``state_dict`` of its stacked form, each carried
+    across by the family's ``params_from_flax``."""
+    return stack_params([model.params_from_flax(t) for t in trees])
+
+
+def lane_params(stacked: nn.Module, k: int) -> dict[str, torch.Tensor]:
+    """Lane ``k`` of a stacked model as its family's ``state_dict`` (copies)."""
     return {key: v[k].detach().clone() for key, v in stacked.state_dict().items()}
 
 
-def write_lane_params(stacked: StackedVAE, k: int, state_dict) -> None:
-    """Copy a :class:`VAE` ``state_dict`` into lane ``k`` of ``stacked``, in
+def write_lane_params(stacked: nn.Module, k: int, state_dict) -> None:
+    """Copy a family's ``state_dict`` into lane ``k`` of its stacked form, in
     place: a CUDA graph that holds the stacked parameters keeps their
     addresses."""
     with torch.no_grad():

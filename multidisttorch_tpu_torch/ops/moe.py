@@ -20,6 +20,14 @@ per-expert counts (one ``all_gather`` of E numbers per call) and sizes
 the capacity from the group's batch. Every rank of the group must then
 call the module together, as every step does. The auxiliary loss stays
 this rank's (no step uses it).
+
+:class:`StackedMoEMLP` is K MoE MLPs of one shape on a leading lane axis
+(the stacked MoE VAE, ``models/moe_vae.py``), as the JAX package's ``vmap``
+over the lanes computes them: each lane routes its own rows (its argmax,
+queue positions and capacity), the router is one batched product
+(``ops/lanes.py``) and the experts' products carry the lane axis. On a
+bound group one ``all_gather`` carries every lane's ``(K, E)`` counts. No
+step syncs with the host, so a CUDA graph can hold it.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from multidisttorch_tpu_torch.ops.lanes import StackedLinear, lane_linear
 
 
 class MoEMLP(nn.Module):
@@ -95,3 +105,65 @@ class MoEMLP(nn.Module):
         aux = e * torch.sum(onehot.mean(0) * gates.mean(0))
         return y, aux.to(torch.float32)
 
+
+class StackedMoEMLP(nn.Module):
+    """K :class:`MoEMLP` s of one shape, ``(K, B, in_dim) -> (K, B,
+    out_dim)``: ``w1`` ``(K, E, in, hidden)``, ``b1`` ``(K, E, hidden)``,
+    ``w2`` ``(K, E, hidden, out)``, ``b2`` ``(K, E, out)`` and the router
+    ``gate`` (``weight`` ``(K, E, in)``, ``bias`` ``(K, E)``), in the single
+    module's parameter order. Lane k routes lane k's rows as
+    :meth:`MoEMLP.forward` routes them (module docstring)."""
+
+    def __init__(self, lanes: int, in_dim: int, num_experts: int, hidden_dim: int, out_dim: int,
+                 capacity_factor: float = 1.25, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        e = num_experts
+        self.lanes = lanes
+        self.num_experts = e
+        self.capacity_factor = capacity_factor
+        self.dtype = dtype
+        self.w1 = nn.Parameter(torch.zeros(lanes, e, in_dim, hidden_dim))
+        self.b1 = nn.Parameter(torch.zeros(lanes, e, hidden_dim))
+        self.w2 = nn.Parameter(torch.zeros(lanes, e, hidden_dim, out_dim))
+        self.b2 = nn.Parameter(torch.zeros(lanes, e, out_dim))
+        self.gate = StackedLinear(lanes, in_dim, e)
+        self._pg = None
+        self._group_size = 1
+        self._group_rank = 0
+
+    bind_group = MoEMLP.bind_group
+    capacity = MoEMLP.capacity
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(K, B, in)`` to ``(y, aux)``: ``y`` ``(K, B, out)``, ``aux``
+        ``(K,)``, each lane's Switch auxiliary loss."""
+        b = x.shape[1]
+        e, dt = self.num_experts, self.dtype
+        cap = self.capacity(b)
+        x = x.to(dt)
+        gates = torch.softmax(lane_linear(x.float(), self.gate.weight, self.gate.bias), dim=-1)  # (K, B, E), f32
+        experts = torch.arange(e, device=x.device)
+        onehot = (torch.argmax(gates, dim=-1).unsqueeze(-1) == experts).to(torch.float32)
+        top_gate = (gates * onehot).sum(-1)
+        # Each lane's queue positions (1-based), after the lower ranks'
+        # tokens of that lane on a bound group.
+        pos = torch.cumsum(onehot, dim=1)
+        if self._pg is not None:
+            counts = onehot.sum(1)  # (K, E)
+            parts = [torch.empty_like(counts) for _ in range(self._group_size)]
+            dist.all_gather(parts, counts, group=self._pg)
+            pos = pos + sum(parts[: self._group_rank], torch.zeros_like(counts)).unsqueeze(1)
+        pos = pos * onehot
+        within = (pos > 0) & (pos <= cap)
+        slots = torch.arange(cap, device=x.device, dtype=pos.dtype)
+        disp = (slots == (pos - 1.0).unsqueeze(-1)).to(torch.float32) * within.unsqueeze(-1).to(torch.float32)
+
+        w1, b1, w2, b2 = (t.to(dt) for t in (self.w1, self.b1, self.w2, self.b2))
+        expert_in = torch.einsum("kbec,kbd->kecd", disp.to(dt), x)
+        hmid = F.relu(torch.einsum("kecd,kedh->kech", expert_in, w1) + b1[:, :, None, :])
+        out_e = torch.einsum("kech,keho->keco", hmid, w2) + b2[:, :, None, :]
+        combine = disp * top_gate[..., None, None]
+        y = torch.einsum("kbec,keco->kbo", combine.to(dt), out_e)
+
+        aux = e * torch.sum(onehot.mean(1) * gates.mean(1), dim=-1)
+        return y, aux.to(torch.float32)

@@ -58,7 +58,7 @@ import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
-from multidisttorch_tpu_torch.models.vae import VAE, StackedVAE, lane_params, write_lane_params
+from multidisttorch_tpu_torch.models.vae import LaneStacked, lane_params, write_lane_params
 from multidisttorch_tpu_torch.ops import elbo as elbo_ops
 from multidisttorch_tpu_torch.train.adam import Adam, adam_update_, bias_corrections
 from multidisttorch_tpu_torch.train.streams import side_stream, stream_lock
@@ -743,12 +743,13 @@ class TrialHypers:
 @dataclass
 class StackedTrainState:
     """K trials' training state on one leading lane axis: the stacked
-    model, Adam's two moments (one tensor per parameter, in
+    model (any family's stacked form, ``models/vae.py::LaneStacked``),
+    Adam's two moments (one tensor per parameter, in
     ``model.parameters()`` order) and Adam's step count per lane
     (``count``, f32 on the device, as torch's Adam keeps it under
     ``capturable``). A lane's step count is its optimizer steps."""
 
-    model: StackedVAE
+    model: LaneStacked
     exp_avg: list
     exp_avg_sq: list
     count: torch.Tensor
@@ -764,8 +765,9 @@ class StackedTrainState:
 
 def _write_lane(state: StackedTrainState, lane, k: int) -> None:
     """Copy a trial into lane ``k`` in place: a :class:`TrainState`
-    (parameters, Adam's moments and step count) or a fresh :class:`VAE`
-    (its parameters; zero moments and count, as a new optimizer)."""
+    (parameters, Adam's moments and step count) or a fresh model of the
+    state's family (its parameters; zero moments and count, as a new
+    optimizer)."""
     model = lane.model if isinstance(lane, TrainState) else lane
     write_lane_params(state.model, k, model.state_dict())
     adam = lane.optimizer.state if isinstance(lane, TrainState) else {}
@@ -783,13 +785,14 @@ def _write_lane(state: StackedTrainState, lane, k: int) -> None:
 
 def _read_lane(state: StackedTrainState, k: int) -> TrainState:
     """Lane ``k`` as an unstacked trial's :class:`TrainState`, copies on
-    the same device: a :class:`VAE` with the lane's parameters and an Adam
-    holding its moments and step count (``step`` from the device, one
-    sync). Its lr is a placeholder (0): a lane's lr lives in
-    :class:`TrialHypers`, and Adam's state does not depend on it."""
+    the same device: a model of the state's family (``lane_model()``) with
+    the lane's parameters and an Adam holding its moments and step count
+    (``step`` from the device, one sync). Its lr is a placeholder (0): a
+    lane's lr lives in :class:`TrialHypers`, and Adam's state does not
+    depend on it."""
     sm = state.model
     dev = state.count.device
-    model = VAE(sm.input_dim, sm.hidden_dim, sm.latent_dim, sm.dtype).to(dev)
+    model = sm.lane_model().to(dev)
     model.load_state_dict(lane_params(sm, k))
     capturable = dev.type == "cuda"
     optimizer = Adam(model.parameters(), lr=0.0, capturable=capturable)
@@ -805,17 +808,26 @@ def _read_lane(state: StackedTrainState, k: int) -> TrainState:
 
 def create_stacked_train_state(group: TrialGroup, lanes: Sequence) -> StackedTrainState:
     """Stack K trials on the group's device, lane k from ``lanes[k]``: an
-    initialised :class:`VAE` (a fresh trial, as the JAX package's
-    ``build_lane_state``) or a :class:`TrainState`. Every rank of a
-    multi-rank group holds the whole stacked state (the JAX package
-    replicates it over the submesh); the lanes are built alike on every
-    rank from their seeds, so no broadcast is needed."""
+    initialised model of one family (a fresh trial, as the JAX package's
+    ``build_lane_state``) or a :class:`TrainState`. The stacked form is the
+    first lane's family's (its ``stacked(K)``: a :class:`VAE` gives a
+    ``StackedVAE``), bound, on a multi-rank group, to the group as
+    :func:`create_train_state` binds a model. Every rank of a multi-rank
+    group holds the whole stacked state (the JAX package replicates it over
+    the submesh); the lanes are built alike on every rank from their seeds,
+    so no broadcast is needed."""
     _require_trainable(group)
     if not lanes:
         raise ValueError("a stacked state needs at least one lane")
     first = lanes[0].model if isinstance(lanes[0], TrainState) else lanes[0]
-    model = StackedVAE(len(lanes), first.input_dim, first.hidden_dim, first.latent_dim, first.dtype)
-    model = model.to(group.device)
+    if not hasattr(first, "stacked"):
+        raise NotImplementedError(
+            f"{type(first).__name__} has no lane-stacked form (models/vae.py::LaneStacked): the lanes of a "
+            "stacked state are VAE families")
+    model = first.stacked(len(lanes)).to(group.device)
+    bind = getattr(model, "bind_group", None)
+    if group.size > 1 and bind is not None:
+        bind(group.pg, group.size, group.local_rank)
     state = StackedTrainState(
         model=model,
         exp_avg=[torch.zeros_like(p) for p in model.parameters()],
@@ -1066,8 +1078,8 @@ def make_lane_ops(group: TrialGroup) -> tuple[Callable, Callable]:
     ``read(state, k) -> TrainState`` copies lane ``k`` out as an unstacked
     trial's state (a retired lane's result and checkpoint). ``write(state,
     lane, k) -> state`` copies a trial into lane ``k``: an initialised
-    :class:`VAE` (a fresh trial: zero moments and step count) or a
-    :class:`TrainState`. Both copy in place and never rebind a stacked
+    model of the state's family (a fresh trial: zero moments and step
+    count) or a :class:`TrainState`. Both copy in place and never rebind a stacked
     tensor, so the CUDA graphs that hold the stacked state keep working
     with no new capture."""
     if not group.is_local_member:

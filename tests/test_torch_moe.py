@@ -352,12 +352,6 @@ def test_per_group_pbt_takes_jaxs_decisions(data, jax_pbt_run, carried):
         assert mine["count"] == float(theirs.opt_state[0].count) == 9.0
 
 
-def test_fused_pbt_with_a_model_family_is_not_ported(data):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.16b"):
-        run_pbt(PBTConfig(**PBT_CFG), *data, fused=True, device="cpu",
-                model_builder=lambda cfg: MoEVAE(hidden_dim=cfg.hidden_dim, latent_dim=cfg.latent_dim))
-
-
 # --- two processes: the capacity rule and cross-process PBT ----------------------
 
 _RANK_MAIN = r"""

@@ -21,7 +21,7 @@ generation:
   package's own spread over seeds 0-2, capped at 5 % (the noise streams
   differ, ROADMAP C.14);
 - ``_set_lr`` and the graphs it drops, ``stream_chunks`` across rounds and
-  ``host_batches``, the example CLI, and what is not ported.
+  ``host_batches``, the example CLI, and what is refused.
 """
 
 import json
@@ -453,10 +453,14 @@ def test_eval_host_batches_match_jax(group, data):
 
 
 def test_unported_arguments_raise(data):
-    # A model family runs per group (tests/test_torch_moe.py); the fused
-    # lanes are StackedVAE's only.
-    with pytest.raises(NotImplementedError, match=r"A\.16b"):
-        run_pbt(PBTConfig(**_cfg()), *data, model_builder=lambda cfg: None, fused=True, device="cpu")
+    # The VAE families run fused (tests/test_torch_pbt_family.py); a model
+    # with no lane-stacked form, a classifier, is refused before any lane
+    # is built.
+    from multidisttorch_tpu_torch.models import ResNet18
+
+    with pytest.raises(NotImplementedError, match="no lane-stacked form"):
+        run_pbt(PBTConfig(**_cfg()), *data, model_builder=lambda cfg: ResNet18(base_channels=4), fused=True,
+                device="cpu")
 
 
 def test_fused_needs_one_group(data):
