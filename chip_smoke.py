@@ -275,6 +275,25 @@ Phases, in order; any failure exits non-zero and prints no result:
     timed (device, call, graph and cold-L2 ms beside the bound and its
     share), then at a ragged (3, 100, 3072, 64) and bf16 activations
     untimed, each with 100 bit-identical graph replays;
+22. the LM sweep (run before 13), counts set to 0 just before each part:
+    (a) the MoE LM at phase 9's width (4 experts, capacity factor 1.25,
+    bf16 compute), 10 multi-steps on the flash kernels against the same
+    weights on dense attention: losses within rel 2e-2, falling, each
+    flash kernel 8 x steps times on its ``wgmma`` variant; then ms a step
+    (rounds in turns), the device's busy time and idle share over one
+    profiled multi-step, and the peak memory; (b) ring-flash's hops in one
+    process: (128, 512, 64) bf16 causal split over 4 ring members, each
+    member's hops in ring order through ``ops/attention.py::ring_flash_hop``
+    (``full``, ``diag`` and ``skip`` all occur), the output and the q, k, v
+    gradients against dense attention in f32 on the same inputs and against
+    the ring of one, within 1e-2 of the largest reference value, the
+    launches by variant; (c) ``examples/lm_hpo.py`` through its ``main`` at
+    full width, one trial, ``--ring-flash --fused-steps 5 --steps 10`` and
+    ``--moe 4 --ring-flash`` (f32 as in the JAX package: the SIMT flash
+    kernels): the perplexity line, the loss falling, the launches, ms a
+    step; (d) int8 weight-only decode of phase 9's trained weights (f32,
+    prompt 256): greedy tokens agree with the f32 decode on at least 95 %
+    of the buffer (the JAX package's bound), ms a token of both;
 13. a ``kernels`` JSON line, then the result line.
 
 Exits 1 without a result when CUDA is unavailable or the port is not
@@ -997,7 +1016,7 @@ LM_TIMING_ROUNDS = 4
 def lm_slice(A, group, smi: str) -> dict:
     """Phase 9: the LM path at full width. Returns each flash kernel's
     launches over the path (train, eval and decode prefill), in total and
-    by variant."""
+    by variant, and the trained weights (f32, on the host)."""
     import numpy as np
 
     from multidisttorch_tpu_torch.data.datasets import synthetic_corpus
@@ -1145,7 +1164,9 @@ def lm_slice(A, group, smi: str) -> dict:
     totals = {key: train_launches[key] + eval_launches[key] + decode_launches[key] for key in A.LAUNCHES}
     by_variant = {key: sum(c.get(key, 0) for c in (train_variants, eval_variants, decode_variants))
                   for key in A.LAUNCHES_BY_VARIANT}
-    return totals, by_variant
+    # The trained weights for phase 22d's int8 decode, on the host meanwhile.
+    weights = {k: v.detach().float().cpu() for k, v in states["flash"].model.state_dict().items()}
+    return totals, by_variant, weights
 
 
 def _same_checkpoint(ck, a_dir: str, b_dir: str, what: str, trial_id: int = 0) -> None:
@@ -2516,12 +2537,12 @@ def _graph_within_spread(what: str, fresh_state, make_eager, make_graph, chunks:
     return {"eager_pairs": pairs, "graph_to_eager": to_eager, "bound": bound}
 
 
-def _profile_steps(run, steps: int, guard: str = "") -> tuple:
-    """torch.profiler over ``run()``, which runs ``steps`` train steps:
-    device busy ms per step and the kernels by device time (ms per step,
-    launches per step, name). With ``guard``, a trace counts only if it
-    holds one such kernel per step (the profiler can drop part of a replay),
-    in three tries; busy is None if none did."""
+def _profile_steps(run, steps: int, guard: str = "", per_step: int = 1) -> tuple:
+    """torch.profiler over ``run()``, which runs ``steps`` steps: device
+    busy ms per step and the kernels by device time (ms per step, launches
+    per step, name). With ``guard``, a trace counts only if it holds
+    ``per_step`` such kernels per step (the profiler can drop events), in
+    three tries; busy is None if none did."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -2529,11 +2550,11 @@ def _profile_steps(run, steps: int, guard: str = "") -> tuple:
             run()
             torch.cuda.synchronize()
         seen = sum(e.count for e in prof.key_averages() if guard and guard in e.key and e.device_time_total > 0)
-        if not guard or seen == steps:
+        if not guard or seen == steps * per_step:
             break
     by_kernel = sorted(((e.device_time_total / steps / 1e3, e.count / steps, e.key) for e in prof.key_averages()
                         if e.device_time_total > 0), reverse=True)
-    busy = sum(k[0] for k in by_kernel) if (not guard or seen == steps) else None
+    busy = sum(k[0] for k in by_kernel) if (not guard or seen == steps * per_step) else None
     return busy, by_kernel
 
 
@@ -5188,6 +5209,360 @@ def pbt_family_phase(E, group, smi: str, mnist: tuple, cifar: tuple) -> dict:
     print(f"phase 21: {time.time() - t0:.1f} s ({smi})", flush=True)
     return out
 
+# --- phase 22: the LM sweep (the MoE LM, ring-flash's hops, lm_hpo, int8
+# decode) ----------------------------------------------------------------------
+
+MOE_LM_TIMING_ROUNDS = 2
+RING_MEMBERS = 4
+RING_SHAPE = (128, 512, 64)  # (B·H, T, D), bf16, causal
+# bf16 operands, outputs and gradients: within this share of the largest
+# reference value (bf16 keeps 8 bits: 2^-8 = 3.9e-3 per rounding).
+RING_TOL = 1e-2
+LM_HPO_ARGS = ["--ngroups", "1", "--seq-len", "512", "--batch-size", "16", "--vocab", "32768",
+               "--d-model", "512", "--layers", "8"]
+LM_HPO_FORMS = {"ring_flash": ["--ring-flash", "--fused-steps", "5", "--steps", "10"],
+                "moe": ["--moe", "4", "--ring-flash"]}
+QUANT_AGREEMENT = 0.95  # the JAX package's bound, tests/test_lm_quant.py:53
+# 22d trains phase 9's weights on the decode rows in multi-steps of
+# QUANT_TRAIN_CHUNK, at most QUANT_TRAIN_MAX steps, until the f32 model's
+# next-token argmax is right on QUANT_TRAINED of the generated half.
+QUANT_TRAIN_CHUNK, QUANT_TRAIN_MAX, QUANT_TRAINED = 10, 300, 0.99
+DECODE_PROFILE_TOKENS = 64  # 22d's profiled decodes
+
+
+def _variants(A) -> dict:
+    return {key: n for key, n in A.LAUNCHES_BY_VARIANT.items() if n}
+
+
+def _moe_lm_states(A, group, *, plain: bool = True) -> tuple:
+    """22a's MoE LM at phase 9's width on the flash kernels and, with
+    ``plain``, the same weights on dense attention: (states, multi-step,
+    LM_STEPS chunks, the flash model)."""
+    import numpy as np
+
+    from multidisttorch_tpu_torch.data.datasets import synthetic_corpus
+    from multidisttorch_tpu_torch.models.transformer import MoETransformerLM, init_lm_params
+    from multidisttorch_tpu_torch.train.lm import create_lm_state, make_lm_multi_step
+
+    t = LM["max_len"]
+    corpus = synthetic_corpus(n=max(65536, 4 * t), vocab_size=LM["vocab_size"], period=16)
+    rng = np.random.default_rng(0)
+    chunks = torch.from_numpy(np.stack([corpus.batch(rng, LM_BATCH, t) for _ in range(LM_STEPS)])).to(group.device)
+    flash_model = init_lm_params(
+        MoETransformerLM(**LM, attention=A.make_flash_attention(causal=True), dtype=torch.bfloat16), seed=0
+    )
+    states = {"flash": create_lm_state(group, flash_model, 1e-3)}
+    if plain:
+        plain_model = MoETransformerLM(**LM, dtype=torch.bfloat16)
+        plain_model.load_state_dict(flash_model.state_dict())
+        states["plain"] = create_lm_state(group, plain_model, 1e-3)
+    return states, make_lm_multi_step(group), chunks, flash_model
+
+
+def moe_lm_busy() -> dict:
+    """22a's device share, run by :func:`moe_lm_phase` in a fresh process
+    (late in this script's own process the profiler drops events): the
+    flash MoE LM's multi-step timed MOE_LM_TIMING_ROUNDS times after a
+    warm-up, then profiled over two steps, a trace counting only if it
+    holds the 8 layers' flash forwards of each step."""
+    from multidisttorch_tpu_torch.ops import attention as A
+    from multidisttorch_tpu_torch.parallel.mesh import setup_groups
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    group = setup_groups(1, device="cuda:0")[0]
+    states, multi, chunks, _ = _moe_lm_states(A, group, plain=False)
+    rounds = []
+    for r in range(MOE_LM_TIMING_ROUNDS + 1):  # the first is the warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states["flash"], _ = multi(states["flash"], chunks)
+        torch.cuda.synchronize()
+        rounds.append((time.perf_counter() - t0) / LM_STEPS * 1e3)
+
+    def two():  # two steps, so that the trace holds fewer events
+        states["flash"], _ = multi(states["flash"], chunks[:2])
+
+    busy, by_kernel = _profile_steps(two, 2, "flash_fwd_wgmma", per_step=8)
+    return {"ms": statistics.median(rounds[1:]), "rounds": rounds[1:], "busy": busy, "top": by_kernel[:8]}
+
+
+def moe_lm_phase(A, group, smi: str) -> dict:
+    """22a: the MoE LM at phase 9's width, flash against dense attention.
+    Returns the flash kernels' launches and variants of the counted run."""
+    t = LM["max_len"]
+    states, multi, chunks, flash_model = _moe_lm_states(A, group)
+    e, cf = flash_model.num_experts, flash_model.capacity_factor
+    cap = max(1, math.ceil(LM_BATCH * t * cf / e))
+    n_params = sum(p.numel() for p in flash_model.parameters())
+    del flash_model
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    states["flash"], m_flash = multi(states["flash"], chunks)
+    torch.cuda.synchronize()
+    launches, variants = dict(A.LAUNCHES), _variants(A)
+    peak = torch.cuda.max_memory_allocated()
+    states["plain"], m_plain = multi(states["plain"], chunks)
+    lf, lp = m_flash["loss"].tolist(), m_plain["loss"].tolist()
+    n = 8 * LM_STEPS
+    check(launches == {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n},
+          f"22a MoE LM: launches {launches} in {LM_STEPS} steps of 8 layers")
+    expected = {"flash_fwd:wgmma": n, "flash_bwd_dq:wgmma": n, "flash_bwd_dkv:wgmma": n}
+    check(variants == expected, f"22a MoE LM: launched {variants}, expected {expected}")
+    check(all(math.isfinite(x) for x in lf + lp), f"22a MoE LM: non-finite loss {lf} / {lp}")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(lf, lp))
+    check(worst <= 2e-2, f"22a MoE LM: flash losses {lf} vs dense {lp} (worst rel {worst:.3e} > 2e-2)")
+    check(lf[-1] < lf[0], f"22a MoE LM: loss did not fall ({lf[0]} -> {lf[-1]})")
+    print(f"22a MoE LM ({n_params:,} params, {e} experts, capacity factor {cf}: {cap} tokens an expert of "
+          f"{LM_BATCH * t}, dispatch one-hots ({LM_BATCH * t}, {e}, {cap}) a layer; bf16 compute, batch "
+          f"{LM_BATCH} x {t}): flash losses " + ", ".join(f"{x:.4f}" for x in lf) + " | dense "
+          + ", ".join(f"{x:.4f}" for x in lp) + f" | worst rel {worst:.3e} (limit 2e-2) | launches {launches} "
+          f"{variants} | peak memory allocated in the counted run {peak / 2**30:.3f} GiB ({smi})")
+
+    step_ms = {"flash": [], "plain": []}
+    for r in range(MOE_LM_TIMING_ROUNDS):
+        for name in ("flash", "plain") if r % 2 == 0 else ("plain", "flash"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[name], _ = multi(states[name], chunks)
+            torch.cuda.synchronize()
+            step_ms[name].append((time.perf_counter() - t0) / LM_STEPS * 1e3)
+    ms = statistics.median(step_ms["flash"])
+    del states
+    torch.cuda.empty_cache()
+    code = ("import json, os, sys; sys.path.insert(0, os.getcwd()); import chip_smoke as C; "
+            "print('MOE_LM_BUSY ' + json.dumps(C.moe_lm_busy()))")
+    child = subprocess.run([sys.executable, "-c", code], cwd=HERE, env=_child_env(), capture_output=True, text=True,
+                           timeout=300)
+    got = [ln for ln in child.stdout.splitlines() if ln.startswith("MOE_LM_BUSY ")]
+    check(child.returncode == 0 and len(got) == 1,
+          f"22a's profiling child: exit {child.returncode}, {child.stdout[-1000:]} {child.stderr[-2000:]}")
+    busy = json.loads(got[0][len("MOE_LM_BUSY ") :])
+    print(f"22a MoE LM train step (flash kernels): median {ms:.6f} ms/step of "
+          + ", ".join(f"{x:.6f}" for x in step_ms["flash"]) + "; dense attention "
+          + ", ".join(f"{x:.6f}" for x in step_ms["plain"]) + f" ms/step; in a fresh process {busy['ms']:.6f} "
+          f"ms/step of " + ", ".join(f"{x:.6f}" for x in busy["rounds"]) + f", {_busy_text(busy['busy'], busy['ms'])}"
+          f" (busy over a profiled two-step run) ({smi})")
+    print("22a MoE LM train step device ms per step by kernel (launches per step), top 8, in the fresh process: "
+          + "; ".join(f"{k_ms:.3f} ({c:g}) {key[:70]}" for k_ms, c, key in busy["top"]) + f" ({smi})")
+    return {"launches": launches, "variants": variants}
+
+
+def ring_flash_hops_phase(A, smi: str) -> dict:
+    """22b: ring-flash's hops in one process, RING_MEMBERS members in ring
+    order through the hop function, against dense attention and the ring of
+    one. Returns the members' launches and variants."""
+    bh, t, d = RING_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    q, k, v = (torch.randn(bh, t, d, generator=gen, device="cuda").to(torch.bfloat16).requires_grad_(True)
+               for _ in range(3))
+    w = torch.randn(bh, t, d, generator=gen, device="cuda")  # the output's cotangent
+    scale = d**-0.5
+    modes = {mode: 0 for mode in A.RING_HOP_MODES}
+
+    def ring(members: int):
+        tl = t // members
+        outs = []
+        for r in range(members):
+            qf = q[:, r * tl : (r + 1) * tl].contiguous()
+            m, l, acc = A.ring_flash_init(qf)
+            for s in range(members):
+                src = (r - s) % members
+                mode = A.ring_hop_mode(r, src, True)
+                modes[mode] += 1
+                kf = k[:, src * tl : (src + 1) * tl].contiguous()
+                vf = v[:, src * tl : (src + 1) * tl].contiguous()
+                m, l, acc = A.ring_flash_hop(qf, kf, vf, m, l, acc, mode, scale)
+            outs.append(A.ring_flash_finish(l, acc, q.dtype))
+        out = torch.cat(outs, dim=1)
+        return out.detach(), torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+
+    A.reset_launches()
+    out, grads = ring(RING_MEMBERS)
+    torch.cuda.synchronize()
+    launches, variants = dict(A.LAUNCHES), _variants(A)
+    n = RING_MEMBERS
+    hops = n + n * (n - 1) // 2  # each member's diagonal, and the blocks left of it
+    check(all(modes.values()) and modes["skip"] == n * (n - 1) // 2,
+          f"22b ring-flash: hop modes {modes}, expected full, diag and skip")
+    check(launches == {"flash_fwd": hops, "flash_bwd_dq": hops, "flash_bwd_dkv": hops},
+          f"22b ring-flash: launches {launches}, expected {hops} of each")
+    check(variants == {f"{key}:wgmma": hops for key in A.LAUNCHES}, f"22b ring-flash: launched {variants}")
+    ring_modes = dict(modes)
+    one, one_grads = ring(1)
+    # dense attention in f32 on the same bf16 inputs
+    qf, kf, vf = (x.detach().float().requires_grad_(True) for x in (q, k, v))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    s = s.masked_fill(~torch.ones(t, t, dtype=torch.bool, device="cuda").tril(), float("-inf"))
+    ref = torch.matmul(torch.softmax(s, dim=-1), vf)
+    ref_grads = torch.autograd.grad((ref * w).sum(), (qf, kf, vf))
+    torch.cuda.synchronize()
+
+    def rel(a, b) -> float:
+        a, b = a.detach().float(), b.detach().float()
+        return float((a - b).abs().max() / b.abs().max())
+
+    errs = {"out": rel(out, ref), **{f"d{x}": rel(a, b) for x, a, b in zip("qkv", grads, ref_grads)}}
+    ones = {"out": rel(out, one), **{f"d{x}": rel(a, b) for x, a, b in zip("qkv", grads, one_grads)}}
+    for what, got in (("dense attention in f32", errs), ("the ring of one", ones)):
+        check(max(got.values()) <= RING_TOL, f"22b ring-flash against {what}: max |diff| / max |ref| {got} "
+              f"> {RING_TOL}")
+    print(f"22b ring-flash hops, (B·H, T, D) = {RING_SHAPE} bf16 causal over {n} members: modes {ring_modes}; "
+          f"launches {launches} {variants}; max |diff| / max |ref| against dense f32 "
+          + ", ".join(f"{key} {x:.3e}" for key, x in errs.items()) + "; against the ring of one "
+          + ", ".join(f"{key} {x:.3e}" for key, x in ones.items()) + f" (limit {RING_TOL}; {smi})")
+    return {"launches": launches, "variants": variants}
+
+
+def lm_hpo_phase(A, smi: str) -> dict:
+    """22c: ``examples/lm_hpo.py`` through its ``main`` at full width, one
+    trial, in LM_HPO_FORMS' forms. Returns each form's launches and
+    variants."""
+    from multidisttorch_tpu_torch.examples import lm_hpo
+
+    lines = _Lines()
+    logger = logging.getLogger("multidisttorch_tpu_torch")
+    logger.addHandler(lines)
+    out = {}
+    try:
+        for name, form in LM_HPO_FORMS.items():
+            lines.lines.clear()
+            A.reset_launches()
+            t0 = time.perf_counter()
+            (res,) = lm_hpo.main(LM_HPO_ARGS + form)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, variants = dict(A.LAUNCHES), _variants(A)
+            steps = res["steps"]
+            finals = [ln for ln in lines.lines if "final loss" in ln and "perplexity" in ln]
+            check(len(finals) == 1, f"22c lm_hpo {name}: {len(finals)} perplexity lines: {lines.lines}")
+            first = [float(re.search(r"loss (\S+)", ln).group(1)) for ln in lines.lines if "step    0" in ln]
+            check(len(first) == 1 and res["loss"] < first[0],
+                  f"22c lm_hpo {name}: loss did not fall ({first} -> {res['loss']})")
+            check(math.isfinite(res["perplexity"]), f"22c lm_hpo {name}: perplexity {res['perplexity']}")
+            n = 8 * steps
+            want = {"flash_fwd": n + 8, "flash_bwd_dq": n, "flash_bwd_dkv": n}  # the eval's 8 forwards
+            check(launches == want, f"22c lm_hpo {name}: launches {launches}, expected {want}")
+            # f32 weights and activations, head dim 128: the SIMT kernels
+            check(variants == {f"{key}:simt": c for key, c in want.items()},
+                  f"22c lm_hpo {name}: launched {variants}")
+            print(f"22c lm_hpo {' '.join(form)} (f32 as in the JAX package, so the SIMT flash kernels): "
+                  f"{finals[0]}; step 0 loss {first[0]:.4f}; {res['train_s'] / steps * 1e3:.3f} ms a step over "
+                  f"{steps} steps (the round-robin's wall, logging included), {wall:.1f} s through main; "
+                  f"launches {launches} {variants} ({smi})")
+            out[name] = {"launches": launches, "variants": variants}
+    finally:
+        logger.removeHandler(lines)
+    return out
+
+
+def int8_decode_phase(A, group, smi: str, weights: dict) -> None:
+    """22d: phase 9's weights trained on until the f32 model predicts the
+    decode rows' continuation, then int8 weight-only decode against f32
+    decode: agreement on the generated positions, ms a token of both in
+    turns, and each decode's device busy share."""
+    import numpy as np
+
+    from multidisttorch_tpu_torch.data.datasets import synthetic_corpus
+    from multidisttorch_tpu_torch.models.transformer import Dense, TransformerLM
+    from multidisttorch_tpu_torch.train.lm import create_lm_state, make_lm_multi_step
+    from multidisttorch_tpu_torch.train.lm_decode import make_cached_lm_sample
+    from multidisttorch_tpu_torch.train.lm_quant import QuantDense, quantize_lm_params
+    from multidisttorch_tpu_torch.train.steps import TrainState
+
+    dev = group.device
+    t = LM["max_len"]
+    gen_tokens = t - LM_PROMPT
+    corpus = synthetic_corpus(n=max(65536, 4 * t), vocab_size=LM["vocab_size"], period=16)
+    window = torch.from_numpy(corpus.batch(np.random.default_rng(1), LM_BATCH, t)).to(dev)
+
+    # Train phase 9's bf16 flash model on the decode rows, as lm_hpo trains
+    # a trial on one fixed batch, until the f32 model's next-token argmax
+    # is right on QUANT_TRAINED of the generated half.
+    model = TransformerLM(**LM, attention=A.make_flash_attention(causal=True), dtype=torch.bfloat16)
+    model.load_state_dict(weights)
+    state = create_lm_state(group, model, 1e-3)
+    multi = make_lm_multi_step(group)
+    chunk = window.expand(QUANT_TRAIN_CHUNK, *window.shape).contiguous()
+    dec = TransformerLM(**LM).to(dev)
+
+    def predicted() -> float:
+        dec.load_state_dict(state.model.state_dict())
+        with torch.no_grad():
+            pred = dec(window[:, :-1]).argmax(-1)
+        return float((pred[:, LM_PROMPT - 1 :] == window[:, LM_PROMPT:]).float().mean())
+
+    steps, acc, losses = 0, predicted(), []
+    t0 = time.perf_counter()
+    while acc < QUANT_TRAINED and steps < QUANT_TRAIN_MAX:
+        state, m = multi(state, chunk)
+        steps += QUANT_TRAIN_CHUNK
+        losses.append(float(m["loss"][-1]))
+        acc = predicted()
+    train_s = time.perf_counter() - t0
+    check(acc >= QUANT_TRAINED, f"22d: after {steps} more steps the f32 model predicts {acc:.4f} of the "
+          f"continuation < {QUANT_TRAINED}")
+    del state, model
+    print(f"22d trained phase 9's weights {steps} more steps on the {LM_BATCH} decode rows (bf16 flash, lr 1e-3, "
+          f"{train_s:.1f} s): loss every {QUANT_TRAIN_CHUNK} steps " + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; the f32 model's teacher-forced argmax is the next token on {acc:.4f} of the generated half "
+          f"(limit {QUANT_TRAINED}) ({smi})")
+
+    models = {"f32": dec, "int8": quantize_lm_params(dec)}
+    quant = [m for m in models["int8"].modules() if isinstance(m, QuantDense)]
+    check(len(quant) == 6 * LM["num_layers"] + 1 and all(m.q.dtype == torch.int8 for m in quant),
+          f"22d: {len(quant)} int8 layers")
+    sample = make_cached_lm_sample(group, TransformerLM(**LM))
+    states = {name: TrainState(model=m, optimizer=None) for name, m in models.items()}
+    outs, per_token = {}, {"f32": [], "int8": []}
+    for name in ("f32", "int8", "int8", "f32"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = sample(states[name], window, LM_PROMPT)
+        torch.cuda.synchronize()
+        per_token[name].append((time.perf_counter() - t0) / gen_tokens * 1e3)
+    same = outs["f32"] == outs["int8"]
+    generated = float(same[:, LM_PROMPT:].float().mean())
+    buffer = float(same.float().mean())
+    match = {name: float((o[:, LM_PROMPT:] == window[:, LM_PROMPT:]).float().mean()) for name, o in outs.items()}
+    check(generated >= QUANT_AGREEMENT, f"22d: int8 greedy decode agrees with f32 on {generated:.4f} of the "
+          f"generated positions < {QUANT_AGREEMENT}")
+    weight_bytes = {name: sum(x.numel() * x.element_size() for m in model.modules()
+                              if isinstance(m, (Dense, QuantDense)) for x in m.state_dict().values())
+                    for name, model in models.items()}
+    print(f"22d int8 weight-only decode (f32 compute, batch {LM_BATCH}, prompt {LM_PROMPT}, {gen_tokens} "
+          f"generated): greedy tokens agree with f32 on {generated:.4f} of the generated positions (limit "
+          f"{QUANT_AGREEMENT}), {buffer:.4f} of the buffer; match the true continuation f32 {match['f32']:.4f}, "
+          f"int8 {match['int8']:.4f}; dense-layer bytes f32 {weight_bytes['f32']:,}, int8 "
+          f"{weight_bytes['int8']:,}; ms a generated token f32 " + ", ".join(f"{x:.3f}" for x in per_token["f32"])
+          + ", int8 " + ", ".join(f"{x:.3f}" for x in per_token["int8"]) + f" (rounds f32, int8, int8, f32; {smi})")
+    # The device's share of a generated token: each decode profiled over
+    # DECODE_PROFILE_TOKENS tokens and over one, their difference over the
+    # tokens between (the prefill cancels, as in the JAX package's decode
+    # bench), beside the same difference of wall times; a trace counts only
+    # if it holds one argmax per generated token.
+    g = DECODE_PROFILE_TOKENS
+    for name in ("f32", "int8"):
+        wall, busy, top = {}, {}, None
+        for n in (g, 1):
+            run = lambda n=n: sample(states[name], window, t - n)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall[n] = (time.perf_counter() - t0) * 1e3
+            b, by_kernel = _profile_steps(run, n, "ArgMax")
+            busy[n] = None if b is None else b * n
+            top = top or by_kernel
+        ms = (wall[g] - wall[1]) / (g - 1)
+        per = None if None in busy.values() else (busy[g] - busy[1]) / (g - 1)
+        print(f"22d {name} decode, positions {t - g}-{t - 1} less position {t - 1} alone: {ms:.3f} ms a generated "
+              f"token, "
+              f"{_busy_text(per, ms)} (per generated token); {sum(c for _, c, _ in top):.1f} device kernels a "
+              f"token over the {g}; top 5 by device time: "
+              + "; ".join(f"{k_ms * 1e3:.1f} us ({c:g}) {key[:60]}" for k_ms, c, key in top[:5]) + f" ({smi})")
+
 
 def main() -> None:
     t_start = time.time()
@@ -5393,12 +5768,15 @@ def main() -> None:
     flash_vs_plain(A, F, 4, 200, 64, torch.bfloat16, True, timed=False, offset=1)
     flash_autograd_check(A, 128, 512, 64, True)
     flash_autograd_check(A, 4, 96, 20, False)
+    # lm_hpo's hops (phase 22c): f32 at head dim 128, batch 16 x 4 heads.
+    flash_vs_plain(A, F, 64, 512, 128, torch.float32, True, timed=False)
+    flash_autograd_check(A, 64, 512, 128, True)
     flash_padding_check(A)
     flash_padding_check(A, torch.bfloat16, 64)
     mark("8")
 
     # Phase 9: the LM slice; counts set to 0 inside, just before each part.
-    lm_launches, lm_variants = lm_slice(A, group, smi)
+    lm_launches, lm_variants, lm_weights = lm_slice(A, group, smi)
     mark("9")
 
     # Phase 10: trial stacking; counts set to 0 inside (c), just before the
@@ -5484,6 +5862,14 @@ def main() -> None:
     fam = pbt_family_phase(E, group, smi, (train, test), cifar)
     mark("21")
 
+    # Phase 22: the LM sweep; counts set to 0 inside, just before each part.
+    lm_paths = {"lm": {"launches": lm_launches, "variants": lm_variants},
+                "moe_lm": moe_lm_phase(A, group, smi),
+                "ring_flash_hops": ring_flash_hops_phase(A, smi)}
+    lm_paths.update({f"lm_hpo_{name}": run for name, run in lm_hpo_phase(A, smi).items()})
+    int8_decode_phase(A, group, smi, lm_weights)
+    mark("22")
+
     # Phase 13: the kernels line, then the result.
     # "ms", "plain_ms" and "library_ms" are device time per call at the
     # slice's shape (batch 128, f32); "*_call_ms" add the host's per-call
@@ -5549,15 +5935,18 @@ def main() -> None:
     # Flash rows: device time per call at the LM training path's shape
     # ((128, 512, 64) causal bf16), whose variant "variant" names ("simt_ms":
     # the first port's SIMT kernel on the same operands, same run);
-    # "launches" counts the LM path's train steps, eval and decode prefill,
-    # and "launches_by_variant" splits them.
+    # "launches" counts the LM paths' launches: phase 9's train steps, eval
+    # and decode prefill ("lm"), 22a's MoE LM, 22b's ring-flash hops and
+    # 22c's two lm_hpo runs, "launches_by_path" each; "launches_by_variant"
+    # splits the total.
     for name, line in (("flash_fwd", 160), ("flash_bwd_dq", 332), ("flash_bwd_dkv", 346)):
+        by_path = {path: run["launches"][name] for path, run in lm_paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": "multidisttorch_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": f"multidisttorch_tpu/ops/pallas_attention.py:{line}",
-            "launches": lm_launches[name],
-            "launches_by_variant": {key.split(":")[1]: n for key, n in lm_variants.items()
-                                    if key.startswith(f"{name}:")},
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "launches_by_variant": {variant: sum(run["variants"].get(f"{name}:{variant}", 0)
+                                                 for run in lm_paths.values()) for variant in ("wgmma", "simt")},
             **flash_main[name],
             "grid_launches_per_call": 1,
         })

@@ -651,15 +651,7 @@ class DatasetStore:
             # job DISCARDS the Dataset (placement re-reads through the
             # RAM LRU): a Future holding the result would pin one full
             # dataset per lifetime spec, unevictably.
-            fut = self._pool.submit(self._prefetch_job, spec)
-            self._jobs[spec] = fut
-
-        def _count_failure(f: Future) -> None:
-            if f.exception() is not None:
-                with self._lock:
-                    self.counters["prefetch_failures"] += 1
-
-        fut.add_done_callback(_count_failure)
+            self._jobs[spec] = self._pool.submit(self._prefetch_job, spec)
 
     def _ram_resident(self, spec: str) -> bool:
         """Whether the ref is warm in the RAM LRU — what READY means:
@@ -709,6 +701,11 @@ class DatasetStore:
         try:
             self.get(spec)  # lands in the RAM LRU + disk; result dropped
         except BaseException:
+            # Counted before the job's future completes: a caller that sees
+            # the FAILED state sees the count too (a done-callback runs
+            # after the future is marked done).
+            with self._lock:
+                self.counters["prefetch_failures"] += 1
             bus = get_bus()
             if bus is not None:
                 bus.emit(

@@ -1,18 +1,25 @@
-"""Long-context LM demo, the ``--flash`` path: the whole sequence on one
-device, attention through the flash kernels — the PyTorch/CUDA port of
-``examples/lm_long_context.py`` (same flags, plus ``--device``).
+"""Long-context LM demo: one sequence split over the group — the
+PyTorch/CUDA port of ``examples/lm_long_context.py`` (same flags, plus
+``--device``).
 
 A causal TransformerLM trains on a synthetic periodic stream (or a local
 file read as bytes) and then decodes a continuation with the KV-cache
-sampler, whose prefill runs the flash forward again. With several
-processes (torchrun) the batch is split over the group, data parallel.
-The device-ring modes (the default, and ``--ring-flash``) are not ported
-yet and raise.
+sampler. Three attentions:
+
+- the default, ring attention: each rank of the group holds ``T/k``
+  positions and K/V rotate around the ring (``ops/ring_attention.py``);
+- ``--ring-flash``: the same ring with the flash kernels inside every hop;
+- ``--flash``: the whole sequence on each rank through the flash kernels,
+  the batch split over the group (data parallel).
+
+Under the ring modes every rank is given the whole rows and trains on its
+columns (``train/lm.py``); the decode holds the whole sequence on each rank
+(the prefill runs the ring's ``whole_sequence`` attention).
 
 One card:
-    python -m multidisttorch_tpu_torch.examples.lm_long_context --flash
-On the CPU at a small size:
-    python -m multidisttorch_tpu_torch.examples.lm_long_context --flash \
+    python -m multidisttorch_tpu_torch.examples.lm_long_context [--flash | --ring-flash]
+On the CPU at a small size (or under torchrun, one ring over the ranks):
+    python -m multidisttorch_tpu_torch.examples.lm_long_context --ring-flash \
         --device cpu --seq-len 64 --steps 20
 """
 
@@ -23,14 +30,20 @@ import numpy as np
 import torch
 
 from multidisttorch_tpu_torch.models.transformer import TransformerLM, init_lm_params
-from multidisttorch_tpu_torch.ops.attention import make_flash_attention
+from multidisttorch_tpu_torch.ops.attention import make_flash_attention, make_ring_flash_attention
+from multidisttorch_tpu_torch.ops.ring_attention import make_ring_attention
 from multidisttorch_tpu_torch.parallel.cluster import (
     initialize_runtime,
     process_world,
     shutdown_runtime,
 )
 from multidisttorch_tpu_torch.parallel.mesh import setup_groups
-from multidisttorch_tpu_torch.train.lm import _validate_sampling, create_lm_state, make_lm_train_step
+from multidisttorch_tpu_torch.train.lm import (
+    _validate_sampling,
+    create_lm_state,
+    lm_chunk_sharding,
+    make_lm_train_step,
+)
 from multidisttorch_tpu_torch.train.lm_decode import make_cached_lm_sample
 
 
@@ -53,7 +66,7 @@ def main(argv=None):
     )
     parser.add_argument(
         "--ring-flash", action="store_true",
-        help="K/V ring over the group with flash hops (not ported yet)",
+        help="K/V ring over the group with the flash kernels inside every hop",
     )
     parser.add_argument(
         "--corpus", type=str, default=None, metavar="FILE",
@@ -72,13 +85,6 @@ def main(argv=None):
         _validate_sampling(args.temperature, args.top_k, args.top_p)
     except ValueError as e:
         parser.error(str(e))
-    if args.ring_flash:
-        raise NotImplementedError("--ring-flash is not ported yet: ROADMAP A.15b (ring-flash)")
-    if not args.flash:
-        raise NotImplementedError(
-            "the default device-ring mode is not ported yet: ROADMAP A.15a (ring attention); "
-            "pass --flash"
-        )
 
     initialize_runtime(device=args.device)
     try:
@@ -91,7 +97,19 @@ def _run(args):
     _, rank = process_world()
     say = print if rank == 0 else (lambda *a, **k: None)
     (g,) = setup_groups(1, device=args.device)
-    say(f"flash attention on {g.device}; {args.seq_len} tokens resident")
+    if not args.flash and args.seq_len % g.size:
+        # only the rings split the sequence; flash keeps it whole
+        raise SystemExit(f"--seq-len must divide by {g.size} ranks")
+    if args.flash:
+        attention = make_flash_attention(causal=True)
+        say(f"flash attention on {g.device}; {args.seq_len} tokens resident")
+    elif args.ring_flash:
+        attention = make_ring_flash_attention(g, causal=True)
+        say(f"ring-flash over {g.size} ranks; {args.seq_len} tokens "
+            f"({args.seq_len // g.size} per rank, flash-kernel hops)")
+    else:
+        attention = make_ring_attention(g, causal=True)
+        say(f"ring of {g.size} ranks; {args.seq_len} tokens ({args.seq_len // g.size} per rank)")
 
     if args.corpus:
         from multidisttorch_tpu_torch.data.datasets import byte_corpus
@@ -108,21 +126,20 @@ def _run(args):
 
     model = TransformerLM(
         vocab_size=args.vocab, d_model=args.d_model, num_layers=args.layers,
-        max_len=args.seq_len, attention=make_flash_attention(causal=True), remat=args.remat,
+        max_len=args.seq_len, attention=attention, remat=args.remat,
     )
     state = create_lm_state(g, init_lm_params(model, seed=0), args.lr)
-    step = make_lm_train_step(g)
-    if args.batch_size % g.size:
-        # the batch splits over the group (plain DP): round it up
+    step = make_lm_train_step(g, sequence_parallel=not args.flash)
+    if args.flash and args.batch_size % g.size:
+        # flash mode splits the batch over the group (plain DP): round it up
         args.batch_size = (args.batch_size // g.size + 1) * g.size
-        say(f"batch rounded up to {args.batch_size} (divisible by {g.size} ranks)")
-    rows = args.batch_size // g.size
-    mine = slice(g.local_rank * rows, (g.local_rank + 1) * rows)
+        say(f"flash mode: batch rounded up to {args.batch_size} (divisible by {g.size} ranks)")
+    place = lm_chunk_sharding(g, sequence_parallel=not args.flash)
     rng = np.random.default_rng(0)
 
     t0 = time.time()
     for i in range(args.steps):
-        tokens = torch.from_numpy(corpus.batch(rng, args.batch_size, args.seq_len)[mine]).to(g.device)
+        tokens = place(torch.from_numpy(corpus.batch(rng, args.batch_size, args.seq_len)))
         state, m = step(state, tokens)
         if i % 10 == 0 or i == args.steps - 1:
             say(f"step {i:4d}  next-token loss {float(m['loss']):.4f}")

@@ -1,7 +1,8 @@
 """Flash attention: hand-written CUDA kernels, forward, dQ and dK/dV.
 
-Counterpart of ``multidisttorch_tpu/ops/pallas_attention.py`` (the
-single-device half; ring-flash is ROADMAP A.15b). The three kernels in
+Counterpart of ``multidisttorch_tpu/ops/pallas_attention.py``, the
+single-device half and ring-flash (the sequence over a group, the kernels
+inside every hop, :func:`make_ring_flash_attention`). The three kernels in
 ``ops/csrc/flash_attention.cu`` replace its Pallas TPU kernels:
 
 - ``flash_fwd`` replaces ``_fwd_kernel`` (``pallas_call`` at
@@ -358,3 +359,100 @@ def make_flash_attention(*, causal: bool = True):
     attn.head_sharded = False
     attn.carries_collectives = False
     return attn
+
+
+# ---------------------------------------------------------------------
+# ring-flash: the sequence over a group's ranks, the flash kernels per hop
+# ---------------------------------------------------------------------
+
+RING_HOP_MODES = ("full", "diag", "skip")
+
+
+def ring_hop_mode(my: int, src: int, causal: bool) -> str:
+    """Which attention a ring-flash hop computes when rank ``my`` holds rank
+    ``src``'s K/V block: ``"full"`` (a block left of the diagonal, or any
+    block without the causal mask), ``"diag"`` (the rank's own block, locally
+    causal: equal offsets make the local mask exact) or ``"skip"`` (a block
+    right of the diagonal, which no query sees)."""
+    if not causal or src < my:
+        return "full"
+    return "diag" if src == my else "skip"
+
+
+def ring_flash_hop(qf, kf, vf, m, l, acc, mode: str, scale: float):
+    """One ring-flash hop over the flat ``(BH, Tq, D)`` layout: the block
+    pair through :func:`flash_flat_lse` (the flash kernels on a card; none
+    for ``"skip"``, whose hop is zeros with the ``-1e30`` lse sentinel),
+    then the online-softmax update of the f32 carry ``m``, ``l`` ``(BH,
+    Tq)`` and ``acc`` ``(BH, Tq, D)``, as the JAX package combines hops
+    (``pallas_attention.py:529-533``). Returns the new ``(m, l, acc)``.
+    Differentiable through ``o`` and ``lse``: the hop weights carry the
+    lse cotangent into the backward kernels' ``delta``."""
+    if mode == "skip":
+        o_h = torch.zeros_like(qf)
+        lse_h = torch.full(qf.shape[:2], _NEG_INF, dtype=torch.float32, device=qf.device)
+    elif mode in ("full", "diag"):
+        o_h, lse_h = flash_flat_lse(qf, kf, vf, scale, mode == "diag")
+    else:
+        raise ValueError(f"ring hop mode {mode!r} is not one of {RING_HOP_MODES}")
+    m_new = torch.maximum(m, lse_h)
+    c = torch.exp(m - m_new)
+    w = torch.exp(lse_h - m_new)
+    return m_new, l * c + w, acc * c[..., None] + w[..., None] * o_h.float()
+
+
+def ring_flash_init(qf):
+    """The ring-flash carry before the first hop: ``m`` at the sentinel,
+    ``l`` and ``acc`` zero, f32."""
+    bh, t, d = qf.shape
+    m = torch.full((bh, t), _NEG_INF, dtype=torch.float32, device=qf.device)
+    return m, torch.zeros_like(m), torch.zeros(bh, t, d, dtype=torch.float32, device=qf.device)
+
+
+def ring_flash_finish(l, acc, dtype) -> torch.Tensor:
+    """The combined hops' output, ``acc / l`` where ``l > 0`` (else ``acc``),
+    in ``dtype``."""
+    return (acc / torch.where(l > 0, l, torch.ones_like(l))[..., None]).to(dtype)
+
+
+def _ring_flash_local(q, k, v, *, group, causal: bool, scale: float) -> torch.Tensor:
+    """This rank's ring-flash: its ``(B, T/k, H, D)`` chunks in, its chunk
+    of the attention out. K/V rotate as in ``ops/ring_attention.py``; each
+    hop is :func:`ring_flash_hop`."""
+    from multidisttorch_tpu_torch.ops.ring_attention import ring_blocks
+
+    b, t_loc, h, d = q.shape
+    my = group.local_rank
+
+    def flat(x):
+        return x.transpose(1, 2).reshape(b * h, t_loc, d).contiguous()
+
+    qf = flat(q)
+    m, l, acc = ring_flash_init(qf)
+    for step, (kf, vf) in enumerate(ring_blocks(group, flat(k), flat(v))):
+        mode = ring_hop_mode(my, (my - step) % group.size, causal)
+        m, l, acc = ring_flash_hop(qf, kf, vf, m, l, acc, mode, scale)
+    out = ring_flash_finish(l, acc, q.dtype)
+    return out.reshape(b, h, t_loc, d).transpose(1, 2)
+
+
+def make_ring_flash_attention(group, *, causal: bool = False, shard_heads="auto"):
+    """Sequence-parallel exact attention with flash-kernel hops.
+
+    The contract of :func:`ops.ring_attention.make_ring_attention` (each
+    rank passes its ``(batch, seq/k, heads, head_dim)`` chunk), with every
+    hop's block pair computed by the flash kernels on a card and by their
+    plain versions on the CPU, and the hops combined through their
+    logsumexps. The callable's ``whole_sequence`` is the flash attention
+    over a whole sequence."""
+    from multidisttorch_tpu_torch.ops.ring_attention import _resolve_head_axis, _wrap_head_check
+
+    _resolve_head_axis(shard_heads)
+
+    def inner(q, k, v):
+        return _ring_flash_local(q, k, v, group=group, causal=causal, scale=1.0 / (q.shape[-1] ** 0.5))
+
+    def whole(q, k, v):
+        return flash_attention(q, k, v, causal=causal)
+
+    return _wrap_head_check(inner, group, whole)

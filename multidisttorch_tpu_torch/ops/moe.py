@@ -11,15 +11,27 @@ the JAX package computes them (outside any Pallas kernel). The Switch
 auxiliary loss comes back beside the output.
 
 **On a group of several ranks** the JAX package routes the group's whole
-batch as one (GSPMD over the batch sharding), while each rank here holds
-its own contiguous share. :meth:`MoEMLP.bind_group` (called through
+batch as one (GSPMD over the batch or sequence sharding), while each rank
+here holds its own share. :meth:`MoEMLP.bind_group` (called through
 the model's ``bind_group`` by ``train/steps.py::create_train_state`` on
-such a group) makes the router
-match it: each rank offsets its queue positions by the lower ranks'
-per-expert counts (one ``all_gather`` of E numbers per call) and sizes
-the capacity from the group's batch. Every rank of the group must then
-call the module together, as every step does. The auxiliary loss stays
-this rank's (no step uses it).
+such a group, or by the MoE LM under a ring attention) makes the router
+match it, with one ``all_gather`` per call, and sizes the capacity from
+the group's tokens:
+
+- rows split over the ranks (data parallelism): each rank holds a
+  contiguous block of rows and offsets its queue positions by the lower
+  ranks' per-expert counts;
+- the sequence split over the ranks (``seq_rows``, the LM under sequence
+  parallelism): the JAX package flattens ``(B, T)`` b-major over the
+  *global* sequence, so an expert's queue interleaves the ranks row by
+  row. Each rank offsets a token in row ``b`` by every rank's counts in
+  rows before ``b`` and the lower ranks' counts in row ``b``.
+
+The auxiliary loss is then the group's, its per-expert fractions and mean
+gate probabilities over every rank's tokens; its gradient flows through
+this rank's gates only, so the group's summed gradients are the gradient
+of the group's loss. Every rank of the group must call the module
+together, as every step does.
 
 :class:`StackedMoEMLP` is K MoE MLPs of one shape on a leading lane axis
 (the stacked MoE VAE, ``models/moe_vae.py``), as the JAX package's ``vmap``
@@ -72,7 +84,10 @@ class MoEMLP(nn.Module):
         """Tokens each expert serves when this rank holds ``rows`` rows."""
         return max(1, math.ceil(rows * self._group_size * self.capacity_factor / self.num_experts))
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, seq_rows: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(y, aux)`` for ``x`` ``(N, in)``. ``seq_rows``: ``x`` is ``seq_rows``
+        sequences' positions flattened b-major, the sequence split over a
+        bound group (module docstring); None, the rows split."""
         b = x.shape[0]
         e, dt = self.num_experts, self.dtype
         cap = self.capacity(b)
@@ -81,14 +96,13 @@ class MoEMLP(nn.Module):
         experts = torch.arange(e, device=x.device)
         onehot = (torch.argmax(gates, dim=-1).unsqueeze(-1) == experts).to(torch.float32)
         top_gate = (gates * onehot).sum(-1)
+        frac, prob = onehot.mean(0), gates.mean(0)
         # Queue position of each token in its expert (1-based), after the
-        # lower ranks' tokens on a bound group.
-        pos = torch.cumsum(onehot, dim=0)
-        if self._pg is not None:
-            counts = onehot.sum(0)
-            parts = [torch.empty_like(counts) for _ in range(self._group_size)]
-            dist.all_gather(parts, counts, group=self._pg)
-            pos = pos + sum(parts[: self._group_rank], torch.zeros_like(counts))
+        # group's tokens that come before it on a bound group.
+        if self._pg is None:
+            pos = torch.cumsum(onehot, dim=0)
+        else:
+            pos, frac, prob = self._group_route(onehot, gates, seq_rows)
         pos = pos * onehot
         within = (pos > 0) & (pos <= cap)
         # one_hot(pos - 1, cap), zero where pos - 1 is out of [0, cap).
@@ -102,8 +116,28 @@ class MoEMLP(nn.Module):
         combine = disp * top_gate[:, None, None]
         y = torch.einsum("bec,eco->bo", combine.to(dt), out_e)
 
-        aux = e * torch.sum(onehot.mean(0) * gates.mean(0))
+        aux = e * torch.sum(frac * prob)
         return y, aux.to(torch.float32)
+
+    def _group_route(self, onehot, gates, seq_rows):
+        """Queue positions, expert fractions and mean gate probabilities
+        over the bound group, from one ``all_gather`` of this rank's counts
+        (per row of the sequence under ``seq_rows``) and gate sums."""
+        k, r = self._group_size, self._group_rank
+        rows = 1 if seq_rows is None else seq_rows
+        oh = onehot.reshape(rows, -1, onehot.shape[-1])
+        own_gates = gates.sum(0)
+        stats = torch.cat([oh.sum(1), own_gates.detach()[None]])  # (rows + 1, E)
+        parts = [torch.empty_like(stats) for _ in range(k)]
+        dist.all_gather(parts, stats, group=self._pg)
+        counts = torch.stack(parts)[:, :rows]  # (k, rows, E)
+        # every rank's tokens in earlier rows, then the lower ranks' in this row
+        earlier = torch.cumsum(counts.sum(0), dim=0) - counts.sum(0)
+        before = earlier + counts[:r].sum(0)
+        pos = (torch.cumsum(oh, dim=1) + before[:, None, :]).reshape(onehot.shape)
+        n = onehot.shape[0] * k
+        gate_sum = own_gates + (sum(p[-1] for p in parts) - own_gates.detach())
+        return pos, counts.sum((0, 1)) / n, gate_sum / n
 
 
 class StackedMoEMLP(nn.Module):

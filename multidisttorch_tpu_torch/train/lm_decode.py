@@ -13,7 +13,11 @@ The per-position math re-implements ``models.transformer.Block``'s forward
 (the JAX package's does the same, with its own two-pass LayerNorm); the
 parity tests pin it to the model and to the JAX decoder. Scope: dense-block
 float32 TransformerLM; bf16 and MoE models are refused, as in the JAX
-package.
+package. A model quantized by ``train/lm_quant.py`` (int8 weight-only)
+decodes through the same code: :func:`_dense` takes both layer forms. A
+ring attention's prefill runs its ``whole_sequence`` form (dense for the
+ring, flash for ring-flash): the decoder holds the whole sequence on each
+rank.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ def _layernorm(ln, x):
 
 
 def _dense(layer, x):
+    if hasattr(layer, "q"):  # int8 weight-only quantized layer (train/lm_quant.py)
+        return (x @ layer.q.float()) * layer.scale + layer.bias
     return x @ layer.kernel + layer.bias
 
 
@@ -78,7 +84,7 @@ def make_cached_lm_sample(
         raise ValueError(f"this process is not a member of {group!r}")
     num_heads, num_layers, max_len = model.num_heads, model.num_layers, model.max_len
     if model.attention is not None:
-        prefill_attn = model.attention
+        prefill_attn = getattr(model.attention, "whole_sequence", model.attention)
     else:
         def prefill_attn(q, k, v):
             return dense_attention_reference(q, k, v, causal=True)

@@ -267,7 +267,7 @@ PORT_MODULES = (
     "telemetry.ctlprof", "telemetry.slo", "telemetry.trace", "data.store", "service.queue", "service.scheduler",
     "service.defrag", "service.runtime", "service.drill", "examples.sweep_service", "examples.sweep_submit",
     "telemetry.incident", "service.incident_drill", "tools.sweep_top", "tools.ledger_view", "tools.sweep_trace",
-    "tools.ckpt_gc", "tools.incident", "ops.lanes",
+    "tools.ckpt_gc", "tools.incident", "ops.lanes", "ops.ring_attention", "train.lm_quant", "examples.lm_hpo",
 )
 
 

@@ -307,11 +307,37 @@ def test_train_step_matches_multi_step_and_eval_matches_the_objective():
     assert float(ev["perplexity"]) == pytest.approx(float(jev["perplexity"]), rel=1e-5)
 
 
-def test_sequence_parallel_is_not_ported_yet():
+@pytest.mark.parametrize("ring", ["ring", "ring_flash"])
+def test_sequence_parallel_steps_match_jax(ring):
+    # sequence_parallel=True on a one-rank group, the model's attention a
+    # ring of one, against the JAX package's sequence-parallel steps on one
+    # device with its own ring: the multi-step's losses and the eval.
+    from multidisttorch_tpu.ops.pallas_attention import make_ring_flash_attention as jax_ring_flash
+    from multidisttorch_tpu.ops.ring_attention import make_ring_attention as jax_ring
+    from multidisttorch_tpu_torch.ops.attention import make_ring_flash_attention
+    from multidisttorch_tpu_torch.ops.ring_attention import make_ring_attention
+
+    k_steps, lr = 3, 3e-3
+    params = _flax_params(6)
+    chunks = np.stack([_tokens(seed=30 + i) for i in range(k_steps)])
     group = setup_groups(1, devices=["cpu"])[0]
-    for factory in (make_lm_train_step, make_lm_multi_step, make_lm_eval_step):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.15a"):
-            factory(group, sequence_parallel=True)
+    make = make_ring_attention if ring == "ring" else make_ring_flash_attention
+    model = TransformerLM(vocab_size=VOCAB, d_model=D, num_heads=HEADS, num_layers=LAYERS, max_len=T,
+                          attention=make(group, causal=True))
+    model.load_state_dict(lm_params_from_flax(jax.device_get(params)))
+    state = create_lm_state(group, model, lr)
+    state, m = make_lm_multi_step(group, sequence_parallel=True)(state, torch.from_numpy(chunks))
+    ev = make_lm_eval_step(group, sequence_parallel=True)(state, torch.from_numpy(chunks[0]))
+
+    jtrial = jax_setup_groups(1, devices=jax.devices()[:1])[0]
+    jmake = jax_ring if ring == "ring" else jax_ring_flash
+    jmodel = JaxLM(vocab_size=VOCAB, d_model=D, num_heads=HEADS, num_layers=LAYERS, max_len=T,
+                   attention=jmake(jtrial, causal=True))
+    jstate, tx = _jax_state(jmodel, params, lr)
+    jstate, jm = jax_lm.make_lm_multi_step(jtrial, jmodel, tx, sequence_parallel=True)(jstate, jnp.asarray(chunks))
+    jev = jax_lm.make_lm_eval_step(jtrial, jmodel, sequence_parallel=True)(jstate, jnp.asarray(chunks[0]))
+    np.testing.assert_allclose(m["loss"].numpy(), np.asarray(jm["loss"]), rtol=1e-4)
+    assert float(ev["loss"]) == pytest.approx(float(jev["loss"]), rel=1e-4)
 
 
 def test_loss_masks_the_last_position_like_jax():
@@ -443,9 +469,13 @@ def test_example_cli_flash_runs_on_cpu(capsys):
     assert loss < np.log(32) and 0.0 <= match <= 1.0
 
 
-@pytest.mark.parametrize("argv, item", [([], "A.15a"), (["--ring-flash"], "A.15b")])
-def test_example_cli_ring_modes_are_not_ported_yet(argv, item):
+@pytest.mark.parametrize("argv, says", [([], "ring of 1 ranks"), (["--ring-flash"], "ring-flash over 1 ranks")])
+def test_example_cli_ring_modes_run_on_cpu(capsys, argv, says):
     from multidisttorch_tpu_torch.examples import lm_long_context
 
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        lm_long_context.main(argv + ["--device", "cpu"])
+    loss, match = lm_long_context.main(
+        argv + ["--device", "cpu", "--seq-len", "64", "--steps", "30", "--batch-size", "4"]
+    )
+    out = capsys.readouterr().out
+    assert says in out and "step   29" in out and "greedy decode matches" in out
+    assert loss < np.log(32) and 0.0 <= match <= 1.0
