@@ -180,7 +180,7 @@ Phases, in order; any failure exits non-zero and prints no result:
     the scan quarantines a truncated ELBO library, the canary passes on the
     real libraries; (f) the cold-start bench's cold, precompiled and
     cache-warm children with its gates (the cold and precompiled children
-    started together);
+    started together, at the phase's start: they run beside (a)-(e));
 17. device books, the anomaly monitor and profiling (run before 13, the
     registry on): (a) 16a's six replicas with telemetry off and on, bits
     identical; each trial's FLOPs a step equal to the same step counted on
@@ -311,8 +311,24 @@ Phases, in order; any failure exits non-zero and prints no result:
     two full-width best-effort trials, completes before its deadline, the
     victims resume and complete within the budget, one launch per ledger
     step; (c) the incident drill's ``daemon_lost`` and ``fence_raced`` in
-    this process: one incident each, of its kind. Every gate is printed
-    before any fails;
+    this process: one incident each, of its kind; (d), started beside (a),
+    ``run_split_chaos`` with two replica children: a ``shard_split_lost``
+    plan SIGKILLs the splitting replica between two handoff records, the
+    survivor adopts and closes the split; gates: the kill exercised, zero
+    lost, none double-owned, the split begun and its seam closed, at least
+    one split move, every trial bitwise to an undisturbed reference over
+    every live shard, each replica's longest turn under the lease deadline,
+    and the survivor's launches equal to its ledgers' steps over every shard
+    it served (its counted steps added); (e) ``run_steal_phase`` in this
+    process: a grant from a backlogged shard's tail to an idle one, the
+    stolen trial settled under its origin tenant and bitwise, its farm
+    program released; (f) ``run_movable_phase``'s stacked arm: a bucket of
+    2 lanes checkpoint-drained, its lanes resumed as single trials and
+    finished, held to an undisturbed run by the parity rule (bitwise where
+    the kernel routes match, within rel 1e-3 across the lane and single
+    kernels). The replica children of (a) and (d) run the CLI's turn
+    budget; each drill prints its replicas' longest turns by part. Every
+    gate is printed before any fails;
 13. a ``kernels`` JSON line, then the result line.
 
 Exits 1 without a result when CUDA is unavailable or the port is not
@@ -333,6 +349,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -353,6 +370,33 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def _in_thread(name: str, fn, *args, **kw) -> tuple:
+    """``fn(*args, **kw)`` started on a thread of its own (a drill or a
+    bench whose children run beside this process's work). Returns (thread,
+    box): the report (or the error) and the wall seconds land in the box."""
+    box: dict = {}
+
+    def run() -> None:
+        t0 = time.time()
+        try:
+            box["report"] = fn(*args, **kw)
+        except BaseException as e:  # noqa: BLE001 — re-raised on the main thread
+            box["error"] = e
+        box["wall_s"] = time.time() - t0
+
+    t = threading.Thread(target=run, name=name)
+    t.start()
+    return t, box
+
+
+def _joined(thread, box: dict, what: str, timeout_s: float = 420.0) -> dict:
+    thread.join(timeout=timeout_s)
+    check(not thread.is_alive(), f"{what}: ran past {timeout_s} s")
+    if "error" in box:
+        raise box["error"]
+    return box["report"]
 
 
 def time_ms(fn, iters: int = 200) -> float:
@@ -3001,7 +3045,7 @@ def _resnet_macs(model) -> int:
 # chunks of 4 steps, so the standard plan's faults land inside a chunk.
 CHAOS = dict(trials=6, epochs=4, data_rows=1024, batch_size=128, hidden_dim=400, latent_dim=20, fused_steps=4)
 MEMORY_MARGIN = 8 << 20  # bytes memory_allocated may grow across the drill's retries
-TELEMETRY_ROUNDS = ("off", "on", "on", "off", "off", "on")
+TELEMETRY_ROUNDS = ("off", "on", "on", "off")  # medians of 2
 CONV_RESUME_CRASH = 390 + 195  # the ConvVAE's mid-epoch-2 step (390 steps an epoch)
 
 
@@ -3708,17 +3752,25 @@ def eviction_and_cache(smi: str, tmp: str) -> None:
           f"against the plain versions {errs})")
 
 
-def coldstart_phase(smi: str, tmp: str) -> None:
-    """16f: the cold-start bench's three children (cold, farm, cache-warm)
-    with its gates, at its fixed sweep cut to 1 epoch (admission is over
-    in the first; the other 7 add wall time only), the cold and farm
-    children started together (``overlap``: about 40 s of the script's
-    time budget; their admission latencies include each other's load)."""
+def coldstart_start(tmp: str) -> tuple:
+    """16f, started on a thread of its own (:func:`_in_thread`): the
+    cold-start bench's three children (cold, farm, cache-warm) at its fixed
+    sweep cut to 1 epoch (admission is over in the first; the other 7 add
+    wall time only), the cold and farm children started together
+    (``overlap``: about 40 s of the script's time budget; their admission
+    latencies include each other's load). They run beside 16a-16e in this
+    process (about 45 s more), so their latencies include that load too;
+    :func:`coldstart_phase` holds them to the bench's gates."""
     from multidisttorch_tpu_torch.compile import coldstart
 
-    t0 = time.time()
-    rec = coldstart.run_coldstart_bench(os.path.join(tmp, "16f"), device="cuda", epochs=1, timeout_s=300,
-                                        overlap=True)
+    return _in_thread("16f", coldstart.run_coldstart_bench, os.path.join(tmp, "16f"), device="cuda", epochs=1,
+                      timeout_s=300, overlap=True)
+
+
+def coldstart_phase(smi: str, thread, box: dict) -> None:
+    from multidisttorch_tpu_torch.compile import coldstart
+
+    rec = _joined(thread, box, "16f", timeout_s=900)
     for mode in coldstart.MODES:
         r = rec["modes"][mode]
         check(r.get("ok"), f"16f {mode}: {r.get('error')} {r.get('stderr_tail', '')}")
@@ -3739,7 +3791,7 @@ def coldstart_phase(smi: str, tmp: str) -> None:
           "together): " + "; ".join(parts)
           + f"; speedup cold/precompiled {rec['speedup_cold_over_precompiled']:.2f}, cold/cache-warm "
           f"{rec['speedup_cold_over_cache_warm']:.2f}; losses bit-identical; admission_blocked_on_compile 0; "
-          f"{time.time() - t0:.1f} s ({smi})")
+          f"{box['wall_s']:.1f} s beside 16a-16e ({smi})")
     print("COLDSTART_JSON " + json.dumps({k: v for k, v in rec.items() if k != "modes"}, default=str))
 
 
@@ -3748,12 +3800,16 @@ def compile_phase(E, smi: str, train, test) -> dict:
     os.environ.pop("MDT_AOT_ADMISSION", None)
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
-        parity = registry_parity(E, smi, train, test, tmp)
-        retry = registry_retry(E, smi, train, test, tmp)
-        farm = farm_under_load(E, smi, train, test, tmp)
-        slots = stacked_and_pbt_slots(E, smi, train, test, tmp)
-        eviction_and_cache(smi, tmp)
-        coldstart_phase(smi, tmp)
+        cold = coldstart_start(tmp)  # 16f's children, beside 16a-16e
+        try:
+            parity = registry_parity(E, smi, train, test, tmp)
+            retry = registry_retry(E, smi, train, test, tmp)
+            farm = farm_under_load(E, smi, train, test, tmp)
+            slots = stacked_and_pbt_slots(E, smi, train, test, tmp)
+            eviction_and_cache(smi, tmp)
+        finally:
+            cold[0].join(timeout=900)
+        coldstart_phase(smi, *cold)
     print(f"phase 16: {time.time() - t0:.1f} s")
     return {"parity": parity, "retry": retry, "farm": farm, "slots": slots}
 
@@ -4271,9 +4327,10 @@ def elastic_drill(E, smi: str, tmp: str) -> dict:
     kinds = ("sweep_start", "attempt_start", "optimizer_state", "ckpt_scan_restore", "first_dispatch", "epoch")
     print("18a world 1 first events after its launch (s): " + "; ".join(
         f"host {h}: " + ", ".join(f"{k} {v[k]}" for k in kinds if k in v) for h, v in sorted(firsts.items())))
-    # 20c's fleet view, before the run directory goes.
-    fleet_console(os.path.join(tmp, "mh_chaos"), rep)
-    return {"elastic_drill": {k: wl[k] for k in ("elbo_fwd", "elbo_bwd")}, "elastic_reference": rl}
+    # 20c's fleet view, started before the run directory goes, checked at
+    # the phase's end.
+    return {"elastic_drill": {k: wl[k] for k in ("elbo_fwd", "elbo_bwd")}, "elastic_reference": rl,
+            "console": (fleet_console(os.path.join(tmp, "mh_chaos")), rep)}
 
 
 def drain_phase(smi: str, tmp: str) -> dict:
@@ -4397,9 +4454,11 @@ def elastic_phase(E, smi: str) -> dict:
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         drill = elastic_drill(E, smi, os.path.join(tmp, "18a"))
+        console = drill.pop("console")  # its child reads beside 18b and 18c
         wedge = watchdog_start(tmp)  # its two children start beside 18b's
         drain = drain_phase(smi, tmp)
         watchdog_finish(wedge, smi)
+        fleet_console_check(*console)
     print(f"phase 18: {time.time() - t0:.1f} s")
     return {**drill, "drain": drain}
 
@@ -4734,8 +4793,9 @@ def service_drill(E, smi: str, train, tmp: str) -> dict:
     check(all(boot["device"] == ["cuda:0"] for boot in kr["daemon_boots"]) and len(kr["daemon_boots"]) == 2,
           f"19c: daemons' devices {kr['daemon_boots']}")
     check(bench["ok"], f"19c: gates {bench['gates']}")
-    # 20c's service consoles, before the service directory goes.
-    service_consoles(os.path.join(work, "service"), kr)
+    # 20c's service consoles, started before the service directory goes;
+    # they read while 19b's defrag checks run.
+    consoles = service_consoles(os.path.join(work, "service"))
     check(len(kr["daemon_launches"]) == 1, f"19c: the restarted daemon's LAUNCHES line {kr['daemon_launches']}")
     drill_launches = {k: v for k, v in kr["daemon_launches"][0].items() if k in E.LAUNCHES}
     # The restarted daemon trains what the kill left: always stacked
@@ -4767,6 +4827,7 @@ def service_drill(E, smi: str, train, tmp: str) -> dict:
           f"{ckb['drain_snapshot'].get('mean_s', 0) * 1e3:.3f} ms vs drain persist "
           f"{ckb['drain_persist'].get('mean_s', 0) * 1e3:.3f} ms (means over {ckb['drain_snapshot']['count']}), "
           f"restores from RAM {ckb['restores_ram']} of {ckb['restores']} ({smi})")
+    service_consoles_check(consoles, kr)
     return {"drill": drill_launches, "defrag": defrag_launches}
 
 
@@ -4813,11 +4874,21 @@ def _consoles(what: str, runs: list, timeout_s: float = 180.0) -> list:
     multidisttorch_tpu_torch.tools.<name> *args``, all started together and
     with no card visible (the consoles read files only): their stdouts, in
     order. Fails unless every one exits 0."""
-    t0 = time.time()
+    return _consoles_wait(_consoles_start(what, runs), timeout_s)
+
+
+def _consoles_start(what: str, runs: list) -> tuple:
+    """:func:`_consoles`' children, started; :func:`_consoles_wait` collects
+    them, so the caller's own work can run while they read."""
     env = _child_env(CUDA_VISIBLE_DEVICES="")
     procs = [(name, args, subprocess.Popen([sys.executable, "-m", f"multidisttorch_tpu_torch.tools.{name}", *args],
                                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
              for name, args in runs]
+    return what, time.time(), procs
+
+
+def _consoles_wait(started: tuple, timeout_s: float = 180.0) -> list:
+    what, t0, procs = started
     outs = []
     try:
         for name, args, proc in procs:
@@ -4830,14 +4901,19 @@ def _consoles(what: str, runs: list, timeout_s: float = 180.0) -> list:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait(timeout=30)
-    CONSOLES.append((what, len(runs), round(time.time() - t0, 3)))
+    CONSOLES.append((what, len(procs), round(time.time() - t0, 3)))
     return outs
 
 
-def fleet_console(run_dir: str, rep: dict) -> None:
-    """20c over phase 18's run directory: ``sweep_top --fleet --json``
-    against the drill's own report (its hosts, worlds and trials)."""
-    (out,) = _consoles("18a", [("sweep_top", [run_dir, "--fleet", "--json"])])
+def fleet_console(run_dir: str) -> tuple:
+    """20c over phase 18's run directory: ``sweep_top --fleet --json``,
+    started (18b and 18c run while it reads); :func:`fleet_console_check`
+    holds it to the drill's own report (its hosts, worlds and trials)."""
+    return _consoles_start("18a", [("sweep_top", [run_dir, "--fleet", "--json"])])
+
+
+def fleet_console_check(started: tuple, rep: dict) -> None:
+    (out,) = _consoles_wait(started)
     snap = json.loads(out)
     hosts = sorted(int(h) for h in snap["hosts"])
     check(hosts == list(range(ELASTIC["hosts"])) and len(snap["worlds"]) == rep["worlds_formed"]
@@ -4854,16 +4930,21 @@ def fleet_console(run_dir: str, rep: dict) -> None:
           f"s; the fold's statuses {statuses} (the ledger's {rep['statuses']})")
 
 
-def service_consoles(service_dir: str, kr: dict) -> None:
+def service_consoles(service_dir: str) -> tuple:
     """20c over phase 19's kill -9 service directory: ``sweep_top --service
-    --json``, ``ledger_view --queue --json`` and ``sweep_trace --json``
-    against the drill's own report (every submission settled, with its
-    status)."""
-    top, queue, trace = _consoles("19c", [
+    --json``, ``ledger_view --queue --json`` and ``sweep_trace --json``,
+    started (19b's defrag checks run while they read);
+    :func:`service_consoles_check` holds them to the drill's own report
+    (every submission settled, with its status)."""
+    return _consoles_start("19c", [
         ("sweep_top", [service_dir, "--service", "--json"]),
         ("ledger_view", [service_dir, "--queue", "--json"]),
         ("sweep_trace", [service_dir, "--json"]),
     ])
+
+
+def service_consoles_check(started: tuple, kr: dict) -> None:
+    top, queue, trace = _consoles_wait(started)
     top, queue, trace = json.loads(top), json.loads(queue)["by_submission"], json.loads(trace)
     want = kr["statuses"]
     for what, folded in (("sweep_top --service", top["queue"]), ("ledger_view --queue", queue)):
@@ -5590,9 +5671,9 @@ def int8_decode_phase(A, group, smi: str, weights: dict) -> None:
 
 
 # --- phase 23: the service fabric on the card (lease-fenced shards, failover
-# by adoption) ------------------------------------------------------------------
+# by adoption, splits and steals) -----------------------------------------------
 
-# 23a's gates, printed all before any fails: name -> (held, values).
+# A part's gates, printed all before any fails: name -> (held, values).
 def _gates(what: str, gates: dict) -> None:
     for name, (held, values) in gates.items():
         print(f"{what} gate {name}: {'held' if held else 'FAILED'}: {values}", flush=True)
@@ -5600,7 +5681,7 @@ def _gates(what: str, gates: dict) -> None:
         check(held, f"{what} gate {name} failed: {values}")
 
 
-def fabric_failover(E, smi: str, tmp: str) -> dict:
+def fabric_failover(E, smi: str, thread, box: dict) -> dict:
     """23a: ``service.fabric_drill.run_failover_phase`` on the card: two
     replica children (``examples/sweep_service.py --fabric --device cuda``,
     two slots each on ``cuda:0``) over a 2-shard fabric, 6 full-width trials
@@ -5609,11 +5690,8 @@ def fabric_failover(E, smi: str, tmp: str) -> dict:
     replica 0 adopts. Each replica's longest turn beside its lease deadline,
     the detect-to-adopt and replay seconds, and the survivor's ELBO launches
     against the steps its ledgers record."""
-    from multidisttorch_tpu_torch.service.fabric_drill import run_failover_phase
-
-    t0 = time.time()
-    rep = run_failover_phase(os.path.join(tmp, "23a"), device="cuda", timeout_s=300.0)
-    wall = time.time() - t0
+    rep = _joined(thread, box, "23a")
+    wall = box["wall_s"]
     par, tr = rep["parity"], rep["trace"]
     claims = rep["shard1_lease_claims"]
     launches = rep["survivor_launches"] or {}
@@ -5629,6 +5707,7 @@ def fabric_failover(E, smi: str, tmp: str) -> dict:
         print(f"23a: replica {boot.get('replica')} BOOT {json.dumps(boot)}")
     print(f"23a: lease deadline {rep['lease_deadline_s']} s; longest turn by replica {rep['longest_turn_s']} s; "
           f"longest gap between a replica's lease records {rep['lease_gap_s']} s; survivor {rep['survivor']}")
+    print(f"23a: the longest turn's (index, seconds by part) by replica {rep['longest_turn_parts']}")
     print(f"23a: detect-to-adopt {rep['detect_to_adopt_s']} s (SIGKILL to replica 0's shard_adopted), replay "
           f"{rep['replay_s']} s (shard_adopted), shard 1 claims (epoch, replica) {claims}, events "
           f"{rep['shard_events']}")
@@ -5716,24 +5795,175 @@ def fabric_incidents(smi: str, tmp: str) -> None:
                                                                         sc["bundle_ok"], sc["error"]))})
 
 
+def fabric_split(E, smi: str, thread, box: dict) -> dict:
+    """23d: ``service.fabric_drill.run_split_chaos`` on the card, the JAX
+    drill's shape: two replica children on ``cuda:0`` (one lane per
+    placement), 6 give-half and 2 keep-half tenants on the victim's shard
+    and 2 on the survivor's, 2 epochs of 50 full-width steps; the victim
+    splits at queue depth 4 and a ``shard_split_lost`` plan SIGKILLs it at
+    its third handoff record; the survivor may steal at depth 6. The JAX
+    gates, each trial bitwise to its undisturbed reference over every live
+    shard, each replica's longest turn under the lease deadline, and the
+    survivor's ELBO launches equal to the steps its ledgers record over
+    every shard it served plus its counted steps."""
+    rep = _joined(thread, box, "23d")
+    par, topo = rep["parity"], rep["topology"]
+    launches = rep["survivor_launches"] or {}
+    counted = launches.get("counted_steps") or {}
+    steps = rep["survivor_steps"]
+    want = {"elbo_fwd": steps["single"] + counted.get("single", 0),
+            "elbo_fwd_lanes": steps["bucket"] + counted.get("bucket", 0)}
+    got = {k: launches.get(k) for k in E.LAUNCHES}
+    turns = rep["longest_turn_s"]
+    events = [(e.get("event"), e.get("parent"), e.get("child"), e.get("epoch")) for e in topo["events"]]
+    print(f"23d: {rep['submissions']} submissions, victim exit {rep['victim_exit']}, survivor exit "
+          f"{rep['survivor_exit']}, {rep['completed']} completed, fired {rep['fired_records']}; wall "
+          f"{rep['wall_s']} s of children, {box['wall_s']:.1f} s with the reference ({smi})")
+    for boot in rep["boots"]:
+        print(f"23d: replica {boot.get('replica')} BOOT {json.dumps(boot)}")
+    print(f"23d: topology events (event, parent, child, epoch) {events}, live shards {topo['live_shards']}; "
+          f"split moved records {rep['moved_split_records']}; events {rep['event_counts']}")
+    print(f"23d: detect-to-adopt {rep['detect_to_adopt_s']} s (the fired record to the survivor's shard_adopted); "
+          f"lease deadline {rep['lease_deadline_s']} s; longest turn by replica {turns} s; longest gap between a "
+          f"replica's lease records {rep['lease_gap_s']} s")
+    print(f"23d: the longest turn's (index, seconds by part) by replica {rep['longest_turn_parts']}")
+    print(f"23d: parity {par['compared']} trials, {par['held_bitwise']} held bitwise; mismatched {par['mismatched']}")
+    print(f"23d: survivor report {rep['survivor']}; LAUNCHES {launches}; its ledgers over every shard it served: "
+          f"{steps['single']} unstacked steps and {steps['bucket']} bucket steps, counted steps {counted}; "
+          f"its registry and device memory at exit {launches.get('registry')}, "
+          f"{launches.get('device_allocated_bytes')} bytes allocated")
+    _gates("23d", {
+        "split_kill_exercised": (rep["split_kill_exercised"], (rep["victim_exit"], rep["fired_records"])),
+        "zero_lost": (rep["zero_lost"], rep["lost_submissions"]),
+        "no_double_own": (rep["no_double_own"], (rep["double_owned"], rep["unowned"])),
+        "split_begun": (topo["split_begun"], events),
+        "seam_closed": (topo["seam_closed"] and (topo["committed"] or topo["aborted"]), events),
+        "split_moved": (rep["moved_split_records"] >= 1, rep["moved_split_records"]),
+        "parity_bitwise": (par["ok"] and par["held_bitwise"] == par["compared"] == rep["submissions"],
+                           {k: par[k] for k in ("compared", "held_bitwise", "mismatched")}),
+        "turns_under_deadline": (len(turns) == 2 and all(t < rep["lease_deadline_s"] for t in turns.values()),
+                                 turns),
+        "replicas_on_the_card": (len(rep["boots"]) == 2 and all(b["device"] == ["cuda:0"] for b in rep["boots"]),
+                                 [b.get("device") for b in rep["boots"]]),
+        "survivor_launches_match_ledgers": (
+            got["elbo_fwd"] == got["elbo_bwd"] == want["elbo_fwd"]
+            and got["elbo_fwd_lanes"] == got["elbo_bwd_lanes"] == want["elbo_fwd_lanes"]
+            and want["elbo_fwd"] > 0, (got, want)),
+    })
+    return {k: launches.get(k, 0) for k in E.LAUNCHES}
+
+
+def fabric_steal(E, smi: str, tmp: str) -> dict:
+    """23e: ``service.fabric_drill.run_steal_phase`` in this process on the
+    card: two replicas ticked in turns, shard 0 (one slot) with 4 queued
+    full-width one-epoch trials, shard 1 idle; a grant from shard 0's tail,
+    the stolen trial settled on shard 1 under its origin tenant, every trial
+    bitwise to its undisturbed run, and the ELBO launches (counts set to 0
+    just before) equal to the steps both replicas' ledgers record. The farm
+    stays off here, so that every launch is a ledger step; the release of a
+    moved trial's farm program is held on the CPU
+    (``tests/test_torch_fabric_split.py``), and 23d prints what the
+    survivor's registry and the card hold at its end."""
+    from multidisttorch_tpu_torch.service.fabric_drill import run_steal_phase
+
+    _zero(E)
+    memo0 = _n_counted_steps()
+    t0 = time.time()
+    rep = run_steal_phase(os.path.join(tmp, "23e"), device="cuda", precompile=False)
+    wall = time.time() - t0
+    launches = rep["launches"]
+    steps = {k: sum(s[k] for s in rep["steps"].values()) for k in ("single", "bucket")}
+    counted = _n_counted_steps() - memo0
+    par = rep["parity"]
+    print(f"23e: grant {[(g['seq'], g['sub_ids'], g['thief_shard']) for g in rep['grants']]}, stolen "
+          f"{rep['stolen']} (queue tail at the grant {rep['queue_tail_at_grant']}), registry programs at the end "
+          f"{rep['registry_programs']}; parity {par['compared']} trials, {par['held_bitwise']} bitwise; launches "
+          f"{launches} for {steps} ledger steps (+{counted} counted); "
+          f"{rep['turns']} turns, longest {rep['longest_turn_s']} s; {wall:.1f} s ({smi})")
+    _gates("23e", {
+        "grant_from_tail": (rep["stolen_from_tail"], (rep["stolen"], rep["queue_tail_at_grant"])),
+        "settled_on_thief_under_origin_tenant": (rep["settled_on_thief_under_origin_tenant"], rep["stolen"]),
+        "moved_at_victim": (rep["moved_at_victim"], rep["stolen"]),
+        "parity_bitwise": (par["ok"] and par["held_bitwise"] == par["compared"] == len(rep["submissions"]),
+                           {k: par[k] for k in ("compared", "held_bitwise", "mismatched")}),
+        "launches_match_ledgers": (launches["elbo_fwd"] == launches["elbo_bwd"] == steps["single"] + counted > 0
+                                   and launches["elbo_fwd_lanes"] == launches["elbo_bwd_lanes"] == steps["bucket"],
+                                   (launches, steps, counted)),
+        "all_gates": (rep["ok"], rep["ok"]),
+    })
+    return launches
+
+
+def fabric_movable(E, smi: str, tmp: str) -> dict:
+    """23f: ``service.fabric_drill.run_movable_phase``'s stacked arm in this
+    process on the card: two same-shape full-width trials (4 epochs of 50
+    steps) share one bucket of 2 lanes on one slot, the bucket is
+    checkpoint-drained after an epoch, its lanes resume as single trials
+    from their lane checkpoints (the JAX service's rule) and finish; the
+    final losses are held to an undisturbed run's (all lanes) by the parity
+    rule, bitwise where the routes match and within rel 1e-3 across the
+    lane and single kernels, and whether the bits matched is printed. Both
+    runs take the lane kernels (counts set to 0 just before)."""
+    from multidisttorch_tpu_torch.service.fabric_drill import run_movable_phase
+
+    _zero(E)
+    t0 = time.time()
+    rep = run_movable_phase(os.path.join(tmp, "23f"), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(E.LAUNCHES)
+    st = rep["stacked"]
+    par = st["parity"]
+    print(f"23f: evicted {st['evicted']}, requeued {st['requeued']}, routes by trial {st['trial_routes']} "
+          f"(reference {st['reference_routes']}), losses {st['losses']}, reference {st['reference_losses']}; "
+          f"bit-identical {st['bit_identical']} (differing {st['mismatched']}); parity {par['held_bitwise']} "
+          f"bitwise and {par['held_within_rel']} within rel {par['rtol']}, mismatched {par['mismatched']}; "
+          f"pipelined arm {rep['pipelined']}; launches {launches}; {wall:.1f} s ({smi})")
+    _gates("23f", {
+        "evicted_and_requeued": (st["evicted"] and st["requeued"] == 2, (st["evicted"], st["requeued"])),
+        "held_to_reference": (st["held"], {k: par[k] for k in ("compared", "held_bitwise", "held_within_rel",
+                                                               "mismatched")}),
+        "lane_kernels": (launches["elbo_fwd_lanes"] == launches["elbo_bwd_lanes"] > 0
+                         and launches["elbo_fwd"] == launches["elbo_bwd"]
+                         and "lanes2" in st["routes"] and st["reference_routes"] == ["lanes2"],
+                         (launches, st["routes"], st["reference_routes"])),
+    })
+    return launches
+
+
 def fabric_phase(E, smi: str) -> dict:
     """Phase 23, the registry on (the service's default) and telemetry off
     in this process (23b turns it on for its evidence; the replica children
-    configure their own)."""
+    configure their own). 23a's and 23d's children start together, each
+    drill on a thread of its own with its in-process reference; both
+    drills' launch checks read the children's own counts. 23b, 23c, 23e and
+    23f, each of which counts this process's launches, run once both drills
+    are joined."""
     from multidisttorch_tpu_torch import telemetry
+    from multidisttorch_tpu_torch.service.fabric_drill import run_failover_phase, run_split_chaos
 
     os.environ.pop("MDT_AOT_ADMISSION", None)
     telemetry.disable()
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
-        a = fabric_failover(E, smi, tmp)
+        drills = {"23a": _in_thread("23a", run_failover_phase, os.path.join(tmp, "23a"), device="cuda",
+                                       timeout_s=300.0),
+                  "23d": _in_thread("23d", run_split_chaos, os.path.join(tmp, "23d"), device="cuda",
+                                       timeout_s=300.0)}
+        a = fabric_failover(E, smi, *drills["23a"])
+        d = fabric_split(E, smi, *drills["23d"])
         t1 = time.time()
         b = fabric_deadline(E, smi, tmp)
         t2 = time.time()
         fabric_incidents(smi, tmp)
-    print(f"phase 23: {time.time() - t0:.1f} s (23a {t1 - t0:.1f} s, 23b {t2 - t1:.1f} s, 23c "
-          f"{time.time() - t2:.1f} s; {smi})", flush=True)
-    return {"survivor": a, "deadline": b}
+        t3 = time.time()
+        e = fabric_steal(E, smi, tmp)
+        t4 = time.time()
+        f = fabric_movable(E, smi, tmp)
+    print(f"phase 23: {time.time() - t0:.1f} s (23a and 23d together {t1 - t0:.1f} s: 23a "
+          f"{drills['23a'][1]['wall_s']:.1f} s, 23d {drills['23d'][1]['wall_s']:.1f} s; 23b {t2 - t1:.1f} s, 23c "
+          f"{t3 - t2:.1f} s, 23e {t4 - t3:.1f} s, 23f {time.time() - t4:.1f} s; {smi})", flush=True)
+    return {"survivor": a, "deadline": b, "split_survivor": d, "steal": e, "movable": f}
 
 
 def main() -> None:
@@ -6042,8 +6272,8 @@ def main() -> None:
     int8_decode_phase(A, group, smi, lm_weights)
     mark("22")
 
-    # Phase 23: the service fabric; counts set to 0 inside, just before 23b;
-    # 23a's surviving replica counts its own.
+    # Phase 23: the service fabric; counts set to 0 inside, just before 23b,
+    # 23e and 23f; 23a's and 23d's surviving replicas count their own.
     fab = fabric_phase(E, smi)
     mark("23")
 
@@ -6064,7 +6294,8 @@ def main() -> None:
     # drill; "service_drill": 19c's restarted daemon, from its own counts) and
     # phase 20's ("incident_drill": 20a's sweeps; "plane": 20b's telemetry-on
     # sweep) and phase 23's ("fabric_survivor": 23a's surviving replica, from
-    # its own counts; "fabric_deadline": 23b) and phase 21c's per-group family members ran, graph replays
+    # its own counts; "fabric_deadline": 23b; "fabric_split_survivor": 23d's,
+    # from its own counts; "fabric_steal": 23e's two replicas) and phase 21c's per-group family members ran, graph replays
     # included, one per wrapper call; "launches_by_path" each. "conv_vae_width" holds the
     # same times at the conv beta-VAE's shape, (128, 3072, 64) f32.
     src = "multidisttorch_tpu_torch/ops/csrc/elbo.cu"
@@ -6083,6 +6314,7 @@ def main() -> None:
                    **{path: n[name] for path, n in elastic.items()},
                    "service": service["service"][name], "service_drill": service["service_drill"][name],
                    "fabric_survivor": fab["survivor"][name], "fabric_deadline": fab["deadline"][name],
+                   "fabric_split_survivor": fab["split_survivor"][name], "fabric_steal": fab["steal"][name],
                    "incident_drill": plane["incident_drill"][name], "plane": plane["plane"][name],
                    "pbt_family_conv_per_group_k4": fam["conv_k4"]["per_group"][name],
                    "pbt_family_moe_per_group_k4": fam["moe_k4"]["per_group"][name]}
@@ -6140,7 +6372,8 @@ def main() -> None:
     # buckets and two fused PBT runs), 17a's bucket and phase 19's
     # ("service_stacked": 19a's buckets and 19b's preempted bucket;
     # "service_drill": 19c's restarted daemon), 23a's surviving fabric replica
-    # ("fabric_survivor", its own counts) and phase 21's (21a-b's fused
+    # ("fabric_survivor", its own counts), 23f's stacked bucket, evicted and
+    # not ("fabric_movable"), and phase 21's (21a-b's fused
     # family runs, 21c's fused K 4 runs), "launches_by_path" each;
     # "conv_vae_width" holds the same times at the conv beta-VAE's lanes,
     # (8, 128, 3072, 64) f32 (21d).
@@ -6158,6 +6391,7 @@ def main() -> None:
                       "service_stacked": service["service_stacked"][name],
                       "service_drill": service["service_drill"][name],
                       "fabric_survivor": fab["survivor"][name],
+                      "fabric_movable": fab["movable"][name],
                       "pbt_family_conv": fam["conv"]["launches"][name],
                       "pbt_family_moe": fam["moe"]["launches"][name],
                       "pbt_family_conv_fused_k4": fam["conv_k4"]["fused"][name],

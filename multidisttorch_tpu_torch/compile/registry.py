@@ -177,6 +177,20 @@ class ExecutableRegistry:
                 return True
             return False
 
+    def discard(self, key: tuple) -> bool:
+        """Drop an entry no one will take here: a ``PENDING`` one (a farm
+        worker then skips its job) or a terminal one that no trial holds,
+        whose slot's graphs and pools are freed. False when the entry is
+        claimed, capturing or held, or absent."""
+        with self._lock:
+            e = self._entries.get(key)
+            if e is None or e.owner is not None or e.status not in (PENDING, READY, FAILED):
+                return False
+            del self._entries[key]
+            slot, e.compiled = e.compiled, None
+        _free(slot)
+        return True
+
     def claim(self, key: tuple) -> bool:
         """The driver takes a queued job (or a program the farm never saw):
         True means the caller captures inline; a farm worker skips a

@@ -44,10 +44,14 @@ the replica's dispatch clock (``daemon_lost`` SIGKILLs it), its fired log
 at ``DIR/fabric/fired-<replica>.jsonl``. A fabric replica's telemetry goes
 to ``DIR/telemetry/replica-<replica>/`` and it prints ``BOOT`` and
 ``LAUNCHES`` as the plain daemon does, and its report (adoptions, fences
-lost, its longest turn and longest gap between renewals beside the lease
-deadline) as its last line. The split and steal options
-(``--split-queue-depth``, ``--split-min-interval``, ``--steal-threshold``,
-``--steal-batch``) raise ``NotImplementedError`` naming ROADMAP A.12b.
+lost, splits, steal grants, its longest turn and longest gap between
+renewals beside the lease deadline) as its last line. ``--split-queue-depth``
+splits an owned shard whose queue reaches that depth (at most one split per
+``--split-min-interval`` seconds); ``--steal-threshold`` lets an idle shard
+of this replica steal up to ``--steal-batch`` queued submissions from a
+shard whose queue reaches that depth. Both are off by default: the topology
+stays static. A due ``shard_split_lost`` of ``--fault-plan`` SIGKILLs the
+replica between two records of a split's handoff.
 """
 
 import time
@@ -87,17 +91,25 @@ _AGE0 = _process_age_s()
 
 
 def _print_launches() -> None:
-    """The ELBO kernels' launch counts, the kernel builds' seconds, and the
+    """The ELBO kernels' launch counts, the kernel builds' seconds, the
     device books' counted steps (one eager step per program new to the
     process when telemetry is on: ``single`` ones launch the single kernels
-    once more, ``bucket`` ones the lane kernels)."""
+    once more, ``bucket`` ones the lane kernels), and what the process still
+    holds: the program registry's slots and the card's allocated bytes."""
+    import torch
+
+    from multidisttorch_tpu_torch.compile.registry import get_executable_registry
     from multidisttorch_tpu_torch.ops import _build, elbo
     from multidisttorch_tpu_torch.telemetry import device as tdevice
 
     by_kind = tdevice.counted_steps()
     counted = {kind: by_kind.get(kind, 0) for kind in ("single", "bucket")}
+    slots = get_executable_registry().snapshot()
+    registry = {"programs": len(slots), "held": sum(1 for e in slots.values() if e["held"])}
+    allocated = torch.cuda.memory_allocated() if torch.cuda.is_initialized() else 0
     print("LAUNCHES " + json.dumps({**elbo.LAUNCHES, "build_seconds": dict(_build.build_seconds),
-                                    "counted_steps": counted}), flush=True)
+                                    "counted_steps": counted, "registry": registry,
+                                    "device_allocated_bytes": allocated}), flush=True)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -130,13 +142,22 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--lease-deadline", type=float, default=4.0,
                         help="seconds without a lease renewal before a shard counts orphaned and is adopted "
                              "(default 4.0: about twice the longest replica turn measured on an H100)")
-    parser.add_argument("--split-queue-depth", type=int, default=None, help="not ported (ROADMAP A.12b)")
-    parser.add_argument("--split-min-interval", type=float, default=None, help="not ported (ROADMAP A.12b)")
-    parser.add_argument("--steal-threshold", type=int, default=None, help="not ported (ROADMAP A.12b)")
-    parser.add_argument("--steal-batch", type=int, default=None, help="not ported (ROADMAP A.12b)")
+    parser.add_argument("--turn-budget", type=float, default=None,
+                        help="fabric: seconds of a replica turn after which the rest of its shards' ticks and "
+                             "dispatches wait for the next turn (default: a quarter of --lease-deadline; 0: every "
+                             "shard ticks in every turn)")
+    parser.add_argument("--split-queue-depth", type=int, default=None,
+                        help="fabric: split an owned shard whose queue depth reaches this (default: splits off, "
+                             "static topology)")
+    parser.add_argument("--split-min-interval", type=float, default=2.0,
+                        help="fabric: seconds between split attempts")
+    parser.add_argument("--steal-threshold", type=int, default=None,
+                        help="fabric: steal queued work for an idle shard from a shard whose queue reaches this "
+                             "depth (default: stealing off)")
+    parser.add_argument("--steal-batch", type=int, default=2, help="fabric: most submissions per steal grant")
     parser.add_argument("--fault-plan", default=None,
-                        help="arm a FaultPlan JSON against this replica's dispatch clock (daemon_lost); fired log "
-                             "under SERVICE_DIR/fabric/")
+                        help="arm a FaultPlan JSON against this replica's dispatch clock (daemon_lost) and its "
+                             "split-handoff clock (shard_split_lost); fired log under SERVICE_DIR/fabric/")
     parser.add_argument("--exit-when-drained", action="store_true",
                         help="exit once queue, spool and slots are idle (default: keep serving)")
     parser.add_argument("--idle-grace", type=float, default=1.0)
@@ -147,14 +168,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    split_steal = [f"--{name.replace('_', '-')}" for name in ("split_queue_depth", "split_min_interval",
-                                                              "steal_threshold", "steal_batch")
-                   if getattr(args, name) is not None]
-    if split_steal:
-        from multidisttorch_tpu_torch.service.fabric import SPLITS_AND_STEALS
-
-        raise NotImplementedError(f"{', '.join(split_steal)}: not ported yet: {SPLITS_AND_STEALS}")
-
     # Telemetry and membership before the heavy imports: the daemon's
     # observability must exist even if the device's start wedges.
     from multidisttorch_tpu_torch import telemetry
@@ -214,7 +227,11 @@ def main(argv=None) -> int:
             injector = FaultInjector(plan, host_slot=replica,
                                      fired_log=os.path.join(args.service_dir, "fabric", f"fired-{replica}.jsonl"))
         svc = FabricReplica(args.service_dir, replica=replica, n_shards=args.n_shards,
-                            lease_deadline_s=args.lease_deadline, injector=injector, **svc_kwargs)
+                            lease_deadline_s=args.lease_deadline, injector=injector,
+                            split_queue_depth=args.split_queue_depth, split_min_interval_s=args.split_min_interval,
+                            steal_threshold=args.steal_threshold, steal_batch=args.steal_batch,
+                            turn_budget_s=(args.lease_deadline / 4.0 if args.turn_budget is None
+                                           else args.turn_budget), **svc_kwargs)
         # The device's start, before any claim (FabricReplica._warm_backend):
         # its context, first allocation, the kernels' library and cuBLAS.
         svc._warm_backend()

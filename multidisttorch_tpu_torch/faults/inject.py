@@ -32,8 +32,10 @@ membership heartbeat (``parallel/membership.py``), stalls and then raises
 :class:`HostPreemption`. DAEMON_LOST, the service fabric's replica kill,
 rides the replica's cumulative dispatch clock (:meth:`FaultInjector.host_step`)
 and sends the process SIGKILL once its fired record is fsync'd.
-SHARD_SPLIT_LOST needs the fabric's shard splits (ROADMAP A.12b): it raises
-``NotImplementedError`` naming its item when it comes due.
+SHARD_SPLIT_LOST rides the replica's split-handoff clock
+(:meth:`FaultInjector.split_step`, one tick per durable ``moved`` record a
+shard split writes) and sends SIGKILL the same way, between two handoff
+records.
 """
 
 from __future__ import annotations
@@ -237,7 +239,6 @@ class FaultInjector:
                 continue  # fires on the split-handoff clock, not this one
             if not self._due(idx, spec) or spec.step >= window_end:
                 continue
-            _require_ported(spec.kind)
             self._record(idx, spec, step=spec.step, host=self.host_slot)
             if spec.kind == HOST_LOST:
                 os._exit(HOST_LOST_EXIT_CODE)
@@ -266,9 +267,12 @@ class FaultInjector:
         self._host_hook(n_steps)
 
     def split_step(self, n_steps: int = 1) -> None:
-        """Advance the replica's cumulative split-handoff clock. A due
-        ``shard_split_lost`` fault raises ``NotImplementedError``: shard
-        splits belong to the service fabric (ROADMAP A.12b)."""
+        """Advance the replica's cumulative split-handoff clock: one tick
+        per durable ``moved`` record a shard split writes. A due
+        ``shard_split_lost`` fault SIGKILLs the replica HERE, between two
+        handoff records of a split in flight (the fired record is fsync'd
+        first): the pending topology entry and a half-transferred queue are
+        the seam the adopting replica must close."""
         if self.host_slot is None:
             return
         window_end = self._split_steps + n_steps
@@ -276,8 +280,13 @@ class FaultInjector:
         for idx, spec in enumerate(self.plan.specs):
             if spec.kind != SHARD_SPLIT_LOST or spec.host != self.host_slot:
                 continue
-            if self._due(idx, spec) and spec.step < window_end:
-                _require_ported(spec.kind)
+            if not self._due(idx, spec) or spec.step >= window_end:
+                continue
+            self._record(idx, spec, step=spec.step, host=self.host_slot)
+            import signal
+
+            os.kill(os.getpid(), signal.SIGKILL)
+            return  # unreachable live; tests monkeypatch os.kill
 
     def step_hook(self, trial_id: int, step: int, n_steps: int = 1) -> None:
         """Called before dispatching ``n_steps`` optimizer steps starting
@@ -361,18 +370,6 @@ class FaultInjector:
         self._record(idx, spec, epoch=epoch, path=path)
         corrupt_file(path)
         return path
-
-
-# Host and service kinds whose seams are not ported yet: kind -> ROADMAP item.
-_UNPORTED_KINDS = {
-    SHARD_SPLIT_LOST: "A.12b (the service fabric's shard splits)",
-}
-
-
-def _require_ported(kind: str) -> None:
-    item = _UNPORTED_KINDS.get(kind)
-    if item is not None:
-        raise NotImplementedError(f"fault kind {kind!r} is not ported yet: ROADMAP {item}")
 
 
 def corrupt_file(path: str, *, keep_bytes: Optional[int] = None) -> None:

@@ -24,19 +24,22 @@ the front door that turns the same machinery into a long-running service
   the service bench, through that CLI.
 - :mod:`service.incident_drill`: the incident plane's chaos drill (one
   scenario per fault family but shard splits, and a no-fault soak).
-- :mod:`service.fabric`: the sharded service fabric's core: tenants routed
-  onto shards (:func:`shard_of`, through :mod:`service.topology`),
-  lease-fenced ownership (:class:`ShardFence`, :class:`FenceLost`),
-  :class:`FabricReplica` (failover by adoption) and :class:`FabricClient`;
-  :mod:`service.fabric_drill` drills its failover on replica children.
+- :mod:`service.fabric`: the sharded service fabric: tenants routed onto
+  shards (:func:`shard_of`, through :mod:`service.topology`), lease-fenced
+  ownership (:class:`ShardFence`, :class:`FenceLost`), :class:`FabricReplica`
+  (failover by adoption, shard splits with the adopter's recovery of a
+  split killed halfway, work stealing; the runtime's ``extract_queued``
+  moves the queued work) and :class:`FabricClient`; :mod:`service.fabric_drill`
+  drills its failover and its split chaos on replica children, a steal and
+  a movable stacked bucket in process.
 
 The scheduler, queue, defrag and topology modules are copies of the JAX
 package's (no torch), held to them by ``tests/test_torch_service.py`` and
 ``tests/test_torch_fabric.py``.
 
-Not ported here (ROADMAP A.12b): shard splits and merges, work stealing and
-cross-shard transfer, the load generator and its scenario zoo, the
-checkpoint drill, and the incident drill's split scenario.
+Not ported here (ROADMAP A.12b): the load generator and its scenario zoo,
+the checkpoint drill, and the incident drill's split scenario; the movable
+drill's pipelined arm waits for pipeline placements (A.14).
 """
 
 from multidisttorch_tpu_torch.service.queue import (  # noqa: F401
@@ -59,6 +62,8 @@ from multidisttorch_tpu_torch.service.defrag import (  # noqa: F401
     plan_preemption,
 )
 from multidisttorch_tpu_torch.service.fabric import (  # noqa: F401
+    MOVE_SPLIT,
+    MOVE_STEAL,
     FabricClient,
     FabricReplica,
     FenceLost,

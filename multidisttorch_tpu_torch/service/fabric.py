@@ -1,8 +1,8 @@
-"""The sharded service fabric's core: N daemon replicas, lease-fenced shards.
+"""The sharded service fabric: N daemon replicas, lease-fenced shards.
 
-Counterpart of the JAX package's ``service/fabric.py``, its first part
-(ROADMAP A.12b): sharding, lease-fenced ownership and failover by
-adoption. A :class:`~multidisttorch_tpu_torch.service.runtime.SweepService`
+Counterpart of the JAX package's ``service/fabric.py``: sharding,
+lease-fenced ownership, failover by adoption, and the elastic topology's
+splits and work stealing. A :class:`~multidisttorch_tpu_torch.service.runtime.SweepService`
 is a single controller, one process owning one host's slots; this module
 distributes it while keeping the single-controller semantics *per shard*:
 
@@ -31,6 +31,23 @@ distributes it while keeping the single-controller semantics *per shard*:
   over the shard directory, whose journal fold replays every submission
   (settled stay settled; ever-placed re-enter ``resume_scan`` and restore
   from their durable checkpoints).
+- **Elastic topology**: routing is ``fabric/topology.jsonl``
+  (``service/topology.py``), an epoch-versioned split log. A hot shard
+  SPLITS its tenant hash range in two (``split_begin``, then a fenced
+  handoff of queued-but-unplaced submissions through
+  :meth:`SweepService.extract_queued`, then ``split_commit``), the whole
+  handoff fenced by the parent shard's lease: a replica killed mid-split
+  leaves a *pending* split that the adopting replica completes
+  idempotently or rolls back (``split_abort``, the child id burned). The
+  child is not routable or adoptable until the commit, so no tenant is ever
+  owned by two live shards; the splitting replica adopts the child at once.
+  An idle shard's replica also WORK-STEALS queued submissions from a
+  backlogged shard through a request and grant file
+  (``fabric/shard-k.steal.jsonl``): the grant, naming the ids, is durable
+  before the transfer, so an adopter carries out a grant that never ran. A
+  stolen submission keeps its origin tenant, so the thief's fair-share
+  scheduler charges the origin tenant. Splits and steals default off: a
+  replica with neither option keeps the static topology.
 
 **Renewal and long turns.** Leases are renewed only by the loop: at the
 top of :meth:`FabricReplica.tick`, as in the JAX package, and also before
@@ -45,13 +62,21 @@ imports of a trial's first step) happen in
 a deployment runs under is set above its longest measured turn (the
 drill's ``CARD_LEASE_DEADLINE_S``). Each replica measures its longest
 turn and its longest gap between renewals (``replica_turn`` events, the
-serve report), so a turn that creeps towards the deadline shows.
+serve report), so a turn that creeps towards the deadline shows; its
+event carries the longest turn's seconds by part (adoption, split, steal,
+each shard's placements and dispatches). A child shard born inside a turn
+is renewed before its first tick like any other.
 
-Not ported here (ROADMAP A.12b, splits and steals): the elastic
-topology's splits and merges, work stealing and cross-shard transfer
-(the runtime's ``extract_queued``). A replica given ``split_queue_depth``,
-``split_trigger`` or ``steal_threshold``, and an adoption that finds a
-pending split or a steal grant, raise ``NotImplementedError`` naming it.
+**The turn budget** (``turn_budget_s``; the CLI's default is a quarter of
+the lease deadline, the class's None). A turn that built a shard's service
+(an adoption, a split's child) ticks nothing more; any other turn ticks at
+least one shard, and past the budget the rest of its shards' ticks and
+their placements' dispatches wait for the next turn, which starts with
+them (round robin). On a card one dispatch (a trial's first chunk, its
+warm-up and capture, or its last, which joins the final checkpoint's
+write) takes up to about a second, and a turn over three shards of two
+placements each can hold several: the budget bounds a turn by about one.
+It changes the order of dispatches, not what they compute.
 
 No torch at module level: the fabric layer is file and lease logic (the
 replica's ``SweepService``s and its warm-up import torch).
@@ -69,6 +94,7 @@ from typing import Optional
 from multidisttorch_tpu_torch.parallel.membership import latest_lease, read_lease
 from multidisttorch_tpu_torch.service import queue as squeue
 from multidisttorch_tpu_torch.service import topology as stopo
+from multidisttorch_tpu_torch.telemetry import ctlprof as _ctlprof
 
 FABRIC_DIRNAME = "fabric"
 SHARDS_DIRNAME = "shards"
@@ -78,8 +104,10 @@ CLAIM = "claim"
 RENEW = "renew"
 RELEASE = "release"
 
-# What a split, a steal or cross-shard transfer meets in the port.
-SPLITS_AND_STEALS = "ROADMAP A.12b (splits and steals)"
+# Transfer provenance kinds (Submission.moved_kind, the journal's
+# ``moved`` record).
+MOVE_SPLIT = "split"
+MOVE_STEAL = "steal"
 
 
 class FenceLost(RuntimeError):
@@ -96,10 +124,6 @@ def _emit(kind: str, **data) -> None:
         bus.emit(kind, **data)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: {SPLITS_AND_STEALS}")
-
-
 def fabric_dir(service_dir: str) -> str:
     return os.path.join(service_dir, FABRIC_DIRNAME)
 
@@ -113,9 +137,18 @@ def lease_file(service_dir: str, shard: int) -> str:
 
 
 def steal_file(service_dir: str, shard: int) -> str:
-    """The shard's work-steal ledger (request and grant records). The port
-    writes none; an adoption that finds a grant here raises."""
+    """The shard's work-steal ledger: an append-only JSONL of thief
+    ``request`` records and victim ``grant`` records (matched by ``seq``).
+    The victim appends the grant, naming the exact submission ids, BEFORE it
+    runs the transfer, so a victim killed mid-steal leaves a grant the
+    adopting replica carries out (the split-completion pattern)."""
     return os.path.join(fabric_dir(service_dir), f"shard-{int(shard)}.steal.jsonl")
+
+
+def _read_jsonl(path: str) -> list[dict]:
+    """Decodable records in append order, a torn tail skipped: the queue
+    layer's complete-lines reader, from offset 0."""
+    return squeue.read_jsonl_from(path, 0)[0]
 
 
 def shard_of(tenant: str, n_shards: int) -> int:
@@ -493,13 +526,13 @@ class FabricReplica:
         idle_sleep_s: float = 0.02,
         split_queue_depth: Optional[int] = None,
         split_trigger=None,
+        split_min_interval_s: float = 2.0,
         steal_threshold: Optional[int] = None,
+        steal_batch: int = 2,
+        steal_scan_every_s: float = 0.5,
+        turn_budget_s: Optional[float] = None,
         **svc_kwargs,
     ):
-        if split_queue_depth is not None or split_trigger is not None:
-            raise _not_ported("a shard split (split_queue_depth, split_trigger)")
-        if steal_threshold is not None:
-            raise _not_ported("work stealing (steal_threshold)")
         self.service_dir = service_dir
         self.replica = int(replica)
         ensure_fabric_config(service_dir, n_shards)
@@ -539,13 +572,33 @@ class FabricReplica:
         # MONOTONIC across shard drops and adoptions.
         self._dispatch_seen: dict[int, int] = {}
         self.topology = stopo.load_topology(service_dir, n_base=self.n_shards)
-        self._check_topology()
         self._last_topo_load = 0.0
+        # The elastic topology's options, all off by default (module
+        # docstring). ``split_trigger(shard, svc) -> bool`` is an optional
+        # richer trigger than the queue depth (an SLO burn verdict, say).
+        self.split_queue_depth = None if split_queue_depth is None else int(split_queue_depth)
+        self.split_trigger = split_trigger
+        self.split_min_interval_s = float(split_min_interval_s)
+        self.steal_threshold = None if steal_threshold is None else int(steal_threshold)
+        self.steal_batch = int(steal_batch)
+        self.steal_scan_every_s = float(steal_scan_every_s)
+        # The turn budget (module docstring, "Renewal and long turns"):
+        # None ticks every shard in every turn, as the JAX replica does.
+        self.turn_budget_s = None if not turn_budget_s else float(turn_budget_s)
+        self._tick_from = 0  # the shard a budgeted turn ticks first
+        self._last_split = 0.0
+        self._last_steal_scan = 0.0
+        self._last_steal_req: dict[int, float] = {}  # victim -> ts
+        self.splits = 0
+        self.steals_granted = 0
         # What the loop measures of itself (module docstring).
         self._last_renew_pass: Optional[float] = None  # monotonic, while holding a fence
         self.turns = 0
         self.longest_turn_s = 0.0
         self.longest_unrenewed_s = 0.0
+        # Where the current turn's seconds went, by part (``_lap``); the
+        # longest turn's parts ride its ``replica_turn`` event.
+        self._parts: dict[str, float] = {}
 
     # -- shard lifecycle ---------------------------------------------
 
@@ -576,23 +629,10 @@ class FabricReplica:
                 (x @ x).sum().item()
         self._warm = True
 
-    def _check_topology(self) -> None:
-        if self.topology.pending:
-            raise _not_ported(f"a pending shard split in the topology log ({self.topology.pending})")
-
-    def _check_no_steal_grants(self, shard: int) -> None:
-        path = steal_file(self.service_dir, shard)
-        if any(r.get("kind") == "grant" for r in squeue.read_jsonl_from(path, 0)[0]):
-            raise _not_ported(f"a work-steal grant in {path}")
-
     def _adopt(self, shard: int, fence: ShardFence) -> None:
         from multidisttorch_tpu_torch.service.runtime import SweepService
         from multidisttorch_tpu_torch.train.checkpoint import snapshot_cache
 
-        # A predecessor's unfinished split or steal is business the port
-        # cannot finish: say so before building anything.
-        self._reload_topology(force=True)
-        self._check_no_steal_grants(shard)
         d = shard_dir(self.service_dir, shard)
         os.makedirs(d, exist_ok=True)
         # RAM checkpoint snapshots are valid only under CONTINUOUS ownership
@@ -607,7 +647,9 @@ class FabricReplica:
         def _route_check(tenant: str, _shard: int = shard) -> Optional[int]:
             # The daemon-side wrong-shard guard: reject a fresh intake
             # submission whose tenant routes elsewhere under the CURRENT
-            # topology (the client resubmits to the owner).
+            # topology (the client resubmits to the owner). Moved-in
+            # submissions bypass it in _admit: stolen work sits at a
+            # non-owning shard on purpose.
             owner = self.topology.route(tenant)
             return owner if owner != _shard else None
 
@@ -616,6 +658,7 @@ class FabricReplica:
         # tree is contiguous across the takeover.
         svc = SweepService(d, fence=fence.check, fence_epoch=fence.epoch, route_check=_route_check,
                            **self.svc_kwargs)
+        self._lap(f"build{shard}", t_claim)
         try:
             # Construction (journal replay, dataset build) consumed lease
             # time: refresh it before the first tick, or drop the shard NOW
@@ -641,6 +684,18 @@ class FabricReplica:
             settled_on_adoption=len(svc.settled),
             replay_s=round(time.perf_counter() - t0, 4),
         )
+        # Unfinished business BEFORE the first tick places anything: a
+        # predecessor killed mid-split left a pending topology record, one
+        # killed mid-steal a grant without its transfer. Both complete (or
+        # roll back) idempotently here, so the seam a crash opened is closed
+        # while the shard's queue is still exactly as the journal replayed.
+        t = time.monotonic()
+        try:
+            self._resolve_pending_split(shard)
+            self._recover_steal_grants(shard)
+        except FenceLost as e:
+            self._drop(shard, reason=str(e))
+        self._lap(f"resolve{shard}", t)
 
     @staticmethod
     def _shutdown_service(svc) -> None:
@@ -748,12 +803,309 @@ class FabricReplica:
             return
         self._last_topo_load = time.time() if now is None else now
         self.topology = stopo.load_topology(self.service_dir, n_base=self.n_shards)
-        self._check_topology()
+
+    # -- elastic topology: splits ------------------------------------
+
+    def _maybe_split(self, now: float) -> None:
+        """The split trigger's scan. A shard is HOT when its queue depth
+        reaches ``split_queue_depth`` or ``split_trigger(shard, svc)`` says
+        so; at most one split per ``split_min_interval_s``: splitting is load
+        shedding, not a reflex."""
+        # Close any mid-split seam on shards we own first (adoption resolves
+        # most; a topology reload can surface one later).
+        for shard in list(self.services):
+            if self.topology.pending_for(shard) is not None:
+                try:
+                    self._resolve_pending_split(shard)
+                except FenceLost as e:
+                    self._drop(shard, reason=str(e))
+        if self.split_queue_depth is None and self.split_trigger is None:
+            return
+        if now - self._last_split < self.split_min_interval_s:
+            return
+        for shard in sorted(self.services):
+            svc = self.services[shard]
+            hot = self.split_queue_depth is not None and svc.sched.pending_count() >= self.split_queue_depth
+            if not hot and self.split_trigger is not None:
+                try:
+                    hot = bool(self.split_trigger(shard, svc))
+                except Exception:  # noqa: BLE001 — a broken trigger must
+                    hot = False  # not take the replica down
+            if not hot:
+                continue
+            self._last_split = now
+            try:
+                self._execute_split(shard)
+            except FenceLost as e:
+                self._drop(shard, reason=str(e))
+            break  # one split per interval
+
+    def _execute_split(self, shard: int) -> None:
+        """Begin and complete one split of ``shard``'s tenant hash range.
+        Both topology appends are first-writer-wins epoch races; the handoff
+        between them is fenced by the parent's lease, and every step is
+        crash-safe (:meth:`_resolve_pending_split` is the recovery half)."""
+        self._reload_topology(force=True)
+        if self.topology.pending_for(shard) is not None:
+            self._resolve_pending_split(shard)
+            return
+        if shard not in self.topology.leaves:
+            return  # a stale trigger: the shard is no longer live
+        self.fences[shard].check()
+        child = self.topology.next_shard_id()
+        won, epoch, topo = stopo.append_topology_event(
+            self.service_dir, {"event": stopo.SPLIT_BEGIN, "parent": int(shard), "child": int(child),
+                               "replica": self.replica})
+        self.topology = topo
+        if not won:
+            return  # lost the epoch race: re-evaluate at the next trigger
+        self.splits += 1
+        _emit("shard_split_begin", shard=int(shard), child=int(child), replica=self.replica, epoch=epoch)
+        pend = topo.pending_for(shard)
+        if pend is not None:
+            self._complete_split(shard, pend)
+
+    def _complete_split(self, shard: int, pend: stopo.PendingSplit) -> None:
+        """The handoff and commit half: move every queued-but-unplaced
+        submission whose tenant hashes into the child's half (the spool
+        write, then the parent journal's ``moved`` record), then append
+        ``split_commit``. The injector's split-handoff clock ticks once per
+        handoff record: where ``shard_split_lost`` SIGKILLs the replica."""
+        svc = self.services[shard]
+        fence = self.fences[shard]
+        topo = self.topology
+        parent, child = pend.parent, pend.child
+        _keep, give = topo.split_halves(parent, child)
+
+        def pred(entry) -> bool:
+            return give.matches(stopo.tenant_hash(entry.tenant), topo.n_base)
+
+        on_moved = None
+        if self.injector is not None:
+            on_moved = lambda _sid: self.injector.split_step(1)  # noqa: E731
+        move = dict(dest_dir=shard_dir(self.service_dir, child), dest_shard=child, from_shard=parent,
+                    kind=MOVE_SPLIT, on_moved=on_moved)
+        moved = svc.extract_queued(pred, **move)
+        fence.check()
+        committed = False
+        for _ in range(8):
+            won, _epoch, topo2 = stopo.append_topology_event(
+                self.service_dir, {"event": stopo.SPLIT_COMMIT, "parent": int(parent), "child": int(child),
+                                   "replica": self.replica})
+            self.topology = topo2
+            if won:
+                committed = True
+                break
+            if topo2.pending_for(parent) is None:
+                # Resolved concurrently (an adopter beat us to it):
+                # committed iff the child is live.
+                committed = child in topo2.leaves
+                break
+        if not committed:
+            return
+        _emit("shard_split_commit", shard=int(parent), child=int(child), replica=self.replica,
+              epoch=self.topology.epoch, moved=len(moved))
+        # Stragglers admitted between the transfer pass and the commit: one
+        # more idempotent pass (they now route to the child, and left here
+        # they would sit at a non-owner until a steal found them).
+        svc.extract_queued(pred, **move)
+        # The splitting replica births the child's service at once (the
+        # orphan scan would get there only after the non-preferred grace).
+        self._try_adopt(child)
+
+    def _resolve_pending_split(self, shard: int) -> None:
+        """Close a predecessor's mid-split seam, idempotently: if the crashed
+        owner moved ANYTHING (journal ``moved`` records toward the child,
+        spool files in the child's intake) or queued work still matches the
+        child's half, re-run the transfer and commit; a split that moved
+        nothing rolls back with ``split_abort`` (its child id is burned,
+        never recycled)."""
+        self._reload_topology(force=True)
+        pend = self.topology.pending_for(shard)
+        if pend is None:
+            return
+        svc = self.services.get(shard)
+        if svc is None:
+            return
+        parent, child = pend.parent, pend.child
+        svc._advance_folds()
+        evidence = any(rec.get("state") == squeue.MOVED and rec.get("moved_to") == child
+                       for rec in svc._qfold.values())
+        if not evidence:
+            try:
+                evidence = any(n.endswith(".json")
+                               for n in os.listdir(squeue.intake_dir(shard_dir(self.service_dir, child))))
+            except OSError:
+                pass
+        if not evidence:
+            _keep, give = self.topology.split_halves(parent, child)
+            evidence = any(not e.resume_scan and e.pinned_start is None
+                           and give.matches(stopo.tenant_hash(e.tenant), self.topology.n_base)
+                           for e in svc.sched.pending_entries())
+        if evidence:
+            self._complete_split(shard, pend)
+            # An adopter closing a PREDECESSOR's mid-split seam: a torn
+            # split, distinct from both the normal commit and the no-op
+            # abort.
+            _emit("shard_split_resolved", shard=int(parent), child=int(child), replica=self.replica,
+                  action="commit")
+            return
+        for _ in range(8):
+            won, _epoch, topo2 = stopo.append_topology_event(
+                self.service_dir, {"event": stopo.SPLIT_ABORT, "parent": int(parent), "child": int(child),
+                                   "replica": self.replica})
+            self.topology = topo2
+            if won or topo2.pending_for(parent) is None:
+                break
+        _emit("shard_split_abort", shard=int(parent), child=int(child), replica=self.replica,
+              epoch=self.topology.epoch)
+        _emit("shard_split_resolved", shard=int(parent), child=int(child), replica=self.replica, action="abort")
+
+    def _try_adopt(self, shard: int) -> None:
+        if shard in self.services:
+            return
+        fence = try_claim(self.service_dir, shard, self.replica)
+        if fence is None:
+            return
+        _emit("shard_claimed", shard=int(shard), replica=self.replica, epoch=fence.epoch)
+        self.adoptions += 1
+        self._adopt(shard, fence)
+
+    # -- elastic topology: work stealing ------------------------------
+
+    def _steal_tick(self, now: float) -> None:
+        """Both halves of the steal protocol, one throttled pass. VICTIM:
+        answer every unanswered request on shards we own (the grant first,
+        then the fenced transfer). THIEF: when one of our shards is idle with
+        a free slot, append a request to another live shard's steal file."""
+        if self.steal_threshold is None:
+            return
+        if now - self._last_steal_scan < self.steal_scan_every_s:
+            return
+        self._last_steal_scan = now
+        for shard in list(self.services):
+            try:
+                self._serve_steals(shard)
+            except FenceLost as e:
+                self._drop(shard, reason=str(e))
+        idle_shards = [k for k, svc in self.services.items()
+                       if not svc.active and svc.sched.pending_count() == 0 and svc.pool.free_total > 0]
+        if not idle_shards:
+            return
+        thief = min(idle_shards)
+        for victim in self.topology.live_shards():
+            if victim == thief:
+                continue
+            if now - self._last_steal_req.get(victim, 0.0) < 4.0 * self.steal_scan_every_s:
+                continue
+            path = steal_file(self.service_dir, victim)
+            recs = _read_jsonl(path)
+            answered = {r.get("seq") for r in recs if r.get("kind") == "grant"}
+            if any(r.get("kind") == "request" and int(r.get("thief_replica", -1)) == self.replica
+                   and r.get("seq") not in answered for r in recs):
+                continue  # one outstanding request per victim
+            seq = os.urandom(6).hex()
+            _append_lease(path, {"kind": "request", "seq": seq, "thief_shard": int(thief),
+                                 "thief_replica": self.replica, "max_n": self.steal_batch, "ts": time.time()})
+            self._last_steal_req[victim] = now
+            _emit("steal_request", victim_shard=int(victim), thief_shard=int(thief), replica=self.replica, seq=seq)
+            break  # one request per pass
+
+    def _serve_steals(self, shard: int) -> None:
+        """Victim side: answer the unanswered requests on an owned shard. The
+        grant, naming the exact submission ids, is appended BEFORE the
+        transfer runs, so a crash mid-steal leaves a durable intent the
+        adopter carries out (:meth:`_recover_steal_grants`). A victim whose
+        queue is under the threshold answers with an empty grant (a refusal
+        the thief's backoff respects)."""
+        svc = self.services.get(shard)
+        fence = self.fences.get(shard)
+        if svc is None or fence is None:
+            return
+        prof = _ctlprof.get_ctlprof()
+        if prof is not None:
+            _t = prof.t0()
+        path = steal_file(self.service_dir, shard)
+        recs = _read_jsonl(path)
+        if not recs:
+            if prof is not None:
+                prof.note("steal_grant", _t)
+            return
+        scanned = len(recs)
+        granted = 0
+        answered = {r.get("seq") for r in recs if r.get("kind") == "grant"}
+        for r in recs:
+            if r.get("kind") != "request" or r.get("seq") in answered:
+                continue
+            sub_ids: list[str] = []
+            if svc.sched.pending_count() >= self.steal_threshold:
+                max_n = max(1, min(int(r.get("max_n", 1)), self.steal_batch))
+                # Steal from the queue's TAIL (newest first): the oldest
+                # entries are closest to placement here.
+                for e in reversed(svc.sched.pending_entries()):
+                    scanned += 1
+                    if e.resume_scan or e.pinned_start is not None:
+                        continue
+                    sub_ids.append(e.sub_id)
+                    if len(sub_ids) >= max_n:
+                        break
+            fence.check()
+            thief_shard = int(r.get("thief_shard", -1))
+            _append_lease(path, {"kind": "grant", "seq": r.get("seq"), "sub_ids": sub_ids,
+                                 "thief_shard": thief_shard, "thief_replica": r.get("thief_replica"),
+                                 "epoch": fence.epoch, "ts": time.time()})
+            answered.add(r.get("seq"))
+            _emit("steal_grant", victim_shard=int(shard), thief_shard=thief_shard, replica=self.replica,
+                  seq=r.get("seq"), n=len(sub_ids))
+            if sub_ids:
+                moved = self._execute_grant(shard, svc, thief_shard=thief_shard, sub_ids=sub_ids)
+                self.steals_granted += len(moved)
+                granted += len(moved)
+        if prof is not None:
+            # examined = steal-file records and the queue entries scanned for
+            # grantable work; mutated = submissions actually moved.
+            prof.note("steal_grant", _t, examined=scanned, mutated=granted)
+
+    def _execute_grant(self, shard: int, svc, *, thief_shard: int, sub_ids: list) -> list:
+        wanted = set(sub_ids)
+        moved = svc.extract_queued(lambda e: e.sub_id in wanted, dest_dir=shard_dir(self.service_dir, thief_shard),
+                                   dest_shard=int(thief_shard), from_shard=int(shard), kind=MOVE_STEAL)
+        if moved:
+            _emit("steal_executed", victim_shard=int(shard), thief_shard=int(thief_shard), replica=self.replica,
+                  sub_ids=moved)
+        return moved
+
+    def _recover_steal_grants(self, shard: int) -> None:
+        """The adoption half of the steal protocol: a grant whose named
+        submissions are STILL queued here never got its transfer (the victim
+        died between intent and execution): run it now. A transferred id has
+        a terminal ``moved`` record, so recovery dropped it from the
+        scheduler and this pass skips it: an exactly-once handoff from an
+        at-least-once replay."""
+        svc = self.services.get(shard)
+        if svc is None:
+            return
+        for r in _read_jsonl(steal_file(self.service_dir, shard)):
+            if r.get("kind") != "grant" or not r.get("sub_ids"):
+                continue
+            queued = {e.sub_id for e in svc.sched.pending_entries()}
+            still = [s for s in r["sub_ids"] if s in queued]
+            if still:
+                moved = self._execute_grant(shard, svc, thief_shard=int(r.get("thief_shard", -1)), sub_ids=still)
+                self.steals_granted += len(moved)
 
     # -- the loop -----------------------------------------------------
 
+    def _lap(self, part: str, t0: float) -> float:
+        """Add the seconds since ``t0`` to this turn's ``part``; returns now.
+        Nested parts (a shard's build inside ``adopt``) are counted in both."""
+        t = time.monotonic()
+        self._parts[part] = self._parts.get(part, 0.0) + t - t0
+        return t
+
     def tick(self) -> bool:
         t0 = time.monotonic()
+        self._parts = {}
         try:
             return self._turn()
         finally:
@@ -763,28 +1115,57 @@ class FabricReplica:
                 self.longest_turn_s = dt
                 _emit("replica_turn", replica=self.replica, longest_turn_s=round(dt, 4),
                       longest_unrenewed_s=round(self.longest_unrenewed_s, 4),
-                      lease_deadline_s=self.lease_deadline_s, turn=self.turns)
+                      lease_deadline_s=self.lease_deadline_s, turn=self.turns,
+                      parts={k: round(v, 4) for k, v in self._parts.items()})
 
     def _turn(self) -> bool:
         now = time.time()
+        t = t_turn = time.monotonic()
         self._renew_leases(now)
         self._reload_topology(now)
+        t = self._lap("renew", t)
+        held = set(self.services)
         self._scan_orphans(now)
+        t = self._lap("adopt", t)
+        self._maybe_split(now)
+        t = self._lap("split", t)
+        self._steal_tick(now)
+        t = self._lap("steal", t)
         progressed = False
-        for shard in list(self.services):
+        shards = list(self.services)
+        deadline = None
+        if self.turn_budget_s is not None:
+            if set(self.services) - held:
+                # A turn that built a shard's service (an adoption, a
+                # split's child) ticks nothing more: the shards' first
+                # ticks, which place and warm up trials, start the next.
+                return True
+            deadline = t_turn + self.turn_budget_s
+            shards = [k for k in shards if k >= self._tick_from] + [k for k in shards if k < self._tick_from]
+        for i, shard in enumerate(shards):
             svc = self.services.get(shard)
             if svc is None:
                 continue
+            if deadline is not None:
+                # At least one shard's tick per turn; past the budget the
+                # rest wait for the next turn, which starts with them.
+                if i > 0 and time.monotonic() >= deadline:
+                    break
+                self._tick_from = shard + 1
             # A renewal before each shard's tick as well: one turn over
             # several shards holds no claim unrenewed for all of them.
             self._renew_leases(time.time())
             if shard not in self.services:
                 continue
+            t = time.monotonic()
             try:
-                if svc.tick():
+                if svc.tick() if deadline is None else svc.tick(deadline):
                     progressed = True
             except FenceLost as e:
                 self._drop(shard, reason=str(e))
+            self._lap(f"tick{shard}", t)
+            for part, sec in getattr(svc, "tick_parts", {}).items():
+                self._parts[f"{part}{shard}"] = self._parts.get(f"{part}{shard}", 0.0) + sec
         if self.injector is not None:
             # The replica's cumulative dispatch clock feeds the daemon_lost
             # fault kind (a SIGKILL: no cleanup, leases go stale, survivors
@@ -812,6 +1193,10 @@ class FabricReplica:
         for svc in self.services.values():
             if not svc.idle():
                 return False
+        if self.topology.pending:
+            # A pending split is unfinished business: this replica, on its
+            # next tick, or an adopter must complete or roll it back first.
+            return False
         for shard in self.topology.live_shards():
             if shard in self.services:
                 continue
@@ -891,13 +1276,16 @@ class FabricReplica:
             settled.update(svc.settled)
         wall_s = round(time.time() - t0, 3)
         _emit("replica_end", replica=self.replica, outcome=outcome, adoptions=self.adoptions,
-              fences_lost=self.fences_lost, longest_turn_s=round(self.longest_turn_s, 4),
+              fences_lost=self.fences_lost, splits=self.splits, steals_granted=self.steals_granted,
+              longest_turn_s=round(self.longest_turn_s, 4),
               longest_unrenewed_s=round(self.longest_unrenewed_s, 4), wall_s=wall_s)
         return {
             "outcome": outcome,
             "replica": self.replica,
             "adoptions": self.adoptions,
             "fences_lost": self.fences_lost,
+            "splits": self.splits,
+            "steals_granted": self.steals_granted,
             "topology_epoch": self.topology.epoch,
             "turns": self.turns,
             "longest_turn_s": round(self.longest_turn_s, 4),

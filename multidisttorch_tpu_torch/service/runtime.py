@@ -58,9 +58,12 @@ multi-rank graph capture (ROADMAP A.12c), and a slice of several devices
 raises. Pipeline placements fail their trial with ``NotImplementedError``
 naming ROADMAP A.14. The fabric's replicas (``service/fabric.py``) run one
 service per owned shard through the ``fence``, ``fence_epoch`` and
-``route_check`` callables, honoured as in the JAX package; its cross-shard
-transfer (``extract_queued``, for splits and steals) is not ported (ROADMAP
-A.12b).
+``route_check`` callables, honoured as in the JAX package, and hand queued
+work to another shard (a split's handoff, a steal's grant) through
+:meth:`SweepService.extract_queued`. A moved trial leaves nothing on the
+card here: the precapture farm's program it planned at admission (a
+captured slot holds its graphs and static state) is released with it,
+unless a trial still here needs the same program.
 
 Every placement's cooperative dispatch runs under ``train/steps.py``'s
 ``device_turn``, the gate a precapture farm's captures hold, as
@@ -516,6 +519,8 @@ class SweepService:
         self.next_trial_id = 0
         self._stop = False
         self._farm = None
+        # trial_id -> the registry key its admission planned on the farm.
+        self._warm_keys: dict[int, tuple] = {}
         self._last_books_ts = 0.0
         self._last_defrag_ts = 0.0
         self._last_preempt_scan = float("-inf")
@@ -540,6 +545,8 @@ class SweepService:
         self._deadline_misses = 0
         self._frag_max = 0.0
         self._known_ids: set = set()
+        self.tick_parts: dict[str, float] = {}
+        self._step_cursor = 0  # the round robin of a budgeted tick
         # Cumulative cooperative dispatches across all placements —
         # the fabric replica's fault clock (daemon_lost fires on it).
         self.dispatches = 0
@@ -944,6 +951,92 @@ class SweepService:
         self._prefetch_data(entry)
         self._warm(entry)
 
+    # -- cross-shard transfer (split handoffs / work stealing) --------
+
+    def extract_queued(self, predicate, *, dest_dir: str, dest_shard: int, from_shard: int, kind: str,
+                       max_n: Optional[int] = None, on_moved=None) -> list[str]:
+        """Durably hand queued-but-unplaced submissions to another shard;
+        returns the moved submission ids. The ONE transfer primitive split
+        handoffs and steal grants share.
+
+        Only NEVER-PLACED entries move (no ``resume_scan``, no pinned
+        relocation target): an ever-placed trial's checkpoints live under
+        THIS shard's directory, and moving its submission would orphan
+        them. Per entry, the order is the no-loss, no-double-own core: (1)
+        spool the rebuilt submission (same id, origin provenance) into the
+        destination's intake (a durable rename); (2) append our journal's
+        ``moved`` record (fenced); (3) drop it from the scheduler and the
+        live bookkeeping, and release the farm program its admission
+        planned (module docstring). A crash between (1) and (2) re-runs the
+        transfer idempotently on adoption (the spool overwrite and the
+        destination's id dedup absorb the replay); a crash after (2) leaves
+        a terminal ``moved`` record recovery skips. ``on_moved(sub_id)``
+        fires after each journal append: the chaos drill's kill-mid-split
+        seam."""
+        prof = _ctlprof.get_ctlprof()
+        # Steal-kind transfers run inside the caller's ``steal_grant``
+        # window; only split handoffs get their own phase.
+        track = prof is not None and kind == "split"
+        if track:
+            _t = prof.t0()
+        self._advance_folds()
+        examined = 0
+        moved: list[str] = []
+        for entry in list(self.sched.pending_entries()):
+            examined += 1
+            if max_n is not None and len(moved) >= max_n:
+                break
+            if entry.resume_scan or entry.pinned_start is not None:
+                continue
+            if not predicate(entry):
+                continue
+            rec = self._qfold.get(entry.sub_id)
+            if rec is None or not rec.get("config"):
+                continue  # fold raced; leave it for the next pass
+            sub = squeue.Submission(
+                submission_id=entry.sub_id,
+                tenant=entry.tenant,
+                config=dict(rec["config"]),
+                priority=entry.priority,
+                # The ORIGINAL per-stage footprint (entry.size is the stage
+                # total for pipelined vectors).
+                size=int(rec.get("size", entry.size)),
+                deadline_s=rec.get("deadline_s"),
+                submit_ts=entry.submit_ts,
+                trace_id=entry.trace_id or "",
+                moved_from=int(from_shard),
+                moved_kind=kind,
+            )
+            squeue.spool_submission(dest_dir, sub)
+            self.queue.moved(entry.sub_id, to_shard=int(dest_shard), kind=kind, trial_id=entry.trial_id)
+            self.sched.take(entry.sub_id)
+            tid = entry.trial_id
+            for d in (self.entries, self.attempts, self.chashes, self.infra_fails, self.ledger.tags):
+                d.pop(tid, None)
+            self._defrag_targets.discard(entry.sub_id)
+            self._preempt_targets.discard(entry.sub_id)
+            self._release_warm(tid)
+            moved.append(entry.sub_id)
+            _emit("submission_moved", sub_id=entry.sub_id, trial_id=tid, tenant=entry.tenant,
+                  from_shard=int(from_shard), to_shard=int(dest_shard), move_kind=kind, trace=entry.trace_id)
+            if on_moved is not None:
+                on_moved(entry.sub_id)
+        if track:
+            prof.note("split_handoff", _t, examined=examined, mutated=len(moved))
+        return moved
+
+    def _release_warm(self, trial_id: int) -> None:
+        """A moved trial's farm program: released (still queued on the farm)
+        or freed (captured, held by no trial), unless a trial still here
+        planned the same key; a capture in flight stays, for the registry's
+        eviction."""
+        key = self._warm_keys.pop(trial_id, None)
+        if key is None or key in self._warm_keys.values():
+            return
+        from multidisttorch_tpu_torch.compile.registry import get_executable_registry
+
+        get_executable_registry().discard(key)
+
     # -- per-submission datasets -------------------------------------
 
     @staticmethod
@@ -1021,6 +1114,10 @@ class SweepService:
                 0,
             )
             group = self._group_for(start, entry.size)
+            from multidisttorch_tpu_torch.compile import programs as _programs
+
+            self._warm_keys[entry.trial_id] = _programs.single_key(group, entry.cfg,
+                                                                   _programs.bucket_key_of(entry.cfg))
             self._farm.plan_sweep(
                 [("single", [(entry.trial_id, entry.cfg)])],
                 [group],
@@ -1305,7 +1402,7 @@ class SweepService:
         tid = entry.trial_id
         for d in (
             self.entries, self.attempts, self.chashes,
-            self.infra_fails, self.ledger.tags,
+            self.infra_fails, self.ledger.tags, self._warm_keys,
         ):
             d.pop(tid, None)
         self._defrag_targets.discard(entry.sub_id)
@@ -1348,9 +1445,13 @@ class SweepService:
         for start, size in ap.free_blocks():
             self.pool.free(start, size)
 
-    def _step_actives(self) -> bool:
+    def _step_actives(self, deadline: Optional[float] = None) -> bool:
         """One cooperative dispatch per live placement; returns whether
-        any placement made progress (drives the idle sleep)."""
+        any placement made progress (drives the idle sleep). With a
+        ``deadline`` (``time.monotonic()``), the pass stops at the first
+        dispatch that ends past it, and the next pass starts with the
+        placement after the last one stepped: at least one dispatch per
+        tick, round robin, so none waits more than a pass."""
         from multidisttorch_tpu_torch.telemetry.events import get_bus
 
         progressed = False
@@ -1358,7 +1459,15 @@ class SweepService:
         # inside the generators): prebuilt per placement, installed
         # only when telemetry is on — the off path touches nothing.
         tracing = get_bus() is not None
-        for pid in list(self.active):
+        pids = list(self.active)
+        if deadline is not None:
+            cur = self._step_cursor
+            pids = [p for p in pids if p >= cur] + [p for p in pids if p < cur]
+        for pid in pids:
+            if deadline is not None:
+                if progressed and time.monotonic() >= deadline:
+                    break
+                self._step_cursor = pid + 1
             ap = self.active.get(pid)
             if ap is None:
                 continue
@@ -2295,10 +2404,12 @@ class SweepService:
 
     # -- the loop -----------------------------------------------------
 
-    def tick(self) -> bool:
+    def tick(self, deadline: Optional[float] = None) -> bool:
         """One service cycle; returns whether anything progressed (the
         caller's idle-sleep signal). Factored out of :meth:`serve` so
-        tests can single-step the daemon deterministically."""
+        tests can single-step the daemon deterministically. ``deadline``
+        (``time.monotonic()``) bounds the dispatches of the cycle
+        (:meth:`_step_actives`): a fabric replica's turn budget."""
         prof = _ctlprof.get_ctlprof()
         if prof is not None:
             # One tick = one control-plane pass: the phase notes below
@@ -2329,9 +2440,13 @@ class SweepService:
                 now >= e.not_before and self._data_ready(e)
             ),
         )
+        t_place = time.monotonic()
         for p in placements:
             self._start_placement(p)
-        progressed = self._step_actives()
+        t_step = time.monotonic()
+        progressed = self._step_actives(deadline)
+        # Where this tick's seconds went (a fabric replica's turn reads it).
+        self.tick_parts = {"place": t_step - t_place, "step": time.monotonic() - t_step}
         # Snapshot-drained victims whose background persist landed:
         # honest `preempted` records + requeues (the deferred half of
         # _checkpoint_drain).

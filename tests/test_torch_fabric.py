@@ -5,7 +5,7 @@ the ``daemon_lost`` fault, the scheduler's EDF order and preemption budget,
 long turns (a long turn keeps its shard; a replica that stops ticking, or
 hangs inside a turn, loses it within the deadline plus the grace), and the failover drill on two
 replica children, bit-identical to its undisturbed reference. Splits, steals
-and ``shard_split_lost`` raise naming ROADMAP A.12b."""
+and ``shard_split_lost`` are held in ``tests/test_torch_fabric_split.py``."""
 
 from __future__ import annotations
 
@@ -696,7 +696,7 @@ def test_lease_keeper_long_turn_and_stopped_replica(tmp_path, monkeypatch, case)
         assert r1.adoptions == 0 and 0 in r0.services
         # The gap the peer saw spans the long turn: past the deadline, short
         # of the deadline plus the grace.
-        assert _DEADLINE_S < fabric_drill._lease_gaps(d, 1)[0] < bound
+        assert _DEADLINE_S < fabric_drill._lease_gaps(d)[0] < bound
         assert _DEADLINE_S < r0.longest_unrenewed_s < bound
         t_stop = time.time()  # r0 stops ticking: killed, as far as its peers know
         while not adopted_at and time.time() - t_stop < 10:
@@ -711,40 +711,73 @@ def test_lease_keeper_long_turn_and_stopped_replica(tmp_path, monkeypatch, case)
         assert not thread.is_alive()
 
 
-# -- what waits for the next part of A.12b --------------------------------------
+@pytest.mark.parametrize("budget", [None, 0.01])
+def test_turn_budget_rounds_the_shards_and_an_adoption_ends_its_turn(tmp_path, monkeypatch, budget):
+    """Without a turn budget every owned shard ticks in every turn, the
+    adoption's turn too (the JAX replica's loop). With one, the turn that
+    built shard services ticks nothing more, and each later turn ticks at
+    least one shard and stops past the budget, the next turn starting with
+    the shard after the last one ticked; each tick gets the deadline."""
+    from multidisttorch_tpu_torch.service import runtime
+
+    log: list = []
+
+    class _Stub(_StubService):
+        def __init__(self, service_dir, **kw):
+            super().__init__(service_dir, turn_s=0.02, **kw)
+            self.shard = int(os.path.basename(service_dir).rsplit("-", 1)[1])
+
+        def tick(self, deadline=None):
+            self.fence()
+            log.append((self.shard, deadline))
+            time.sleep(self.turn_s)
+            return False
+
+    monkeypatch.setattr(runtime, "SweepService", _Stub)
+    r = fabric.FabricReplica(str(tmp_path), replica=0, n_shards=3, prefer={0, 1, 2}, lease_deadline_s=2.0,
+                             renew_every_s=0.05, adopt_scan_every_s=0.0, turn_budget_s=budget)
+    r.tick()
+    assert sorted(r.services) == [0, 1, 2] and r.adoptions == 3
+    if budget is None:
+        r.tick()
+        assert [k for k, _ in log] == [0, 1, 2, 0, 1, 2]
+        assert all(dl is None for _, dl in log)
+        return
+    assert log == []
+    for _ in range(7):
+        r.tick()
+    assert [k for k, _ in log] == [0, 1, 2, 0, 1, 2, 0]
+    assert all(dl is not None for _, dl in log)
+    assert r.fences_lost == 0
 
 
-def test_splits_steals_and_split_lost_raise_naming_the_item(tmp_path):
-    from multidisttorch_tpu_torch.examples import sweep_service
-    from multidisttorch_tpu_torch.faults.inject import FaultInjector
-    from multidisttorch_tpu_torch.faults.plan import SHARD_SPLIT_LOST, FaultPlan, FaultSpec
+def test_a_budgeted_service_tick_steps_its_placements_round_robin():
+    """``SweepService._step_actives`` with a deadline: at least one dispatch,
+    none past the deadline after that, and the next pass starts with the
+    placement after the last one stepped; without one, every placement in
+    order, as before."""
+    from multidisttorch_tpu_torch.service import runtime
 
-    d = str(tmp_path / "f")
-    for kw in ({"split_queue_depth": 4}, {"split_trigger": lambda shard, svc: True}, {"steal_threshold": 6}):
-        with pytest.raises(NotImplementedError, match="A.12b"):
-            fabric.FabricReplica(d, replica=0, n_shards=2, device="cpu", **kw)
-    for flag in (["--split-queue-depth", "4"], ["--split-min-interval", "0.5"], ["--steal-threshold", "6"],
-                 ["--steal-batch", "2"]):
-        with pytest.raises(NotImplementedError, match="A.12b"):
-            sweep_service.main([d, "--fabric", "--device", "cpu", *flag])
-    inj = FaultInjector(FaultPlan(specs=(FaultSpec(SHARD_SPLIT_LOST, -1, step=0, host=0),)), host_slot=0)
-    with pytest.raises(NotImplementedError, match="A.12b"):
-        inj.split_step()
-    # A steal grant in a shard's steal file: its adoption raises.
-    r0 = fabric.FabricReplica(d, replica=0, n_shards=2, device="cpu", n_slices=1, data_rows=32,
-                              nonpreferred_grace_s=0.0)
-    fabric._append_lease(fabric.steal_file(d, 1), {"kind": "grant", "seq": "7", "sub_ids": ["x"]})
-    with pytest.raises(NotImplementedError, match="A.12b"):
-        r0.tick()
-    assert 0 in r0.services and 1 not in r0.services
-    # A pending split in the topology log (a JAX replica's split_begin):
-    # every replica and adoption raises; the client still routes.
-    r0.drain(reason="test end")
-    won, _, _ = jtopo.append_topology_event(d, {"event": jtopo.SPLIT_BEGIN, "parent": 0, "child": 2})
-    assert won
-    with pytest.raises(NotImplementedError, match="A.12b"):
-        fabric.FabricReplica(d, replica=1, n_shards=2, device="cpu")
-    assert fabric.FabricClient(d).shard_for("alpha") == 0
+    order: list = []
+
+    def gen(pid):
+        while True:
+            order.append(pid)
+            time.sleep(0.01)
+            yield
+
+    svc = types.SimpleNamespace(
+        active={pid: types.SimpleNamespace(gen=gen(pid), first_step_done=True, trace_attr=None) for pid in (3, 5, 8)},
+        dispatches=0, _step_cursor=0)
+    for _ in range(4):
+        assert runtime.SweepService._step_actives(svc, time.monotonic())
+    assert order == [3, 5, 8, 3] and svc.dispatches == 4
+    order.clear()
+    runtime.SweepService._step_actives(svc, time.monotonic() + 60.0)
+    assert order == [5, 8, 3]
+    order.clear()
+    runtime.SweepService._step_actives(svc)
+    assert order == [3, 5, 8] and svc.dispatches == 10
 
 
 # -- the failover drill on two replica children ----------------------------------
@@ -794,5 +827,7 @@ def test_fabric_drill_defaults_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         fabric_drill.run_failover_phase(str(tmp_path / "drill"))
     assert not os.path.exists(tmp_path / "drill")
-    assert fabric_drill.NOT_PORTED == {"split_chaos": "A.12b", "movable": "A.12b (the pipelined arm also A.14)",
-                                       "loadgen": "A.12b", "fabric_scenarios": "A.12b"}
+    assert fabric_drill.NOT_PORTED == {"loadgen": "A.12b", "fabric_scenarios": "A.12b", "movable_pipelined": "A.14"}
+    for run in (fabric_drill.run_split_chaos, fabric_drill.run_steal_phase, fabric_drill.run_movable_phase):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run(str(tmp_path / "drill"))

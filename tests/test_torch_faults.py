@@ -252,24 +252,18 @@ def test_unported_host_kinds_raise_naming_their_item(kind, item):
         assert [f["kind"] for f in inj.fired] == [WEDGE]
         FaultInjector(inj.plan).step_hook(0, 0)
         return
-    if kind == DAEMON_LOST:
-        # Ported by A.12b's fabric core: a SIGKILL on the replica's dispatch
-        # clock (tests/test_torch_fabric.py holds the rest).
-        kills = []
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(os, "kill", lambda pid, sig: kills.append((pid, sig)))
-            inj.host_step(1)
-        assert kills == [(os.getpid(), signal.SIGKILL)] and [f["kind"] for f in inj.fired] == [DAEMON_LOST]
-        FaultInjector(inj.plan).host_step(1)
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        if kind == SHARD_SPLIT_LOST:
-            inj.split_step()
-        else:
-            inj.step_hook(0, 0)
-    assert not inj.fired
+    # DAEMON_LOST, ported by A.12b's fabric core, is a SIGKILL on the
+    # replica's dispatch clock; SHARD_SPLIT_LOST, ported with the splits, one
+    # on its split-handoff clock (tests/test_torch_fabric*.py hold the rest).
+    advance = "host_step" if kind == DAEMON_LOST else "split_step"
+    kills = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(os, "kill", lambda pid, sig: kills.append((pid, sig)))
+        getattr(inj, advance)(1)
+    assert kills == [(os.getpid(), signal.SIGKILL)] and [f["kind"] for f in inj.fired] == [kind]
+    assert inj.fired[0]["host"] == 0 and inj.fired[0]["step"] == 0
     # A single-controller injector (no host slot) skips host kinds.
-    FaultInjector(inj.plan).step_hook(0, 0)
+    getattr(FaultInjector(inj.plan), advance)(1)
 
 
 def test_fault_plan_argument(data, tmp_path):

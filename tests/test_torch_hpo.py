@@ -293,7 +293,7 @@ def test_port_sources_name_no_jax():
         r"|import multidisttorch_tpu\b(?!_)|from multidisttorch_tpu\b(?!_))"
         r"|multidisttorch_tpu\.", re.M
     )
-    sources = [os.path.join(REPO, "chip_smoke.py")]
+    sources = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "chip_turns.py")]
     for root, _, files in os.walk(os.path.join(REPO, "multidisttorch_tpu_torch")):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(sources) > 15
