@@ -329,6 +329,27 @@ Phases, in order; any failure exits non-zero and prints no result:
     kernels). The replica children of (a) and (d) run the CLI's turn
     budget; each drill prints its replicas' longest turns by part. Every
     gate is printed before any fails;
+24. the load generator, the scenario zoo and the checkpoint drill (run
+    before 13, in this process, no child): (a) on the host only,
+    ``service.fabric_drill.run_loadgen_phase`` at 20000 submissions (zero
+    lost, fair share within 10 %, deadline hit rate at least 0.9, p99
+    recorded, the SLOs met and exact), ``run_scenario_phase`` at 1500 (both
+    fabric scenarios' elastic arm within 10 % of static routing, zero lost,
+    none double-owned) and ``loadgen.run_scenario`` over every zoo name at
+    1500, each with its gates, and the simulator's submissions per wall
+    second (a host figure); ``service.ckpt_drill`` on ``cuda:0`` at full
+    width: (b) the classic and stacked (2 lanes) flavors through
+    ``run_hpo`` twice each, one epoch of 1280 rows, writing v1 then v2:
+    every leaf and dtype bitwise equal, the ZeRO and pipelined flavors
+    naming A.13 and A.14; (c) the head-only fine-tune and the full-Adam
+    contrast, 4 epochs of 5 steps, v2 saves in 64 KiB chunks: the
+    fine-tune's mean new/total bytes below 0.5; (d) the drain of a
+    placement with a 0.3 s persist in flight, the snapshot drain (v2)
+    against the join drain (v1): both free the slices, the snapshot drain
+    faster and under 0.15 s; (e) the deadline drill under the snapshot
+    drain (persist 0.25 s): the JAX drill's gates. (b)-(e) hold the ELBO
+    launches to the steps their runs and ledgers record, counts set to 0
+    just before each;
 13. a ``kernels`` JSON line, then the result line.
 
 Exits 1 without a result when CUDA is unavailable or the port is not
@@ -5966,6 +5987,257 @@ def fabric_phase(E, smi: str) -> dict:
     return {"survivor": a, "deadline": b, "split_survivor": d, "steal": e, "movable": f}
 
 
+# --- phase 24: the load generator, the scenario zoo and the checkpoint drill --
+
+# 24a's sizes: the load generator at 20000 submissions (the JAX bench's
+# 1,000,000, cut for the script's time), each fabric scenario and every zoo
+# scenario at the JAX tests' 1500.
+LOADGEN_N = 20000
+ZOO_N = 1500
+
+
+def loadgen_phase(smi: str) -> None:
+    """24a, on the host only (the simulator runs the production scheduler,
+    defrag planner and topology on a virtual clock, and no device work):
+    ``fabric_drill.run_loadgen_phase`` at :data:`LOADGEN_N` with its six
+    gates, ``run_scenario_phase`` at :data:`ZOO_N` (both fabric scenarios'
+    elastic arm against static routing) and ``loadgen.run_scenario`` over
+    every name of ``zoo_names()`` at :data:`ZOO_N`, each with its gates.
+    Submissions per wall second are this process's host figure."""
+    from multidisttorch_tpu_torch.service.fabric_drill import run_loadgen_phase, run_scenario_phase
+    from multidisttorch_tpu_torch.service.loadgen import run_scenario, zoo_names
+
+    t0 = time.time()
+    lg = run_loadgen_phase(LOADGEN_N)
+    t1 = time.time()
+    sc = run_scenario_phase(ZOO_N)
+    t2 = time.time()
+    zoo = {name: run_scenario(name, n_submissions=ZOO_N) for name in zoo_names()}
+    t3 = time.time()
+    lat = {k: lg["placement_latency_s"].get(k) for k in ("p50", "p95", "p99", "max")}
+    print(f"24a loadgen: {lg['submitted']} submitted, {lg['admitted']} admitted, {lg['completed']} completed, "
+          f"{lg['placements']} placements; placement latency {lat} virtual s; fairness max error "
+          f"{lg['fairness']['max_abs_ratio_error']}; deadline hit rate {lg['deadline']['hit_rate']}; churn "
+          f"{lg['churn']}; SLOs {({n: v.get('compliance') for n, v in lg['slo']['slos'].items()})}; "
+          f"{lg['submissions_per_wall_s']} submissions per wall second (a host figure: one CPU thread of the "
+          f"card's host, no device work); {t1 - t0:.1f} s ({smi})")
+    for name, rep in sc["scenarios"].items():
+        dyn, sta = rep["dynamic"], rep["static"]
+        print(f"24a fabric scenario {name} at {sc['n_submissions']}: dynamic splits {dyn['splits']}, steals "
+              f"{dyn['steals']}, shards {dyn['final_shards']}, p99 {dyn['placement_latency_s'].get('p99')} against "
+              f"static {sta['placement_latency_s'].get('p99')} virtual s, deadline hit rate "
+              f"{dyn['deadline']['hit_rate']} against {sta['deadline']['hit_rate']}; gates {rep['gates']}")
+    print(f"24a scenario phase {t2 - t1:.1f} s")
+    for name, rep in zoo.items():
+        h = rep["headline"]
+        print(f"24a zoo {name} ({rep['kind']}): {h['submissions']} submissions, {h['submissions_per_wall_s']} "
+              f"a wall second (host), zero lost {h['zero_lost']}, SLO met {h['slo_met']}; gates {rep['gates']}")
+    print(f"24a zoo of {len(zoo)} scenarios {t3 - t2:.1f} s; 24a {t3 - t0:.1f} s ({smi})", flush=True)
+    gates = {f"loadgen_{k}": (v, lg["gates"]) for k, v in lg["gates"].items()}
+    gates.update({f"fabric_scenario_{name}": (rep["ok"], rep["gates"]) for name, rep in sc["scenarios"].items()})
+    gates.update({f"zoo_{name}": (all(rep["gates"].values()), rep["gates"]) for name, rep in zoo.items()})
+    gates["zoo_every_name"] = (sorted(zoo) == zoo_names() and len(zoo) >= 7, sorted(zoo))
+    _gates("24a", gates)
+
+
+def ckpt_parity(E, smi: str, tmp: str) -> dict:
+    """24b: ``ckpt_drill.run_parity_phase`` on ``cuda:0``: the classic flavor
+    and the stacked one (2 lanes) each through ``run_hpo`` twice, one epoch
+    of 1280 rows (10 full-width steps, one graphed chunk), writing v1 then
+    v2; each pair decodes to bitwise-equal state, every leaf and dtype. The
+    registry is on, so the v2 run may take the v1 run's program slot: its
+    bits equal to the v1 run's show that it inherited no generator or Adam
+    state. The ZeRO and pipelined flavors name their items (A.13, A.14).
+    The single kernels once per classic step, the lane kernels once per
+    stacked step (counts set to 0 just before)."""
+    from multidisttorch_tpu_torch.service.ckpt_drill import run_parity_phase
+
+    _zero(E)
+    memo0 = _n_counted_steps()
+    t0 = time.time()
+    rep = run_parity_phase(os.path.join(tmp, "24b"), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(E.LAUNCHES)
+    counted = _n_counted_steps() - memo0
+    steps, fl = rep["steps"], rep["flavors"]
+    # Both lanes of a stacked run take every one of its steps together: one
+    # lane-kernel launch a stacked step.
+    stacked_steps = steps["stacked"] // 2
+    for flavor in rep["gated_flavors"]:
+        for c in fl[flavor]["checks"]:
+            print(f"24b {flavor} {os.path.basename(os.path.dirname(c['v1']))}: formats {c['formats']}, bitwise "
+                  f"{c['bit_identical']}, differing {c['diffs']}")
+    print(f"24b: zero {fl['zero']}, pipelined {fl['pipelined']}; steps {steps}; launches {launches} "
+          f"(+{counted} counted); {wall:.1f} s ({smi})")
+    _gates("24b", {
+        **{f"{flavor}_bitwise_v1_v2": (fl[flavor]["ok"] and all(c["formats"] == ["v1", "v2"]
+                                                                for c in fl[flavor]["checks"]),
+                                      [(c["formats"], c["bit_identical"], c["diffs"]) for c in fl[flavor]["checks"]])
+           for flavor in ("classic", "stacked")},
+        "gated_flavors": (rep["gated_flavors"] == ["classic", "stacked"] and rep["ok"], rep["gated_flavors"]),
+        "zero_names_a13": (fl["zero"] == {"not_ported": "A.13"}, fl["zero"]),
+        "pipelined_names_a14": (fl["pipelined"] == {"not_ported": "A.14"}, fl["pipelined"]),
+        "launches_match_steps": (launches["elbo_fwd"] == launches["elbo_bwd"] == steps["classic"] + counted > 0
+                                 and launches["elbo_fwd_lanes"] == launches["elbo_bwd_lanes"] == stacked_steps > 0,
+                                 (launches, steps, counted)),
+    })
+    return launches
+
+
+def ckpt_delta(E, smi: str, tmp: str) -> dict:
+    """24c: ``ckpt_drill.run_delta_phase`` on the card at full width (batch
+    128): the head-only fine-tune and the full-Adam contrast, 4 epochs of 5
+    steps each through the fused ELBO loss and the port's Adam, a v2 save in
+    64 KiB chunks an epoch. Gate: the fine-tune's mean new/total bytes after
+    the first save below 0.5; the single kernels once a step."""
+    from multidisttorch_tpu_torch.service.ckpt_drill import run_delta_phase
+
+    _zero(E)
+    t0 = time.time()
+    rep = run_delta_phase(os.path.join(tmp, "24c"), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(E.LAUNCHES)
+    ft, full = rep["finetune"], rep["full_adam_contrast"]
+
+    def ratios(c):
+        return [round(s["new_bytes"] / s["total_bytes"], 6) for s in c["saves"]]
+
+    print(f"24c: {rep['shape']}, {rep['epochs']} epochs of 5 steps a cadence: model_bytes {ft['model_bytes']}; "
+          f"head-only new/total per save {ratios(ft)} (new bytes {[s['new_bytes'] for s in ft['saves']]}), mean "
+          f"after the first {ft['delta_ratio_mean']}, max {ft['delta_ratio_max']}; full Adam {ratios(full)}, mean "
+          f"{full['delta_ratio_mean']}; launches {launches} for {rep['steps']} steps; {wall:.1f} s ({smi})")
+    _gates("24c", {
+        "delta_ratio_below_half": (rep["ok"], (ft["delta_ratio_mean"], full["delta_ratio_mean"])),
+        "launches_match_steps": (launches["elbo_fwd"] == launches["elbo_bwd"] == rep["steps"] == 40
+                                 and launches["elbo_fwd_lanes"] == launches["elbo_bwd_lanes"] == 0,
+                                 (launches, rep["steps"])),
+    })
+    return launches
+
+
+def ckpt_drain(E, smi: str, tmp: str) -> dict:
+    """24d: ``ckpt_drill.run_drain_primitive_phase`` on the card, persist
+    delay 0.3 s: two full-width whales in distinct ``fused_steps`` buckets
+    on 2 slots of ``cuda:0`` (1280 rows, 10 steps an epoch) until each has a
+    durable checkpoint, then the drain of a placement with a write in
+    flight, the snapshot drain on v2 and the join drain on v1. Gates: both
+    free the victim's slices, the snapshot drain faster than the join drain
+    and under 0.15 s; the ELBO kernels once per step the arms' ledgers
+    record (counts set to 0 just before)."""
+    from multidisttorch_tpu_torch.service.ckpt_drill import run_drain_primitive_phase
+
+    _zero(E)
+    memo0 = _n_counted_steps()
+    t0 = time.time()
+    rep = run_drain_primitive_phase(os.path.join(tmp, "24d"), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(E.LAUNCHES)
+    counted = _n_counted_steps() - memo0
+    arms = rep["arms"]
+    steps = sum(n for arm in arms.values() for _, n in _attempt_steps(arm["service_dir"]))
+    snap, join = arms["snapshot_v2"], arms["join_v1"]
+
+    def books(arm):
+        b = arm["checkpoint_books"]
+        return {k: b[k]["max_s"] for k in ("drain_snapshot", "drain_persist")}
+
+    print(f"24d: persist delay {rep['persist_delay_s']} s; drain to slices freed: snapshot (v2) "
+          f"{snap['drain_to_slices_freed_s']} s, join (v1) {join['drain_to_slices_freed_s']} s, speedup "
+          f"{rep['speedup']}x; drain to persist: snapshot {snap['drain_to_persist_s']} s, join "
+          f"{join['drain_to_persist_s']} s; books (max s) snapshot {books(snap)}, join {books(join)}; launches "
+          f"{launches} for {steps} ledger steps (+{counted} counted); {wall:.1f} s ({smi})")
+    _gates("24d", {
+        "slices_freed_both": (snap["slices_freed"] and join["slices_freed"],
+                              (snap["slices_freed"], join["slices_freed"])),
+        "snapshot_faster": (rep["snapshot_faster"], (snap["drain_to_slices_freed_s"], join["drain_to_slices_freed_s"])),
+        "snapshot_under_half_the_delay": (rep["snapshot_unblocked"], snap["drain_to_slices_freed_s"]),
+        "all_gates": (rep["ok"], rep["ok"]),
+        "launches_match_ledgers": (launches["elbo_fwd"] == launches["elbo_bwd"] == steps + counted > 0
+                                   and launches["elbo_fwd_lanes"] == launches["elbo_bwd_lanes"] == 0,
+                                   (launches, steps, counted)),
+    })
+    return launches
+
+
+def ckpt_deadline(E, smi: str, tmp: str) -> dict:
+    """24e: ``ckpt_drill.run_deadline_phase`` on the card, persist delay
+    0.25 s: the 24d whales (cut from the JAX drill's 20 epochs to 8, as 23b
+    cuts its own: each epoch joins the previous 0.25 s persist) fill 2
+    slots, a size-2 deadline whale (one epoch, a third bucket) preempts
+    both under the snapshot drain. The JAX drill's
+    gates: the whale completes inside its deadline, pending persists
+    observed, no ``preempted`` record before its persist lands (read live
+    between ticks), at least 2 ``preempted`` records, a RAM restore, 2
+    ``ckpt_persist`` spans, all three complete; the ELBO kernels once per
+    step the ledger records over every attempt, the victims' re-run steps
+    included (the device books' counted steps taken off)."""
+    from multidisttorch_tpu_torch.service.ckpt_drill import run_deadline_phase
+
+    _zero(E)
+    memo0 = _n_counted_steps()
+    t0 = time.time()
+    rep = run_deadline_phase(os.path.join(tmp, "24e"), device="cuda", long_epochs=8)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counted = _n_counted_steps() - memo0
+    launches = {k: v - (counted if k in ("elbo_fwd", "elbo_bwd") else 0) for k, v in E.LAUNCHES.items()}
+    attempts = _attempt_steps(rep["service_dir"])
+    steps = sum(n for _, n in attempts)
+    h = rep["honesty"]
+    ckb = rep["checkpoint_books"]
+    print(f"24e: best-effort whales of {rep['long_epochs']} epochs; deadline trial {rep['deadline_status']} "
+          f"{rep['settle_latency_s']} s after submission (deadline "
+          f"{rep['deadline_s']} s), placed after {rep['whale_placed_after_s']} s; honesty {h}; preempted records "
+          f"{rep['preempted_records']}, RAM restores {rep['ram_restores']}, ckpt_persist spans "
+          f"{rep['trace_persist_spans']}; drain snapshot max {ckb['drain_snapshot']['max_s']} s, persist max "
+          f"{ckb['drain_persist']['max_s']} s; attempts (status, steps) {attempts}; launches {launches} for {steps} "
+          f"ledger steps (+{counted} counted); {wall:.1f} s ({smi})")
+    _gates("24e", {
+        "completed_inside_deadline": (rep["deadline_status"] == "completed"
+                                      and rep["settle_latency_s"] < rep["deadline_s"],
+                                      (rep["deadline_status"], rep["settle_latency_s"])),
+        "pending_persists_observed": (h["observed_pending"], h),
+        "no_preempted_before_persist": (h["preempted_before_persist"] == 0, h),
+        "preempted_records_2": (rep["preempted_records"] >= 2, rep["preempted_records"]),
+        "restores_ram_1": (rep["ram_restores"] >= 1, rep["ram_restores"]),
+        "persist_spans_2": (rep["trace_persist_spans"] >= 2, rep["trace_persist_spans"]),
+        "all_three_completed": (rep["all_completed"], rep["all_completed"]),
+        "all_gates": (rep["ok"], rep["ok"]),
+        "launches_match_ledger": (launches["elbo_fwd"] == launches["elbo_bwd"] == steps > 0
+                                  and launches["elbo_fwd_lanes"] == launches["elbo_bwd_lanes"] == 0,
+                                  (launches, steps, counted)),
+    })
+    return launches
+
+
+def ckpt_phase(E, smi: str) -> dict:
+    """Phase 24, in this process and with no child, the registry on (the
+    port's default) and telemetry off (24e turns it on for its evidence and
+    off after): 24a on the host, then 24b-24e, each of which counts this
+    process's launches."""
+    from multidisttorch_tpu_torch import telemetry
+
+    os.environ.pop("MDT_AOT_ADMISSION", None)
+    telemetry.disable()
+    t0 = time.time()
+    loadgen_phase(smi)
+    t1 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        b = ckpt_parity(E, smi, tmp)
+        t2 = time.time()
+        c = ckpt_delta(E, smi, tmp)
+        t3 = time.time()
+        d = ckpt_drain(E, smi, tmp)
+        t4 = time.time()
+        e = ckpt_deadline(E, smi, tmp)
+    print(f"phase 24: {time.time() - t0:.1f} s (24a {t1 - t0:.1f} s, 24b {t2 - t1:.1f} s, 24c {t3 - t2:.1f} s, "
+          f"24d {t4 - t3:.1f} s, 24e {time.time() - t4:.1f} s; {smi})", flush=True)
+    return {"parity": b, "delta": c, "drain": d, "deadline": e}
+
+
 def main() -> None:
     t_start = time.time()
 
@@ -6277,6 +6549,11 @@ def main() -> None:
     fab = fabric_phase(E, smi)
     mark("23")
 
+    # Phase 24: the load generator, the scenario zoo and the checkpoint
+    # drill; counts set to 0 inside, just before each of 24b-24e.
+    ckpt = ckpt_phase(E, smi)
+    mark("24")
+
     # Phase 13: the kernels line, then the result.
     # "ms", "plain_ms" and "library_ms" are device time per call at the
     # slice's shape (batch 128, f32); "*_call_ms" add the host's per-call
@@ -6295,7 +6572,9 @@ def main() -> None:
     # phase 20's ("incident_drill": 20a's sweeps; "plane": 20b's telemetry-on
     # sweep) and phase 23's ("fabric_survivor": 23a's surviving replica, from
     # its own counts; "fabric_deadline": 23b; "fabric_split_survivor": 23d's,
-    # from its own counts; "fabric_steal": 23e's two replicas) and phase 21c's per-group family members ran, graph replays
+    # from its own counts; "fabric_steal": 23e's two replicas) and phase 24's
+    # ("ckpt_parity": 24b's classic runs; "ckpt_delta": 24c; "ckpt_drain":
+    # 24d's two arms; "ckpt_deadline": 24e) and phase 21c's per-group family members ran, graph replays
     # included, one per wrapper call; "launches_by_path" each. "conv_vae_width" holds the
     # same times at the conv beta-VAE's shape, (128, 3072, 64) f32.
     src = "multidisttorch_tpu_torch/ops/csrc/elbo.cu"
@@ -6315,6 +6594,7 @@ def main() -> None:
                    "service": service["service"][name], "service_drill": service["service_drill"][name],
                    "fabric_survivor": fab["survivor"][name], "fabric_deadline": fab["deadline"][name],
                    "fabric_split_survivor": fab["split_survivor"][name], "fabric_steal": fab["steal"][name],
+                   **{f"ckpt_{part}": n[name] for part, n in ckpt.items()},
                    "incident_drill": plane["incident_drill"][name], "plane": plane["plane"][name],
                    "pbt_family_conv_per_group_k4": fam["conv_k4"]["per_group"][name],
                    "pbt_family_moe_per_group_k4": fam["moe_k4"]["per_group"][name]}
@@ -6373,7 +6653,7 @@ def main() -> None:
     # ("service_stacked": 19a's buckets and 19b's preempted bucket;
     # "service_drill": 19c's restarted daemon), 23a's surviving fabric replica
     # ("fabric_survivor", its own counts), 23f's stacked bucket, evicted and
-    # not ("fabric_movable"), and phase 21's (21a-b's fused
+    # not ("fabric_movable"), 24b's stacked runs ("ckpt_parity"), and phase 21's (21a-b's fused
     # family runs, 21c's fused K 4 runs), "launches_by_path" each;
     # "conv_vae_width" holds the same times at the conv beta-VAE's lanes,
     # (8, 128, 3072, 64) f32 (21d).
@@ -6392,6 +6672,7 @@ def main() -> None:
                       "service_drill": service["service_drill"][name],
                       "fabric_survivor": fab["survivor"][name],
                       "fabric_movable": fab["movable"][name],
+                      "ckpt_parity": ckpt["parity"][name],
                       "pbt_family_conv": fam["conv"]["launches"][name],
                       "pbt_family_moe": fam["moe"]["launches"][name],
                       "pbt_family_conv_fused_k4": fam["conv_k4"]["fused"][name],

@@ -31,15 +31,22 @@ the front door that turns the same machinery into a long-running service
   split killed halfway, work stealing; the runtime's ``extract_queued``
   moves the queued work) and :class:`FabricClient`; :mod:`service.fabric_drill`
   drills its failover and its split chaos on replica children, a steal and
-  a movable stacked bucket in process.
+  a movable stacked bucket in process, and replays the load generator and
+  its fabric scenarios.
+- :mod:`service.loadgen`: the discrete-event load generator and its
+  scenario zoo: seeded workloads of up to millions of submissions through
+  the production scheduler, defrag planner and topology on a virtual clock.
+- :mod:`service.ckpt_drill`: the checkpoint data plane's drill: v1↔v2
+  restore parity, incremental v2 saves, and the snapshot drain against the
+  join drain (``SweepService(snapshot_drain=False)``).
 
-The scheduler, queue, defrag and topology modules are copies of the JAX
-package's (no torch), held to them by ``tests/test_torch_service.py`` and
-``tests/test_torch_fabric.py``.
+The scheduler, queue, defrag, topology and loadgen modules are copies of
+the JAX package's (no torch), held to them by ``tests/test_torch_service.py``,
+``tests/test_torch_fabric.py`` and ``tests/test_torch_loadgen.py``.
 
-Not ported here (ROADMAP A.12b): the load generator and its scenario zoo,
-the checkpoint drill, and the incident drill's split scenario; the movable
-drill's pipelined arm waits for pipeline placements (A.14).
+Not ported here (ROADMAP A.12b): the incident drill's split scenario; the
+checkpoint drill's ZeRO flavor waits for sharding (A.13), its pipelined
+flavor and the movable drill's pipelined arm for pipeline placements (A.14).
 """
 
 from multidisttorch_tpu_torch.service.queue import (  # noqa: F401

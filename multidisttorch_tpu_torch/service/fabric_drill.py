@@ -38,6 +38,16 @@ Phases (docs/SERVICE.md "Service fabric"):
    drained mid-flight, resumed and finished, held to its undisturbed run
    (bitwise on the CPU, by the parity rule on the card). Its pipelined arm
    waits for pipeline placements (ROADMAP A.14).
+7. **Load generator** (:func:`run_loadgen_phase`): ``service/loadgen.py``'s
+   discrete-event replay of ``MDT_FABRIC_LOADGEN_N`` submissions (default
+   1,000,000) through the production scheduler on a virtual clock, under the
+   control-plane profiler. Gates: zero lost, fair share within 10 %, a
+   deadline hit rate of at least 0.9, p99 recorded, and the offline SLOs met
+   and exact.
+8. **Scenario zoo over the dynamic topology** (:func:`run_scenario_phase`):
+   each fabric scenario of the load generator (``MDT_FABRIC_SCENARIO_N``
+   submissions, default 20,000) replayed with splits and stealing against
+   static routing on the same seeded workload. Both run on the host only.
 
 **The parity rule** (:func:`_parity`). The reference buckets both
 tenants' trials together; the fabric buckets each shard alone, and an
@@ -56,8 +66,8 @@ VAE at batch 128 in shape buckets of different ``fused_steps``
 (``service/drill.py``'s card sizes). The children's environment names the
 device (``--device``) and sets nothing for JAX.
 
-Not ported (:data:`NOT_PORTED`): the load generator and the scenario zoo
-(ROADMAP A.12b), and the movable drill's pipelined arm (A.14).
+Not ported (:data:`NOT_PORTED`): the movable drill's pipelined arm (ROADMAP
+A.14).
 """
 
 from __future__ import annotations
@@ -87,8 +97,6 @@ TENANT_SHARD1 = "beta"
 
 # The JAX drill's phases this port does not run yet: phase -> ROADMAP item.
 NOT_PORTED = {
-    "loadgen": "A.12b",
-    "fabric_scenarios": "A.12b",
     "movable_pipelined": "A.14",
 }
 
@@ -1137,18 +1145,78 @@ def run_deadline_phase(work_dir: str, *, device: Optional[str] = None, base: Opt
     return report
 
 
-def run_fabric_bench(work_dir: str, *, device: Optional[str] = None) -> dict:
+def run_loadgen_phase(n_submissions: int, *, seed: int = 0) -> dict:
+    """The load generator's replay of ``n_submissions`` with the JAX drill's
+    gates. It runs under the control-plane profiler (armed for the phase if
+    none is), so the report carries the passes' flight books beside the
+    submissions per wall second."""
+    from multidisttorch_tpu_torch.service.loadgen import run_loadgen
+    from multidisttorch_tpu_torch.telemetry import ctlprof as _ctlprof
+
+    own = _ctlprof.get_ctlprof() is None
+    prof = _ctlprof.configure() if own else _ctlprof.get_ctlprof()
+    try:
+        report = run_loadgen(n_submissions=n_submissions, seed=seed)
+        report["ctl"] = prof.books()
+    finally:
+        if own:
+            _ctlprof.disable()
+    report["gates"] = {
+        "zero_lost": report["zero_lost"],
+        "fairness_within_10pct": report["fairness"]["within_10pct"],
+        "deadline_hit_rate_floor_0.9": (
+            report["deadline"]["hit_rate"] is not None and report["deadline"]["hit_rate"] >= 0.9
+        ),
+        "p99_recorded": bool(report["placement_latency_s"].get("count")),
+        # The offline SLO verdict, exact off the whole histogram; the
+        # percentile gates above cross-check it.
+        "slo_met": report["slo"]["met"],
+        "slo_exact": all(s.get("exact") for s in report["slo"]["slos"].values()),
+    }
+    report["ok"] = all(report["gates"].values())
+    return report
+
+
+def run_scenario_phase(n_submissions: Optional[int] = None, *, seed: int = 0) -> dict:
+    """The load generator's fabric scenarios over the dynamic topology: each
+    replays twice, the elastic arm (splits and stealing through the
+    production topology trie) against static routing on the same seeded
+    workload. Gates: zero lost, none double-owned, and the elastic arm's p99
+    placement latency and deadline hit rate within 10 % of the static arm's."""
+    from multidisttorch_tpu_torch.service.loadgen import FABRIC_SCENARIOS, run_fabric_scenario
+
+    if n_submissions is None:
+        n_submissions = int(os.environ.get("MDT_FABRIC_SCENARIO_N", "20000") or 20000)
+    scenarios: dict[str, dict] = {}
+    for name in sorted(FABRIC_SCENARIOS):
+        rep = run_fabric_scenario(name, n_submissions=n_submissions, seed=seed)
+        rep["ok"] = all(rep["gates"].values())
+        scenarios[name] = rep
+    return {
+        "n_submissions": n_submissions,
+        "scenarios": scenarios,
+        "ok": all(r["ok"] for r in scenarios.values()),
+    }
+
+
+def run_fabric_bench(work_dir: str, *, device: Optional[str] = None, loadgen_n: Optional[int] = None) -> dict:
     """The ported phases and their gates (the JAX bench's failover, split,
-    movable and deadline gates, and the steal drill's); :data:`NOT_PORTED`
-    lists the rest."""
+    movable, deadline, load-generator and scenario gates, and the steal
+    drill's); :data:`NOT_PORTED` lists the rest. ``loadgen_n`` defaults to
+    ``MDT_FABRIC_LOADGEN_N`` (1,000,000), the scenarios' size to
+    ``MDT_FABRIC_SCENARIO_N`` (20,000), as in the JAX bench."""
     device = _device(device)
     os.makedirs(work_dir, exist_ok=True)
+    if loadgen_n is None:
+        loadgen_n = int(os.environ.get("MDT_FABRIC_LOADGEN_N", "1000000") or 1000000)
     t0 = time.time()
     failover = run_failover_phase(work_dir, device=device)
     split_chaos = run_split_chaos(work_dir, device=device)
     steal = run_steal_phase(work_dir, device=device)
     movable = run_movable_phase(work_dir, device=device)
     deadline = run_deadline_phase(work_dir, device=device)
+    loadgen = run_loadgen_phase(loadgen_n)
+    scenarios = run_scenario_phase()
     gates = {
         "kill_exercised": failover["kill_exercised"],
         "zero_lost_submissions": failover["zero_lost"],
@@ -1165,6 +1233,8 @@ def run_fabric_bench(work_dir: str, *, device: Optional[str] = None) -> dict:
         "steal_executed_bit_identical": steal["ok"],
         "stacked_evict_resume_bit_identical": movable["stacked"]["bit_identical"],
         "deadline_preemption_drill": deadline["ok"],
+        "scenario_gates": scenarios["ok"],
+        "loadgen_gates": loadgen["ok"],
     }
     return {
         "protocol": "fabric_v2",
@@ -1175,6 +1245,8 @@ def run_fabric_bench(work_dir: str, *, device: Optional[str] = None) -> dict:
         "steal": steal,
         "movable": movable,
         "deadline": deadline,
+        "loadgen": loadgen,
+        "fabric_scenarios": scenarios,
         "not_ported": dict(NOT_PORTED),
         "gates": gates,
         "ok": all(gates.values()),

@@ -315,28 +315,33 @@ class _Active:
     def free_blocks(self) -> list:
         return list(self.blocks) if self.blocks else [(self.start, self.size)]
 
-    def movable(self) -> bool:
+    def movable(self, snapshot_drain: bool = True) -> bool:
         """Defrag/preemption victim eligibility, decided at PLAN time:
         never with an UNFLUSHED checkpoint the drain cannot account
-        for. Precisely: movable iff a durable checkpoint exists, a
+        for. Precisely: movable iff (a durable checkpoint exists, a
         checkpoint write is in flight, or the trial has made no
-        optimizer step (nothing to lose). The snapshot-fast drain
-        ADOPTS an in-flight write instead of blocking eligibility — it
-        lands in the background before the victim's ``preempted``
-        record, the same-process re-place prefers the newer RAM
-        snapshot, and the save path's step guard keeps a stale late
-        persist from replacing a successor's newer manifest — so
-        migration never rolls back past it.
+        optimizer step — nothing to lose) AND, under the join drain
+        (``snapshot_drain=False``), no checkpoint write is in flight.
+        The snapshot-fast drain (the default) ADOPTS an in-flight write
+        instead of blocking eligibility — it lands in the background
+        before the victim's ``preempted`` record, the same-process
+        re-place prefers the newer RAM snapshot, and the save path's
+        step guard keeps a stale late persist from replacing a
+        successor's newer manifest — so migration never rolls back
+        past it.
 
-        Stacked buckets are always movable: the drain itself snapshots
+        Stacked buckets are movable too: the drain itself snapshots
         every live stacked lane at its epoch boundary
         (``drain_snapshot`` — all K lanes together), so it cannot lose
-        progress it did not first make durable."""
-        if self.stacked:
-            return True
+        progress it did not first make durable. Only the join drain
+        defers one, while a drain write of the bucket is in flight."""
         run = self.run
         t = getattr(run, "_ckpt_thread", None)
         in_flight = t is not None and t.is_alive()
+        if self.stacked:
+            return snapshot_drain or not in_flight
+        if in_flight and not snapshot_drain:
+            return False  # unflushed checkpoint write in flight
         has_ckpt = bool(run.result.checkpoint) or in_flight
         return has_ckpt or int(getattr(run, "_step_no", 0)) == 0
 
@@ -403,6 +408,7 @@ class SweepService:
         save_checkpoints: bool = True,
         ckpt_keep_last: int = 2,
         ckpt_format: Optional[str] = None,
+        snapshot_drain: Optional[bool] = None,
         verbose: bool = False,
         precompile: bool = False,
         idle_sleep_s: float = 0.02,
@@ -484,14 +490,21 @@ class SweepService:
         self.save_checkpoints = bool(save_checkpoints)
         self.ckpt_keep_last = int(ckpt_keep_last)
         # Checkpoint data plane (docs/RESILIENCE.md "Checkpoint format
-        # v2"): the format every placement writes. Every drain is
-        # snapshot-fast: a preemption completes at the device→host
-        # snapshot, persistence lands on the victim's background writer
-        # and the freed slices place the starved trial immediately.
+        # v2"): the format every placement writes, and the drain mode —
+        # snapshot-fast (the default: a preemption completes at the
+        # device→host snapshot, persistence lands on the victim's
+        # background writer, the freed slices place the starved trial
+        # immediately) or the join drain (MDT_SNAPSHOT_DRAIN=0, the
+        # checkpoint drill's v1 comparison arm: the write joined inline).
         from multidisttorch_tpu_torch.train.checkpoint import default_format
 
         self.ckpt_format = (
             ckpt_format if ckpt_format is not None else default_format()
+        )
+        self.snapshot_drain = bool(
+            snapshot_drain
+            if snapshot_drain is not None
+            else os.environ.get("MDT_SNAPSHOT_DRAIN", "1") != "0"
         )
         self._pending_persists: list[_PendingPersist] = []
         # Counter baseline for this INSTANCE's books: the checkpoint
@@ -1257,7 +1270,7 @@ class SweepService:
                     resume="scan" if e.resume_scan else False,
                     ckpt_keep_last=self.ckpt_keep_last,
                     ckpt_format=self.ckpt_format,
-                    ram_restore=True,
+                    ram_restore=self.snapshot_drain,
                     attempt=self.attempts[e.trial_id],
                 )
         except Exception as exc:  # noqa: BLE001 — setup isolation
@@ -1675,7 +1688,7 @@ class SweepService:
                     placement_id=pid,
                     start=bstart,
                     size=bsize,
-                    movable=ap.movable(),
+                    movable=ap.movable(self.snapshot_drain),
                     rehome_sizes=self._rehome_sizes(ap),
                 )
                 for pid, ap in self.active.items()
@@ -1821,6 +1834,10 @@ class SweepService:
         unchanged: a SIGKILL mid-persist leaves an OPEN attempt whose
         scan-back restores the previous durable step.
 
+        ``snapshot_drain=False`` (the checkpoint drill's v1 comparison
+        arm) is the join drain: join the write inline, record
+        ``preempted``, requeue — everything on the caller's clock.
+
         Returns the requeued entries: ONE for a classic or pipelined
         placement (a pipelined vector drains all-or-nothing through
         its single entry — every stage block frees, the re-place
@@ -1840,30 +1857,66 @@ class SweepService:
         except Exception:  # noqa: BLE001 — teardown must go on
             pass
         progress = self._attempt_progress(ap, tid)
+        if self.snapshot_drain:
+            self._retire(ap)
+            snap_s = time.perf_counter() - t0
+            self.drain_snapshot.observe(snap_s, exemplar=entry.sub_id)
+            _emit(
+                "ckpt_snapshot",
+                trial_id=tid,
+                sub_id=entry.sub_id,
+                tenant=entry.tenant,
+                wall_s=round(snap_s, 6),
+                drain=True,
+                reason=reason,
+                persist_in_flight=not ap.run._ckpt_idle(),
+            )
+            self._pending_persists.append(
+                _PendingPersist(
+                    ap=ap,
+                    entry=entry,
+                    reason=reason,
+                    progress=progress,
+                    chash=self.chashes.get(tid, ""),
+                    attempt=self.attempts.get(tid, 1),
+                    t0=t0,
+                    snapshot_s=snap_s,
+                )
+            )
+            self._requeue(
+                entry,
+                reason=reason,
+                pinned_start=pinned_start,
+                front=front,
+            )
+            return [entry]
+        # The join drain: everything on the caller's clock. The writer
+        # thread serialises a host tree and needs no device turn.
+        try:
+            ap.run._join_ckpt()
+        except Exception:  # noqa: BLE001
+            pass
         self._retire(ap)
-        snap_s = time.perf_counter() - t0
-        self.drain_snapshot.observe(snap_s, exemplar=entry.sub_id)
+        persist_s = time.perf_counter() - t0
+        self.drain_snapshot.observe(persist_s, exemplar=entry.sub_id)
+        self.drain_persist.observe(persist_s, exemplar=entry.sub_id)
         _emit(
-            "ckpt_snapshot",
+            "ckpt_persist",
             trial_id=tid,
             sub_id=entry.sub_id,
             tenant=entry.tenant,
-            wall_s=round(snap_s, 6),
+            wall_s=round(persist_s, 6),
             drain=True,
+            mode="join",
             reason=reason,
-            persist_in_flight=not ap.run._ckpt_idle(),
         )
-        self._pending_persists.append(
-            _PendingPersist(
-                ap=ap,
-                entry=entry,
-                reason=reason,
-                progress=progress,
-                chash=self.chashes.get(tid, ""),
-                attempt=self.attempts.get(tid, 1),
-                t0=t0,
-                snapshot_s=snap_s,
-            )
+        self.ledger.attempt_end(
+            tid,
+            self.chashes[tid],
+            self.attempts.get(tid, 1),
+            "preempted",
+            error=reason,
+            summary=progress,
         )
         self._requeue(
             entry,
@@ -1884,7 +1937,8 @@ class SweepService:
         bit-identically (the stacked/classic parity contract). Under
         the snapshot-fast drain the K persists land on the bucket's
         background writer — one :class:`_PendingPersist` per lane, all
-        sharing the writer's idle flag."""
+        sharing the writer's idle flag; the join drain joins the writer
+        and records every lane ``preempted`` before it returns."""
         t0 = time.perf_counter()
         # Drive the bucket to a ROUND BOUNDARY before snapshotting: the
         # stacked runner yields mid-round (mid-epoch lane states), and
@@ -1942,20 +1996,37 @@ class SweepService:
                 reason=reason,
                 persist_in_flight=not ap.run._ckpt_idle(),
             )
-            self._pending_persists.append(
-                _PendingPersist(
-                    ap=ap,
-                    entry=entry,
-                    reason=reason,
-                    progress=progress[tid],
-                    chash=self.chashes.get(tid, ""),
-                    attempt=self.attempts.get(tid, 1),
-                    t0=t0,
-                    snapshot_s=snap_s,
+            if self.snapshot_drain:
+                self._pending_persists.append(
+                    _PendingPersist(
+                        ap=ap,
+                        entry=entry,
+                        reason=reason,
+                        progress=progress[tid],
+                        chash=self.chashes.get(tid, ""),
+                        attempt=self.attempts.get(tid, 1),
+                        t0=t0,
+                        snapshot_s=snap_s,
+                    )
                 )
-            )
             self._requeue(entry, reason=reason, front=front)
             requeued.append(entry)
+        if not self.snapshot_drain and live:
+            try:
+                ap.run._join_ckpt()
+            except Exception:  # noqa: BLE001
+                pass
+            persist_s = time.perf_counter() - t0
+            for tid, entry in live:
+                self.drain_persist.observe(persist_s, exemplar=entry.sub_id)
+                self.ledger.attempt_end(
+                    tid,
+                    self.chashes.get(tid, ""),
+                    self.attempts.get(tid, 1),
+                    "preempted",
+                    error=reason,
+                    summary=progress[tid],
+                )
         return requeued
 
     def _poll_persists(self, now: float) -> bool:
@@ -2033,7 +2104,7 @@ class SweepService:
         deadline trial — EDF already ordered them), checkpoint-drained
         safely (``movable``: single, durable checkpoint or nothing to
         lose), and within the anti-thrash budget."""
-        if not ap.movable():
+        if not ap.movable(self.snapshot_drain):
             return False
         for tid, entry in ap.entries.items():
             if entry.deadline_ts is not None:
@@ -2275,6 +2346,7 @@ class SweepService:
         total = c["bytes_total"]
         return {
             "format": self.ckpt_format,
+            "snapshot_drain": self.snapshot_drain,
             "pending_persists": len(self._pending_persists),
             "drain_snapshot": self.drain_snapshot.stats(),
             "drain_persist": self.drain_persist.stats(),

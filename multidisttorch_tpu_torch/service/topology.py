@@ -2,9 +2,10 @@
 
 Counterpart of the JAX package's ``service/topology.py``, the same file
 with the imports renamed (held to it by ``tests/test_torch_fabric.py``).
-The port's fabric routes every client and replica through it; it writes
-no event of its own yet, since splits and merges are not ported (ROADMAP
-A.12b), so an empty log, static routing, is what the port runs.
+The port's fabric routes every client and replica through it, and a
+replica's shard split appends its events here (``split_begin``, then
+``split_commit`` or ``split_abort``: ``service/fabric.py``); a fabric
+that never splits keeps an empty log, which routes as static routing does.
 
 Static routing fixes tenant→shard at ``fabric.json`` creation time
 (CRC over a fixed ``n_shards``), and a hot shard could never shed

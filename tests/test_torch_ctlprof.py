@@ -93,8 +93,9 @@ def test_ctlprof_off_reads_no_clock(tmp_path, monkeypatch):
     every seam family (intake drain + hundreds of scheduling passes:
     admission, fair-share, EDF, bin-pack, preemption, defrag) must never
     reach the profiler's clock indirection. (The JAX test drives its
-    load generator, ROADMAP A.12b; here a seeded stream drives the same
-    scheduler and planner seams directly.)"""
+    load generator, as ``tests/test_torch_loadgen.py`` does over the
+    port's; here a seeded stream drives the same scheduler and planner
+    seams directly.)"""
     assert ctlprof.get_ctlprof() is None
     monkeypatch.setattr(ctlprof, "_clock", _boom_clock)
     # Real journal seam:

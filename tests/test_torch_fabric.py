@@ -827,7 +827,7 @@ def test_fabric_drill_defaults_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         fabric_drill.run_failover_phase(str(tmp_path / "drill"))
     assert not os.path.exists(tmp_path / "drill")
-    assert fabric_drill.NOT_PORTED == {"loadgen": "A.12b", "fabric_scenarios": "A.12b", "movable_pipelined": "A.14"}
+    assert fabric_drill.NOT_PORTED == {"movable_pipelined": "A.14"}
     for run in (fabric_drill.run_split_chaos, fabric_drill.run_steal_phase, fabric_drill.run_movable_phase):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run(str(tmp_path / "drill"))

@@ -268,7 +268,7 @@ PORT_MODULES = (
     "service.defrag", "service.runtime", "service.drill", "examples.sweep_service", "examples.sweep_submit",
     "telemetry.incident", "service.incident_drill", "tools.sweep_top", "tools.ledger_view", "tools.sweep_trace",
     "tools.ckpt_gc", "tools.incident", "ops.lanes", "ops.ring_attention", "train.lm_quant", "examples.lm_hpo",
-    "service.topology", "service.fabric", "service.fabric_drill",
+    "service.topology", "service.fabric", "service.fabric_drill", "service.loadgen", "service.ckpt_drill",
 )
 
 

@@ -925,7 +925,8 @@ class TestServiceRuntime:
         """Invariant at the RUNTIME level: a placement with progress
         but no checkpoint the drain can account for (none durable,
         none in flight) reports unmovable, so the planner cannot choose
-        it; the snapshot-fast drain adopts an in-flight write."""
+        it; the snapshot-fast drain (the default) adopts an in-flight
+        write, and the join drain defers it until the write lands."""
         import threading
 
         from multidisttorch_tpu_torch.service.runtime import _Active
@@ -948,6 +949,7 @@ class TestServiceRuntime:
             construct_s=0.0,
         )
         ap.run._ckpt_thread.start()
+        assert not ap.movable(snapshot_drain=False)  # join drain: write in flight
         ap.run.result.checkpoint = ""
         assert ap.movable()  # no durable ckpt, but the write in flight is adopted
         ap.run._ckpt_thread.join(timeout=0.01)
@@ -955,20 +957,26 @@ class TestServiceRuntime:
         assert not ap.movable()  # progress but nothing durable or in flight
         ap.run.result.checkpoint = "/some/ckpt"
         assert ap.movable()  # flushed
+        assert ap.movable(snapshot_drain=False)  # flushed, the join drain too
         ap.run.result.checkpoint = ""
+        assert not ap.movable(snapshot_drain=False)  # progress but nothing durable
         ap.run._step_no = 0
         assert ap.movable()  # nothing to lose
+        assert ap.movable(snapshot_drain=False)
         # Stacked placements are movable: the bucket drain snapshots
         # every live lane at its epoch boundary itself, and adopts an
-        # in-flight lane persist.
+        # in-flight lane persist; only the join drain defers it.
         ap.run._step_no = 8
         ap.stacked = True
         assert ap.movable()
+        assert ap.movable(snapshot_drain=False)
         ap.run._ckpt_thread = threading.Thread(
             target=time.sleep, args=(30,), daemon=True
         )
         ap.run._ckpt_thread.start()
+        assert not ap.movable(snapshot_drain=False)  # join drain defers
         assert ap.movable()  # adopted in-flight write
+        assert ap.movable(snapshot_drain=True)
 
 
 # --------------------------------------------------------------------
@@ -1375,28 +1383,37 @@ def test_migrated_victim_ends_bitwise(tmp_path, from_ram):
     assert books["drain_snapshot"]["count"] == 1 and books["drain_persist"]["count"] == 1
 
 
-def test_drained_stacked_bucket_ends_bitwise(tmp_path):
+@pytest.mark.parametrize("snapshot_drain", [True, False])
+def test_drained_stacked_bucket_ends_bitwise(tmp_path, snapshot_drain):
     """A co-packed bucket drained at a round boundary (its lanes snapshot
     together, then re-place as unstacked trials restoring from RAM) ends
-    bit-identical to the undisturbed bucket."""
+    bit-identical to the undisturbed bucket. Under the join drain the
+    lanes' writes are joined inside the drain, each lane is recorded
+    ``preempted`` before it returns, and the re-placed trials restore from
+    disk."""
     from multidisttorch_tpu_torch.train.checkpoint import ckpt_counters
 
     d = str(tmp_path / "svc")
     ca, cb = SweepClient(d, tenant="a"), SweepClient(d, tenant="b")
     cfgs = [dict(BASE, epochs=3, hidden_dim=16, seed=s) for s in (0, 1)]
     ids = [ca.submit(cfgs[0]), cb.submit(cfgs[1])]
-    svc = make_service(d, n_slices=2, max_lanes=2, defrag_enabled=False)
+    svc = make_service(d, n_slices=2, max_lanes=2, defrag_enabled=False, snapshot_drain=snapshot_drain)
     assert run_until(svc, lambda: svc.active and _one_active(svc).run.lanes[0] is not None
                      and _one_active(svc).run.lanes[0]["steps"] >= 6)
     ap = _one_active(svc)
-    assert ap.stacked and ap.movable()
+    assert ap.stacked and ap.movable(svc.snapshot_drain)
     restores = ckpt_counters()
     entries = svc._checkpoint_drain(ap, reason="deadline preemption")
     assert len(entries) == 2 and not svc.active
+    if not snapshot_drain:
+        assert not svc._pending_persists and ap.run._ckpt_idle()
+        with open(svc.ledger.path) as f:
+            assert f.read().count('"preempted"') == 2
     assert run_until(svc, lambda: len(svc.settled) == 2)
     assert set(svc.settled.values()) == {"completed"}
     got = ckpt_counters()
-    assert got["restores_ram"] - restores["restores_ram"] == 2
+    assert got["restores_ram"] - restores["restores_ram"] == (2 if snapshot_drain else 0)
+    assert got["restores"] - restores["restores"] == 2
     folded = fold_queue(load_queue(d))
     assert all(not folded[s]["last_placement"]["stacked"] for s in ids)
     ref = _run_hpo_ckpt(tmp_path, cfgs, [0, 1], "ref", stack_trials=True, stack_max_lanes=2)

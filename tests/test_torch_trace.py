@@ -2,8 +2,8 @@
 (``telemetry/trace.py`` and ``telemetry/slo.py``, copies of the JAX
 package's), one test for each of ``tests/test_trace.py``'s with the same
 assertions; the JAX file's ``sweep_trace`` CLI test is
-``tests/test_torch_consoles.py``'s, and its load-generator test waits for
-its module (ROADMAP A.12b).
+``tests/test_torch_consoles.py``'s, and its two load-generator tests are
+``tests/test_torch_loadgen.py``'s.
 
 The honesty contracts under test:
 
